@@ -13,12 +13,14 @@ Phases, each of which raises (exit code 1) on any failure:
 2. build: compile the CUDA kernels from ``incubator_mxnet_tpu_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, in parallel) and
    print the build time and ``ptxas`` register/spill lines;
-3. kernels: hold K1 flash_fwd, K2 paged_decode and K3 decode against
-   their plain PyTorch versions on the card at the serving path's shapes
-   (12 heads of 64), max abs error within ``KERNEL_TOL``; time each kernel,
-   its plain version and, where one PyTorch call computes the same
-   function, that call, with CUDA events, beside the least time the card
-   could take (the bound);
+3. kernels: hold K1 flash_fwd, K2 paged_decode, K3 decode, K4
+   paged_verify and K5 verify against their plain PyTorch versions on the
+   card at the serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5
+   and 9 query rows, rows running past T), max abs error within
+   ``KERNEL_TOL``; K2 == K3 and K4 == K5 bit for bit on the same live
+   K/V, K4 at Q = 1 against K2; time each kernel, its plain version and,
+   where one PyTorch call computes the same function, that call, with CUDA
+   events, beside the least time the card could take (the bound);
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -29,7 +31,18 @@ Phases, each of which raises (exit code 1) on any failure:
    run, a short request must equal the full-prefix ``net.generate``
    oracle (or differ only where the oracle's top-2 logit gap is below
    ``LOGIT_GAP_TOL``), and a dense (``paged=False``) engine must give the
-   same tokens.
+   same tokens;
+5. speculative path: the same target with a 6-layer draft of its width
+   (DistilGPT-2's shape: the target's embeddings, first 6 cells and
+   ``ln_f``) attached, ``spec_k`` 4, serving the same 8 requests behind a
+   ``ContinuousBatcher``; then a dense target with a dense draft over its
+   own net on one request.  Each run in its own launch-count window: the
+   paged run must launch K1, K2 (the draft's bursts) and K4 and not K5,
+   the dense run K1, K3 and K5 and not K4.  Every request must equal the
+   plain path's tokens (or first differ where the plain path's top-2
+   logit gap is below ``LOGIT_GAP_TOL``), and the two runs together must
+   have slot-steps that accepted all ``spec_k`` draft tokens and
+   slot-steps that rolled back.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
@@ -146,11 +159,12 @@ def check_k1(fa, dev, rng):
             "library_ms": lib, "shape": f"B={B} H={H} T={T} D={D} causal"}
 
 
-def decode_inputs(dev, rng, copies):
+def decode_inputs(dev, rng, copies, rows=1):
     """The serving path's decode shapes: 8 slots, 12 heads of 64, blocks
     of 16, 64 blocks per slot (max_len 1024) in a pool of 1 + 8 * 64,
-    tables shuffled and padded with the null block 0.  ``copies`` pools
-    (one per layer, as the engine holds them)."""
+    tables shuffled, holding the blocks up to each slot's position plus
+    ``rows - 1`` (a verify's last row) and padded with the null block 0.
+    ``copies`` pools (one per layer, as the engine holds them)."""
     S, H, D, bs, MB = 8, HEADS, HEAD_DIM, 16, 64
     NB = 1 + S * MB
     positions = np.array([0, 15, 16, 500, 1023, 1, 77, 256], np.int32)
@@ -158,7 +172,7 @@ def decode_inputs(dev, rng, copies):
     tables = np.zeros((S, MB), np.int32)
     used = 0
     for s in range(S):
-        live = int(positions[s]) // bs + 1
+        live = min(MB, (int(positions[s]) + rows - 1) // bs + 1)
         tables[s, :live] = perm[used:used + live]
         used += live
     sets = []
@@ -169,6 +183,14 @@ def decode_inputs(dev, rng, copies):
         sets.append((q, kp, vp))
     return (sets, torch.from_numpy(tables).to(dev),
             torch.from_numpy(positions).to(dev), positions, tables)
+
+
+def dense_view(pages, tables):
+    """A pool's blocks as each slot's dense (S, H, T, D) cache."""
+    S, MB = tables.shape
+    _, H, bs, D = pages.shape
+    return pages[tables.long()].permute(0, 2, 1, 3, 4) \
+        .reshape(S, H, MB * bs, D).contiguous()
 
 
 def check_k2_k3(fa, dev, rng):
@@ -183,11 +205,8 @@ def check_k2_k3(fa, dev, rng):
               + int((pos_h // bs + 1).sum())) * 4
     bnd, by = bound_ms(nbytes, 4 * H * live * D)
 
-    def dense(kp):
-        return kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(S, H, T, D) \
-            .contiguous()
-
-    dsets = [(q, dense(kp), dense(vp)) for q, kp, vp in sets]
+    dsets = [(q, dense_view(kp, tables), dense_view(vp, tables))
+             for q, kp, vp in sets]
     q, kp, vp = sets[0]
     got2 = fa.paged_decode_attention(q, kp, vp, tables, pos, scale=scale)
     e2 = max_err(got2, fa._plain_paged_decode_attention(
@@ -227,6 +246,84 @@ def check_k2_k3(fa, dev, rng):
          "replaces": TPU_KERNELS + "552", "max_abs_err": e3, "ms": k3,
          "plain_ms": k3_plain, "bound_ms": bnd, "bound_by": by,
          "library_ms": k3_lib, "shape": shape + f" T={T}"}]
+
+
+def check_k4_k5(fa, dev, rng):
+    """K4 paged_verify and K5 verify at the decode shapes with Q = 1, 5
+    and 9 query rows (the slot at 1023 runs past T = 1024).  Timed at
+    Q = 5, the verify of ``spec_k`` 4."""
+    sets, tables, pos, pos_h, _ = decode_inputs(dev, rng, 12, rows=9)
+    S, MB = tables.shape
+    _, H, bs, D = sets[0][1].shape
+    T = MB * bs
+    scale = 1.0 / math.sqrt(D)
+    _, kp, vp = sets[0]
+    kd, vd = dense_view(kp, tables), dense_view(vp, tables)
+    e4 = e5 = 0.0
+    for Q in (1, 5, 9):
+        q = torch.randn(S, H, Q, D, device=dev)
+        got4 = fa.paged_verify_decode_attention(q, kp, vp, tables, pos,
+                                                scale=scale)
+        got5 = fa.verify_decode_attention(q, kd, vd, pos, scale=scale)
+        err4 = max_err(got4, fa._plain_paged_verify_decode_attention(
+            q, kp, vp, tables, pos, scale))
+        err5 = max_err(got5, fa._plain_verify_decode_attention(
+            q, kd, vd, pos, scale))
+        same = bool(torch.equal(got4, got5))
+        print(f"K4 paged_verify S={S} H={H} Q={Q} bs={bs} MB={MB} D={D}: "
+              f"max_abs_err {err4:.3e}; K5 verify T={T}: max_abs_err "
+              f"{err5:.3e} (tol {KERNEL_TOL}); bitwise equal: {same}",
+              flush=True)
+        check(bool(torch.isfinite(got4).all()), f"K4 Q={Q}: non-finite")
+        check(err4 <= KERNEL_TOL, f"K4 Q={Q}: error {err4} > {KERNEL_TOL}")
+        check(err5 <= KERNEL_TOL, f"K5 Q={Q}: error {err5} > {KERNEL_TOL}")
+        check(same, f"K4 and K5 disagree on the same live K/V at Q={Q}")
+        e4, e5 = max(e4, err4), max(e5, err5)
+        if Q == 1:
+            k2 = fa.paged_decode_attention(q[:, :, 0].contiguous(), kp, vp,
+                                           tables, pos, scale=scale)
+            e = max_err(got4[:, :, 0], k2)
+            print(f"K4 at Q=1 against K2: max_abs_err {e:.3e} (tol "
+                  f"{KERNEL_TOL}); bitwise equal: "
+                  f"{bool(torch.equal(got4[:, :, 0], k2))}", flush=True)
+            check(e <= KERNEL_TOL, f"K4 at Q=1 differs from K2 by {e}")
+
+    Q = 5
+    vsets = [(torch.randn(S, H, Q, D, device=dev), kp, vp)
+             for _, kp, vp in sets]
+    dsets = [(q, dense_view(kp, tables), dense_view(vp, tables))
+             for q, kp, vp in vsets]
+    # the keys a (slot, head) must read, and the live (row, key) pairs
+    heads = np.minimum(pos_h.astype(np.int64)[:, None] + np.arange(Q), T - 1)
+    live = heads[:, -1] + 1
+    pairs = int((heads + 1).sum())
+    nbytes = (2 * H * int(live.sum()) * D + 2 * S * H * Q * D + S
+              + int(-(-live // bs).sum())) * 4
+    bnd, by = bound_ms(nbytes, 4 * H * pairs * D)
+    k4 = time_ms(lambda q, kp, vp: fa.paged_verify_decode_attention(
+        q, kp, vp, tables, pos, scale=scale), vsets, 50)
+    k4_plain = time_ms(lambda q, kp, vp:
+                       fa._plain_paged_verify_decode_attention(
+                           q, kp, vp, tables, pos, scale), vsets, 5)
+    k5 = time_ms(lambda q, k, v: fa.verify_decode_attention(
+        q, k, v, pos, scale=scale), dsets, 50)
+    k5_plain = time_ms(lambda q, k, v: fa._plain_verify_decode_attention(
+        q, k, v, pos, scale), dsets, 5)
+    keep = torch.arange(T, device=dev)[None, None, :] \
+        <= (pos.long()[:, None] + torch.arange(Q, device=dev))[:, :, None]
+    keep = keep[:, None]                                   # (S, 1, Q, T)
+    k5_lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep, scale=scale), dsets, 50)
+    shape = f"S={S} H={H} Q={Q} D={D} positions {pos_h.tolist()}"
+    return [
+        {"name": "paged_verify", "source": SOURCES + "paged_verify.cu",
+         "replaces": TPU_KERNELS + "962", "max_abs_err": e4, "ms": k4,
+         "plain_ms": k4_plain, "bound_ms": bnd, "bound_by": by,
+         "library_ms": None, "shape": shape + f" bs={bs} MB={MB}"},
+        {"name": "verify", "source": SOURCES + "verify.cu",
+         "replaces": TPU_KERNELS + "841", "max_abs_err": e5, "ms": k5,
+         "plain_ms": k5_plain, "bound_ms": bnd, "bound_by": by,
+         "library_ms": k5_lib, "shape": shape + f" T={T}"}]
 
 
 # ------------------------------------------------------------ phase 4
@@ -275,10 +372,34 @@ def served_requests(vocab, seed=SEED):
     return prompts, rng.randint(32, 65, len(prompts)).tolist()
 
 
+def same_or_near_tie(net, prompt, want, got, what):
+    """Check that ``got`` equals ``want`` (both continuations of
+    ``prompt``) or first differs at a token where ``want``'s top-2 logit
+    gap, from a full-prefix forward, is below ``LOGIT_GAP_TOL``: a greedy
+    near-tie that two attention paths may split.  Returns the index of
+    the first difference, or None."""
+    check(len(got) == len(want), f"{what}: {len(got)} tokens, expected "
+          f"{len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        with torch.no_grad():
+            lg = net(torch.tensor([list(prompt) + list(want[:i])],
+                                  device=net.device))
+        top2 = torch.topk(lg[0, -1], 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"{what}: differs at token {i}: top-2 logit gap {gap:.3e} "
+              f"(tol {LOGIT_GAP_TOL})", flush=True)
+        check(gap < LOGIT_GAP_TOL, f"{what}: {got} != {want}")
+        return i
+    return None
+
+
 def drive_path(fa):
     """The paged main path (8 batched requests), then the dense engine on
     one request, each in its own launch-count window.  Returns the two
-    windows' counts."""
+    windows' counts, the served net, and the requests with their plain
+    paged outputs."""
     from incubator_mxnet_tpu_torch.serving import (ContinuousBatcher,
                                                    GenerationEngine)
     net, eng = build_served()
@@ -386,20 +507,139 @@ def drive_path(fa):
     ids = torch.tensor([p0], device=net.device)
     oracle = net.generate(ids, max_new_tokens=n_cmp,
                           use_cache=False)[0, len(p0):].tolist()
-    for i in range(n_cmp):
-        if oracle[i] == outs[0][i]:
-            continue
-        with torch.no_grad():
-            lg = net(torch.tensor([p0 + oracle[:i]], device=net.device))
-        top2 = torch.topk(lg[0, -1], 2).values
-        gap = float(top2[0] - top2[1])
-        print(f"path: oracle differs at token {i}: top-2 logit gap {gap:.3e}"
-              f" (tol {LOGIT_GAP_TOL})", flush=True)
-        check(gap < LOGIT_GAP_TOL, f"oracle {oracle} != served {outs[0]}")
-        break
-    else:
+    if same_or_near_tie(net, p0, oracle, outs[0][:n_cmp],
+                        "path: served vs the oracle") is None:
         print(f"path: the first {n_cmp} tokens equal net.generate("
               "use_cache=False)", flush=True)
+    return counts, dense_counts, net, prompts, budgets, outs
+
+
+# ------------------------------------------------------------ phase 5
+def build_draft(net, num_layers=6):
+    """DistilGPT-2's shape (``gpt2_124m`` with 6 layers) holding the
+    target's embeddings, first ``num_layers`` cells and ``ln_f``: a
+    layer-truncated draft that agrees with the target often enough at
+    random weights to be accepted."""
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_124m
+    draft = gpt2_124m(dropout=0.0, num_layers=num_layers, device=net.device)
+    missing, unexpected = draft.load_state_dict(net.state_dict(),
+                                                strict=False)
+    check(not missing and all(k.startswith("cells.") for k in unexpected),
+          f"draft weights: missing {missing}")
+    return draft
+
+
+def record_spec_steps(eng):
+    """Wrap ``eng.spec_step`` to log each call's host-clock seconds (each
+    returns host arrays, so each ends synchronised with the card) and the
+    accept count of every live slot (free slots ride along at position
+    0).  Returns the log; ``del eng.spec_step`` unwraps."""
+    log = []
+    real = eng.spec_step
+
+    def step(last, pos):
+        t = time.perf_counter()
+        out, acc = real(last, pos)
+        log.append((time.perf_counter() - t,
+                    [int(a) for a, p in zip(acc, pos) if p > 0]))
+        return out, acc
+    eng.spec_step = step
+    return log
+
+
+def drive_spec_path(fa, net, prompts, budgets, plain):
+    """The paged speculative path (the 8 requests behind a
+    ``ContinuousBatcher``), then a dense target with a dense draft over
+    its own net on one request, each in its own launch-count window.
+    ``plain`` holds the plain paged path's outputs.  Returns the two
+    windows' counts."""
+    from incubator_mxnet_tpu_torch.serving import (ContinuousBatcher,
+                                                   GenerationEngine)
+    t0 = time.perf_counter()
+    eng = GenerationEngine(net, name="gpt2_124m")
+    draft = GenerationEngine(build_draft(net), name="draft6")
+    eng.attach_draft(draft)
+    k = eng.spec_k
+    check(k == 4 and draft.scan_steps == k and draft.paged,
+          f"spec defaults changed: spec_k {k}, draft {draft!r}")
+    n_warm = eng.warmup()
+    torch.cuda.synchronize()
+    print(f"spec: target {eng!r} + draft {draft!r}, spec_k {k}; built and "
+          f"warmed ({n_warm} target dispatches) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    log = record_spec_steps(eng)
+
+    fa.reset_launch_counts()                 # --- the paged spec path
+    t0 = time.perf_counter()
+    bat = ContinuousBatcher(eng)
+    try:
+        reqs = []
+        for p, b in zip(prompts, budgets):
+            reqs.append(bat.submit_async(p, max_new_tokens=b))
+            time.sleep(0.03)
+        outs = [r.result(timeout=300) for r in reqs]
+        wall = time.perf_counter() - t0
+        stats = bat.stats()
+    finally:
+        bat.close()
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the paged spec path
+    del eng.spec_step
+
+    dense = GenerationEngine(net, name="dense", paged=False)
+    dense.attach_draft(GenerationEngine(net, name="dense-draft",
+                                        paged=False))
+    dense_log = record_spec_steps(dense)
+    fa.reset_launch_counts()                 # --- the dense spec path
+    dense_out = dense.generate(prompts[0], budgets[0])
+    torch.cuda.synchronize()
+    dense_counts = dict(fa.launch_counts)    # --- end of the dense spec path
+
+    n_tok = sum(len(o) for o in outs)
+    ms = [dt * 1e3 for dt, _ in log]
+    hist = np.bincount([a for _, acc in log for a in acc], minlength=k + 1)
+    dense_hist = np.bincount([a for _, acc in dense_log for a in acc],
+                             minlength=k + 1)
+    print(f"spec: {len(reqs)} requests, budgets {budgets}: {n_tok} tokens "
+          f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+          f"{stats['spec_dispatches']} verify dispatches, "
+          f"{stats['accepted_tokens_per_dispatch']:.3f} tokens per verify "
+          f"dispatch per slot, accept rate {stats['spec_accept_rate']:.3f}",
+          flush=True)
+    print(f"spec: spec_step: {len(ms)} calls, mean {np.mean(ms):.2f} ms "
+          f"(min {np.min(ms):.2f}, max {np.max(ms):.2f}) per step of up to "
+          f"8 slots; accepted per live slot-step {hist.tolist()} (index = "
+          f"draft tokens accepted of {k}); pool rewinds {eng.pool.rewinds} "
+          f"target, {draft.pool.rewinds} draft", flush=True)
+    print(f"spec: dense run: {len(dense_out)} tokens in {len(dense_log)} "
+          f"spec steps, accepted per step {dense_hist.tolist()}", flush=True)
+    print(f"spec: launches on the paged spec path {counts}; on the dense "
+          f"spec path {dense_counts}", flush=True)
+    for name, want in (("flash_fwd", True), ("paged_decode", True),
+                       ("paged_verify", True), ("decode", False),
+                       ("verify", False)):
+        check((counts[name] > 0) == want, f"paged spec path: kernel {name} "
+              f"launched {counts[name]} times")
+    for name, want in (("flash_fwd", True), ("decode", True),
+                       ("verify", True), ("paged_decode", False),
+                       ("paged_verify", False)):
+        check((dense_counts[name] > 0) == want, f"dense spec path: kernel "
+              f"{name} launched {dense_counts[name]} times")
+    # at random weights the truncated draft is rarely accepted, so the
+    # full-accept branch may run only in the dense run, whose draft is
+    # the target's own net
+    both = hist + dense_hist
+    check(both[k] > 0, "no slot-step accepted every draft token")
+    check(both[:k].sum() > 0, "no slot-step rolled back a draft token")
+    split = 0
+    for i, (p, want, got) in enumerate(zip(prompts, plain, outs)):
+        split += same_or_near_tie(net, p, want, got,
+                                  f"spec: request {i}") is not None
+    split += same_or_near_tie(net, prompts[0], plain[0], dense_out,
+                              "spec: dense request 0") is not None
+    print(f"spec: {len(outs) + 1 - split} of {len(outs) + 1} requests equal "
+          f"the plain path's tokens; {split} first differ at a near-tie",
+          flush=True)
     return counts, dense_counts
 
 
@@ -433,7 +673,8 @@ def main():
 
     rng = np.random.RandomState(SEED)
     torch.manual_seed(SEED)
-    rows = [check_k1(fa, dev, rng)] + check_k2_k3(fa, dev, rng)
+    rows = [check_k1(fa, dev, rng)] + check_k2_k3(fa, dev, rng) \
+        + check_k4_k5(fa, dev, rng)
     for r in rows:
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
@@ -441,13 +682,17 @@ def main():
               f"[{card}]", flush=True)
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
-    # main path, K3 on the dense engine's run
+    # main path, K3 on the dense engine's run, K4 on the paged spec path,
+    # K5 on the dense spec run
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
-        counts, dense_counts = drive_path(fa)
+        counts, dense_counts, net, prompts, budgets, plain = drive_path(fa)
+        spec, dense_spec = drive_spec_path(fa, net, prompts, budgets, plain)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
-                    "decode": dense_counts["decode"]}
+                    "decode": dense_counts["decode"],
+                    "paged_verify": spec["paged_verify"],
+                    "verify": dense_spec["verify"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -25,11 +25,13 @@ __all__ = ["KERNELS", "build_all", "library", "build_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-HEADERS = ("common.cuh", "decode_common.cuh")
+HEADERS = ("common.cuh", "decode_common.cuh", "verify_common.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
-           "decode": "decode.cu"}
+           "decode": "decode.cu",
+           "paged_verify": "paged_verify.cu",
+           "verify": "verify.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -115,13 +117,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mx_error_string.argtypes = [i]
     lib.mx_error_string.restype = ctypes.c_char_p
-    if name == "flash_fwd":
-        fn = lib.mx_flash_fwd
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
-    elif name == "paged_decode":
-        fn = lib.mx_paged_decode
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    else:
-        fn = lib.mx_decode
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    # each C entry point's arguments in order; the last is the stream
+    argtypes = {
+        "flash_fwd": [p, p, p, p, p, i, i, i, i, f, i, p],
+        "paged_decode": [p, p, p, p, p, p, i, i, i, i, i, i, f, p],
+        "decode": [p, p, p, p, p, i, i, i, i, f, p],
+        "paged_verify": [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
+        "verify": [p, p, p, p, p, i, i, i, i, i, f, p],
+    }
+    fn = getattr(lib, "mx_" + name)
+    fn.argtypes = argtypes[name]
     fn.restype = i

@@ -1,0 +1,23 @@
+// K4 paged_verify: Q query rows per slot against a paged KV cache (the
+// speculative-decode verify step of the default paged engine).
+//
+// Replaces: _paged_verify_kernel in incubator_mxnet_tpu/kernels/
+// flash_attention.py (launched by _paged_verify_pallas).  q (S, H, Q, D),
+// pages (NB, H, bs, D), an int32 block table (S, MB) padded with the null
+// block 0, and positions (S,): row j of slot s attends to logical positions
+// 0..min(positions[s] + j, MB * bs - 1), key t living in
+// pages[tables[s, t / bs], h, t % bs].  The Pallas kernel walks every table
+// entry and masks; this one stops at the last row's head (masked keys weigh
+// exactly 0 there, so the results match).  Bound and design: see
+// verify_common.cuh.
+#include "verify_common.cuh"
+
+extern "C" int mx_paged_verify(const float* q, const float* k_pages,
+                               const float* v_pages, const int* tables,
+                               const int* positions, float* o, int S, int H,
+                               int NB, int bs, int MB, int Q, int D,
+                               float scale, void* stream) {
+  const mxdec::PagedKV kv{k_pages, v_pages, tables, H, NB, bs, MB};
+  return mxver::launch(q, kv, positions, o, S, H, Q, D, scale,
+                       static_cast<cudaStream_t>(stream));
+}

@@ -1,7 +1,7 @@
 """Attention kernels of the PyTorch port (counterpart of
 ``incubator_mxnet_tpu/kernels/flash_attention.py``).
 
-Three public entry points keep the JAX signatures and layouts:
+Five public entry points keep the JAX signatures and layouts:
 
 * :func:`flash_attention` — (B, H, T, D) self-attention, dense or causal,
   with an optional (B, T) key-validity mask; CUDA kernel K1
@@ -10,7 +10,14 @@ Three public entry points keep the JAX signatures and layouts:
   cache; CUDA kernel K3 ``csrc/decode.cu`` (replaces ``_decode_kernel``);
 * :func:`paged_decode_attention` — one query per slot through an int32
   block table over (NB, H, bs, D) pages; CUDA kernel K2
-  ``csrc/paged_decode.cu`` (replaces ``_paged_decode_kernel``).
+  ``csrc/paged_decode.cu`` (replaces ``_paged_decode_kernel``);
+* :func:`verify_decode_attention` — Q query rows per slot (row j causal
+  at ``positions[s] + j``) over a dense cache, the speculative-decode
+  verify step; CUDA kernel K5 ``csrc/verify.cu`` (replaces
+  ``_verify_kernel``);
+* :func:`paged_verify_decode_attention` — the same through the block
+  table; CUDA kernel K4 ``csrc/paged_verify.cu`` (replaces
+  ``_paged_verify_kernel``).
 
 Each entry takes its plain PyTorch version (``_plain_*``, ports of the
 JAX oracles' arithmetic) only when its tensors lie on the CPU.  For CUDA
@@ -34,11 +41,13 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
+           "verify_decode_attention", "paged_verify_decode_attention",
            "launch_counts", "reset_launch_counts"]
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
+_VERIFY_CHUNK = 8       # query rows per block of K4/K5 (kChunk)
 
 # kernel name -> launches since the last reset (kernel launches only; the
 # plain versions never count)
@@ -103,17 +112,50 @@ def _plain_decode_attention(q, k, v, positions, scale):
     return torch.einsum("sht,shtd->shd", p, v.float()).to(q.dtype)
 
 
-def _plain_paged_decode_attention(q, k_pages, v_pages, tables, positions,
-                                  scale):
-    """Gather each slot's blocks into a dense (S, H, T, D) view and reuse
-    :func:`_plain_decode_attention`.  Table entries are clamped into the
-    pool, as the JAX gather clamps them."""
+def _gather_pages(k_pages, v_pages, tables):
+    """Each slot's blocks as a dense (S, H, MB * bs, D) view of K and of V.
+    Table entries are clamped into the pool, as the JAX gather clamps
+    them."""
     S, nb = tables.shape
     NB, H, bs, D = k_pages.shape
     idx = tables.long().clamp(0, NB - 1)
     k = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(S, H, nb * bs, D)
     v = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(S, H, nb * bs, D)
+    return k, v
+
+
+def _plain_paged_decode_attention(q, k_pages, v_pages, tables, positions,
+                                  scale):
+    """Gather each slot's blocks into a dense (S, H, T, D) view and reuse
+    :func:`_plain_decode_attention`."""
+    k, v = _gather_pages(k_pages, v_pages, tables)
     return _plain_decode_attention(q, k, v, positions, scale)
+
+
+def _plain_verify_decode_attention(q, k, v, positions, scale):
+    """(S, H, Q, D) query-block attention over (S, H, T, D) caches: row j
+    of slot s attends to entries ``<= positions[s] + j`` (causal inside
+    the block; stale entries past each row's head are masked, as in
+    single-query decode)."""
+    S, H, Q, D = q.shape
+    T = k.shape[2]
+    s = torch.einsum("shqd,shtd->shqt", q.float(), k.float()) * scale
+    qpos = positions.long()[:, None] \
+        + torch.arange(Q, device=q.device)[None, :]           # (S, Q)
+    live = torch.arange(T, device=q.device)[None, None, None, :] \
+        <= qpos[:, None, :, None]
+    s = s.masked_fill(~live, NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("shqt,shtd->shqd", p, v.float()).to(q.dtype)
+
+
+def _plain_paged_verify_decode_attention(q, k_pages, v_pages, tables,
+                                         positions, scale):
+    """Gather each slot's blocks into a dense (S, H, T, D) view and reuse
+    :func:`_plain_verify_decode_attention`."""
+    k, v = _gather_pages(k_pages, v_pages, tables)
+    return _plain_verify_decode_attention(q, k, v, positions, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +271,56 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     return o
 
 
+def _verify_checks(name, q, positions, S, H, D):
+    _check(name, q.device, q=(q, torch.float32),
+           positions=(positions, torch.int32))
+    if q.dim() != 4 or tuple(q.shape[:2]) != (S, H) or q.shape[3] != D \
+            or tuple(positions.shape) != (S,):
+        raise MXNetError(f"{name}: q {tuple(q.shape)} / positions "
+                         f"{tuple(positions.shape)} do not match ({S}, {H}, "
+                         f"Q, {D}) / ({S},)")
+    _head_dim_ok(name, D)
+    chunks = -(-q.shape[2] // _VERIFY_CHUNK)
+    if S > _MAX_GRID_Y or chunks > _MAX_GRID_Y:
+        raise MXNetError(f"{name}: {S} slots or {q.shape[2]} query rows "
+                         f"exceed the grid")
+
+
+def _verify_cuda(q, k, v, positions, scale):
+    """K5 on CUDA tensors: q (S, H, Q, D), k/v (S, H, T, D) fp32, positions
+    (S,) int32 read by the kernel on the device."""
+    S, H, T, D = k.shape
+    _verify_checks("verify", q, positions, S, H, D)
+    _check("verify", q.device, k=(k, torch.float32), v=(v, torch.float32))
+    if v.shape != k.shape:
+        raise MXNetError("verify: k and v shapes differ")
+    o = torch.empty_like(q)
+    if q.numel() == 0 or T == 0:
+        return o.zero_()
+    _launch("verify", q, k, v, positions, o, S, H, T, q.shape[2], D,
+            float(scale))
+    return o
+
+
+def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
+    """K4 on CUDA tensors: q (S, H, Q, D), pages (NB, H, bs, D) fp32,
+    tables (S, MB) and positions (S,) int32, both read by the kernel on
+    the device."""
+    NB, H, bs, D = k_pages.shape
+    S, MB = tables.shape
+    _verify_checks("paged_verify", q, positions, S, H, D)
+    _check("paged_verify", q.device, k_pages=(k_pages, torch.float32),
+           v_pages=(v_pages, torch.float32), tables=(tables, torch.int32))
+    if v_pages.shape != k_pages.shape:
+        raise MXNetError("paged_verify: k_pages and v_pages shapes differ")
+    o = torch.empty_like(q)
+    if q.numel() == 0 or MB == 0:
+        return o.zero_()
+    _launch("paged_verify", q, k_pages, v_pages, tables, positions, o,
+            S, H, NB, bs, MB, q.shape[2], D, float(scale))
+    return o
+
+
 def _route(name, t):
     """'cpu' or 'cuda' for the device of ``t``; anything else raises."""
     if t.device.type in ("cpu", "cuda"):
@@ -295,3 +387,39 @@ def paged_decode_attention(q, k_pages, v_pages, tables, positions,
         return _plain_paged_decode_attention(q, k_pages, v_pages, tables,
                                              positions, scale)
     return _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale)
+
+
+def verify_decode_attention(q, k, v, positions, scale=None):
+    """Per-slot query-block attention over a dense KV cache (the
+    speculative-decode verify step).
+
+    ``q`` (S, H, Q, D): row j is the query of the token at logical
+    position ``positions[s] + j``; ``k``/``v`` (S, H, T, D): the cache,
+    already holding all Q positions' K/V; ``positions`` (S,) int32: the
+    base position of row 0.  Row j attends to entries ``<= positions[s] +
+    j``; with Q == 1 this is :func:`decode_attention`.  Any Q >= 1; the
+    kernel reads ``positions`` on the device.  Returns (S, H, Q, D)."""
+    D = k.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if _route("verify_decode_attention", q) == "cpu":
+        return _plain_verify_decode_attention(q, k, v, positions, scale)
+    return _verify_cuda(q, k, v, positions, scale)
+
+
+def paged_verify_decode_attention(q, k_pages, v_pages, tables, positions,
+                                  scale=None):
+    """Per-slot query-block attention over a PAGED KV cache.
+
+    ``q`` (S, H, Q, D): row j at logical position ``positions[s] + j``;
+    ``k_pages``/``v_pages`` (num_blocks, H, block_size, D); ``tables``
+    (S, max_blocks) int32 padded with the null block 0; ``positions`` (S,)
+    int32 base positions.  Tables and positions are read on the device.
+    Returns (S, H, Q, D)."""
+    D = k_pages.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if _route("paged_verify_decode_attention", q) == "cpu":
+        return _plain_paged_verify_decode_attention(q, k_pages, v_pages,
+                                                    tables, positions, scale)
+    return _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale)

@@ -7,9 +7,10 @@ requests, admit queued requests into free slots (one ``prefill`` each,
 emitting the first token), then advance every live slot with one
 ``decode`` — or with one ``decode_burst`` of up to ``engine.scan_steps``
 tokens when the boundary sees steady state (nothing queued, nothing
-cancelled).  Tokens stream back per request as they are produced, so a
-late request emits its first token while earlier ones are still
-decoding."""
+cancelled), or, when the engine has a draft attached, with one
+speculative step of 1 to ``spec_k + 1`` tokens per slot.  Tokens stream
+back per request as they are produced, so a late request emits its first
+token while earlier ones are still decoding."""
 from __future__ import annotations
 
 import os
@@ -63,6 +64,10 @@ class _GenRequest:
         self.t_first: Optional[float] = None
         self.t_emit = self.t_submit     # time of the last emission
         self.slot: Optional[int] = None
+        # speculative decoding: tokens the draft proposed for this request
+        # and how many of them the target kept
+        self.draft_tokens = 0
+        self.accepted_tokens = 0
         self._q = _pyqueue.Queue()
         self._cancelled = False
 
@@ -149,6 +154,13 @@ class ContinuousBatcher:
         # slot, so per-step decode reads 1.0 and bursts approach 1/k
         self._dpt_dispatches = 0
         self._dpt_tokens = 0.0
+        # speculative steps: verify dispatches, and per live slot-step the
+        # tokens emitted, drafted and accepted
+        self._spec_dispatches = 0
+        self._spec_slot_steps = 0
+        self._spec_emitted = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._thread = threading.Thread(
             target=self._worker, name=f"mxtorch-serve-{self.name}",
             daemon=True)
@@ -263,7 +275,7 @@ class ContinuousBatcher:
 
     def _run_step(self, leavers, joins):
         """Outside the lock: settle leavers, prefill the joins, then ONE
-        decode or burst dispatch for every live slot."""
+        decode, burst or speculative step for every live slot."""
         self._step += 1
         for slot, req, reason in leavers:
             self._leave(slot, req, reason)
@@ -272,7 +284,9 @@ class ContinuousBatcher:
         live = self._live()
         if not live:
             return
-        if self._burst_ready(live):
+        if self.engine.draft is not None:
+            self._spec_once(live)
+        elif self._burst_ready(live):
             self._decode_burst_once(live)
         else:
             self._decode_once(live)
@@ -363,6 +377,47 @@ class ContinuousBatcher:
                 self._free_slot(s, r, "finished")
         self._dpt_dispatches += 1
         self._dpt_tokens += total / max(1, len(live))
+
+    def _spec_once(self, live):
+        """ONE speculative step (the draft's proposals, then one verify)
+        advances every live slot by 1 to ``spec_k + 1`` tokens, emitted
+        one at a time with the finish check after each.  The same tokens
+        as that many :meth:`_decode_once` steps; joins and leaves stay at
+        step boundaries, so a joining request never sees a neighbour's
+        rollback."""
+        S = int(self.engine.max_slots)
+        k = int(self.engine.spec_k)
+        last = _np.zeros(S, _np.int32)
+        pos = _np.zeros(S, _np.int32)
+        for s, r in live:
+            last[s] = r.tokens_out[-1]
+            pos[s] = r.n + len(r.tokens_out) - 1
+        try:
+            out, accepted = self.engine.spec_step(last, pos)
+        except Exception as e:
+            self._decode_failed(live, e)
+            return
+        # free slots ride along at position 0: only live slots count, and
+        # a budget or eos cut inside the step caps the accepted count
+        step_emitted = 0
+        for s, r in live:
+            n_emit = 0
+            for j in range(int(accepted[s]) + 1):
+                self._emit(r, [int(out[s, j])])
+                n_emit += 1
+                if self._finished(r):
+                    self._free_slot(s, r, "finished")
+                    break
+            r.draft_tokens += k
+            r.accepted_tokens += n_emit - 1
+            step_emitted += n_emit
+        self._spec_dispatches += 1
+        self._spec_slot_steps += len(live)
+        self._spec_emitted += step_emitted
+        self._spec_drafted += len(live) * k
+        self._spec_accepted += step_emitted - len(live)
+        self._dpt_dispatches += 1
+        self._dpt_tokens += step_emitted / max(1, len(live))
 
     # -- step-boundary helpers ------------------------------------------
     def _emit(self, req: _GenRequest, toks) -> None:
@@ -459,5 +514,15 @@ class ContinuousBatcher:
                     self._dpt_dispatches / max(self._dpt_tokens, 1e-9)
                     if self._dpt_dispatches else None,
             }
+            if self.engine.draft is not None:
+                out.update({
+                    "spec_k": int(self.engine.spec_k),
+                    "spec_draft_model": self.engine.draft.name,
+                    "spec_dispatches": self._spec_dispatches,
+                    "accepted_tokens_per_dispatch":
+                        self._spec_emitted / max(1, self._spec_slot_steps),
+                    "spec_accept_rate":
+                        self._spec_accepted / max(1, self._spec_drafted),
+                })
         out.update(self.engine.kv_stats())
         return out

@@ -8,7 +8,9 @@ donated cache becomes an in-place update of the pool tensors
 (``index_put_`` / slice assignment).  The kernels are the port's own:
 prefill self-attention goes through :func:`..models.bert._sdpa` (kernel
 K1 on the card), decode through :func:`paged_decode_attention` (K2) or,
-in the dense layout, :func:`decode_attention` (K3).
+in the dense layout, :func:`decode_attention` (K3), and the
+speculative-decode verify through :func:`paged_verify_decode_attention`
+(K4) or :func:`verify_decode_attention` (K5).
 
 Layouts (fp32, as in the JAX engine):
 
@@ -23,8 +25,9 @@ Layouts (fp32, as in the JAX engine):
 JAX clamps out-of-range gathers and ``dynamic_update_slice`` starts where
 torch raises; the engine reproduces the clamps it relies on explicitly
 (the null-block redirect of :meth:`_scatter_strips`, the position clamp
-of the prefix-hit prefill, the table-column clamp of decode) and checks
-the host inputs it is given."""
+of the prefix-hit prefill, the table-column clamp of decode, the dropped
+or null-block verify writes past ``max_len``) and checks the host inputs
+it is given."""
 from __future__ import annotations
 
 import math
@@ -35,7 +38,9 @@ import torch
 
 from ..base import MXNetError, getenv_bool, getenv_int
 from ..kernels.flash_attention import (NEG, decode_attention,
-                                       paged_decode_attention)
+                                       paged_decode_attention,
+                                       paged_verify_decode_attention,
+                                       verify_decode_attention)
 from .kvcache import BlockPool, blocks_for
 from .sampling import (SamplingParams, root_key, sample_tokens, step_keys,
                        topn_logprobs)
@@ -67,7 +72,10 @@ class GenerationEngine:
     * ``decode(last_tokens, positions)`` advances EVERY slot one token;
     * ``decode_burst(...)`` advances every slot up to ``scan_steps``
       tokens with a per-slot done mask kept on the device, so the k steps
-      run without a host round-trip between them.
+      run without a host round-trip between them;
+    * with a draft engine attached (:meth:`attach_draft`),
+      ``spec_step(...)`` lets the draft propose ``spec_k`` tokens per slot
+      and scores all ``spec_k + 1`` positions in one :meth:`verify`.
 
     Free slots ride along in decode (their writes land in the null block,
     or in their own dense row at position 0).  The cache is single-writer:
@@ -167,13 +175,20 @@ class GenerationEngine:
         self._samp_logprobs = _np.zeros(self.max_slots, bool)
         self._samp_dev = None
         self._last_logprobs = None
+        self._last_verify_logprobs = None
+        # speculative decoding: a draft engine attached by attach_draft
+        # proposes spec_k tokens per slot for one verify to score
+        self.draft: Optional["GenerationEngine"] = None
+        self.spec_k = 0
         self._cache: Tuple[torch.Tensor, ...] = ()
         self.reset()
 
     # -- sampling plane --------------------------------------------------
     def set_slot_sampling(self, slot: int, params=None) -> None:
         """Install a request's :class:`~.sampling.SamplingParams` into
-        ``slot`` before its prefill (None: greedy)."""
+        ``slot`` before its prefill (None: greedy).  Cascades to an
+        attached draft, so its proposals are drawn from the same key
+        stream (the coupling that speculative sampling needs)."""
         s = int(slot)
         if not 0 <= s < self.max_slots:
             raise MXNetError(f"{self.name}: slot {s} out of range")
@@ -190,13 +205,18 @@ class GenerationEngine:
         self._samp_keys[s] = root_key(p.seed or 0)
         self._samp_logprobs[s] = int(p.logprobs) > 0
         self._samp_dev = None
+        if self.draft is not None:
+            self.draft.set_slot_sampling(s, params)
 
     def update_slot_bias(self, slot: int, row) -> None:
-        """Replace ``slot``'s logit-bias row for the next dispatch."""
+        """Replace ``slot``'s logit-bias row for the next dispatch
+        (cascades to an attached draft)."""
         s = int(slot)
         self._samp_bias[s] = _np.asarray(row, _np.float32).reshape(
             self.vocab_size)
         self._samp_dev = None
+        if self.draft is not None:
+            self.draft.update_slot_bias(s, row)
 
     def last_logprobs(self):
         """Host ``(values, token ids)`` of the most recent decode, (S, N),
@@ -207,6 +227,15 @@ class GenerationEngine:
         lp = self._last_logprobs
         if lp is not None and isinstance(lp[0], torch.Tensor):
             lp = self._last_logprobs = tuple(a.cpu().numpy() for a in lp)
+        return lp
+
+    def last_verify_logprobs(self):
+        """Host ``(values, token ids)`` of the most recent :meth:`verify`,
+        each (S, Q, N); None when no slot of it asked for logprobs."""
+        lp = self._last_verify_logprobs
+        if lp is not None and isinstance(lp[0], torch.Tensor):
+            lp = self._last_verify_logprobs = tuple(a.cpu().numpy()
+                                                    for a in lp)
         return lp
 
     def _samp_tensors(self):
@@ -220,9 +249,9 @@ class GenerationEngine:
 
     def _sample(self, lg, key_idx, slots=None):
         """Next token for each row of ``lg`` (R, V), the rows being
-        ``slots`` (default: all slots); ``key_idx`` (R,) int64 the
-        positions the sampled tokens will occupy.  Returns (tokens (R,)
-        int64, logprobs pair or None), both on the device."""
+        ``slots`` (default: all slots; a slot may repeat); ``key_idx``
+        (R,) int64 the positions the sampled tokens will occupy.  Returns
+        (tokens (R,) int64, logprobs pair or None), both on the device."""
         temps, topks, topps, biases, roots = self._samp_tensors()
         want = self._samp_logprobs
         if slots is not None:
@@ -240,7 +269,10 @@ class GenerationEngine:
     def reset(self):
         """Zero the cache: all slots free.  Paged mode also rewipes the
         block pool, every block table and the prefix cache — cached K/V
-        must never outlive the params that computed it."""
+        must never outlive the params that computed it.  Cascades to an
+        attached draft."""
+        if self.draft is not None:
+            self.draft.reset()
         self._samp_dev = None
         if self.paged:
             shape = (self.num_blocks, self.num_heads, self.block_size,
@@ -333,7 +365,14 @@ class GenerationEngine:
 
         Paged mode first reserves the slot's blocks for ``reserve_tokens``
         positions (default ``max_len``: prompt + budget), so decode never
-        allocates; a prefix-cache hit runs only the unshared suffix."""
+        allocates; a prefix-cache hit runs only the unshared suffix.
+
+        With a draft attached, the draft is prefilled first with the same
+        prompt into the same slot, so its write head tracks this one (its
+        first token is discarded: only this engine's tokens are emitted),
+        and both engines reserve ``spec_k`` more positions: a verify near
+        the budget edge writes up to ``spec_k`` positions past the last
+        consumed token.  A failed prefill frees the draft's slot too."""
         toks = _np.asarray(tokens, _np.int32).reshape(-1)
         n = int(toks.shape[0])
         slot = int(slot)
@@ -349,6 +388,19 @@ class GenerationEngine:
         if int(toks.min()) < 0 or int(toks.max()) >= self.vocab_size:
             raise MXNetError(f"{self.name}: token ids outside the vocab "
                              f"[0, {self.vocab_size})")
+        if self.draft is None:
+            return self._prefill_own(toks, n, slot, reserve_tokens)
+        self.draft._warming = self._warming
+        self.draft.prefill(toks, slot, reserve_tokens=int(
+            reserve_tokens or self.max_len) + self.spec_k)
+        try:
+            return self._prefill_own(toks, n, slot, reserve_tokens)
+        except Exception:
+            self.draft.release_slot(slot)
+            raise
+
+    def _prefill_own(self, toks, n: int, slot: int, reserve_tokens) -> int:
+        """:meth:`prefill` of this engine alone, on checked inputs."""
         if not self.paged:
             bucket = self.prefill_bucket_for(n)
             padded = _np.zeros((1, bucket), _np.int64)
@@ -362,9 +414,10 @@ class GenerationEngine:
                 self._cache[self.num_layers + l][slot, :, :bucket] = vs[l]
             return self._first_token(last, n, slot)
         if self._slot_blocks[slot]:
-            self.release_slot(slot)
-        reserve = max(n + 1, min(int(reserve_tokens or self.max_len),
-                                 self.max_len))
+            self._release_blocks(slot)
+        reserve = int(reserve_tokens or self.max_len) \
+            + (self.spec_k if self.draft is not None else 0)
+        reserve = max(n + 1, min(reserve, self.max_len))
         table, m = self.pool.allocate(toks, n, reserve,
                                       share=not self._warming)
         self._slot_blocks[slot] = table
@@ -447,38 +500,58 @@ class GenerationEngine:
         return self._first_token(last, ctx + sn, slot)
 
     # -- decode ----------------------------------------------------------
+    def _layers(self, lt, emb_pos, write, attend):
+        """The model over Q tokens per slot: ``lt`` (S, Q) int64 token ids
+        embedded at positions ``emb_pos`` (S, Q).  In layer ``l``,
+        ``write(l, k, v)`` stores the new K/V (S, Q, H, D) into that
+        layer's cache in place, then ``attend(l, q)`` returns the
+        attention of the queries q (S, Q, H, D) as (S, Q, H, D).  Returns
+        the logits (S, Q, V)."""
+        H, D = self.num_heads, self.head_dim
+        S, Q = lt.shape
+        h = self.block.drop(self.block.embed(lt)
+                            + self.block.pos_embed(emb_pos))
+        for l, cell in enumerate(self._cells):
+            at = cell.attention
+            hn = cell.ln1(h)
+            q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
+            # the JAX program scatters into a donated copy of the cache;
+            # the port writes the pool tensors in place
+            write(l, kn.reshape(S, Q, H, D), vn.reshape(S, Q, H, D))
+            attn = attend(l, q.reshape(S, Q, H, D))
+            h = h + at.dropout(at.proj(attn.reshape(S, Q, H * D)))
+            h = h + cell.ffn(cell.ln2(h))
+        return self.block._project(self.block.ln_f(h))
+
     def _step_logits(self, lt, pos, blk=None, off=None):
         """One position for every slot: ``lt`` (S,) int64 tokens at write
         heads ``pos`` (S,) int64.  Writes each slot's K/V in place — at
         ``(blk, off)`` in the pools when paged, else at ``pos`` in its
         dense row — then attends over positions ``<= pos`` through K2 or
         K3.  Returns the logits (S, V)."""
-        L, H, D = self.num_layers, self.num_heads, self.head_dim
-        S = lt.shape[0]
+        L = self.num_layers
+        ck, cv = self._cache[:L], self._cache[L:]
         pos32 = pos.to(torch.int32)
-        rows = torch.arange(S, device=lt.device)
-        h = self.block.drop(self.block.embed(lt[:, None])
-                            + self.block.pos_embed(pos[:, None]))
-        for l, cell in enumerate(self._cells):
-            at = cell.attention
-            hn = cell.ln1(h)
-            q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
-            qh = q.reshape(S, H, D)
-            ck, cv = self._cache[l], self._cache[L + l]
-            # the JAX program scatters into a donated copy of the cache;
-            # the port writes the pool tensors in place
-            if self.paged:
-                ck[blk, :, off] = kn.reshape(S, H, D)
-                cv[blk, :, off] = vn.reshape(S, H, D)
-                attn = paged_decode_attention(qh, ck, cv,
-                                              self._tables_tensor(), pos32)
-            else:
-                ck[rows, :, pos] = kn.reshape(S, H, D)
-                cv[rows, :, pos] = vn.reshape(S, H, D)
-                attn = decode_attention(qh, ck, cv, pos32)
-            h = h + at.dropout(at.proj(attn.reshape(S, 1, H * D)))
-            h = h + cell.ffn(cell.ln2(h))
-        return self.block._project(self.block.ln_f(h))[:, 0]
+        if self.paged:
+            tables = self._tables_tensor()
+
+            def write(l, k, v):
+                ck[l][blk, :, off] = k[:, 0]
+                cv[l][blk, :, off] = v[:, 0]
+
+            def attend(l, q):
+                return paged_decode_attention(q[:, 0], ck[l], cv[l], tables,
+                                              pos32)[:, None]
+        else:
+            rows = torch.arange(lt.shape[0], device=lt.device)
+
+            def write(l, k, v):
+                ck[l][rows, :, pos] = k[:, 0]
+                cv[l][rows, :, pos] = v[:, 0]
+
+            def attend(l, q):
+                return decode_attention(q[:, 0], ck[l], cv[l], pos32)[:, None]
+        return self._layers(lt[:, None], pos[:, None], write, attend)[:, 0]
 
     def _block_of(self, pos):
         """Physical block of each slot's write head; the table column is
@@ -566,10 +639,205 @@ class GenerationEngine:
         return (torch.stack(toks).cpu().numpy().astype(_np.int32),
                 emitted.cpu().numpy().astype(_np.int32))
 
+    # -- speculative decoding --------------------------------------------
+    def attach_draft(self, draft: "GenerationEngine",
+                     spec_k: Optional[int] = None) -> None:
+        """Attach a (small) draft engine for speculative decoding.
+
+        The draft proposes ``spec_k`` tokens per slot (default
+        ``MXNET_SPEC_K``, 4); :meth:`verify` scores all ``spec_k + 1``
+        positions at once.  The draft must mirror this engine's slot
+        layout and position space: the same ``max_slots``, a ``max_len``
+        at least this one's, the same vocabulary (sampled ids are
+        compared).  Attach before :meth:`warmup`."""
+        if draft is self:
+            raise MXNetError(f"{self.name}: a model cannot draft itself")
+        if int(draft.max_slots) != self.max_slots:
+            raise MXNetError(
+                f"{self.name}: draft max_slots {draft.max_slots} != "
+                f"target max_slots {self.max_slots}")
+        if int(draft.max_len) < self.max_len:
+            raise MXNetError(
+                f"{self.name}: draft max_len {draft.max_len} < target "
+                f"max_len {self.max_len} (the draft decodes at the same "
+                f"positions)")
+        if int(draft.vocab_size) != self.vocab_size:
+            raise MXNetError(f"{self.name}: draft vocab {draft.vocab_size} "
+                             f"!= target vocab {self.vocab_size}")
+        k = int(spec_k if spec_k is not None
+                else getenv_int("MXNET_SPEC_K", 4))
+        if k < 1:
+            raise MXNetError(f"spec_k must be >= 1, got {k}")
+        self.draft = draft
+        self.spec_k = k
+        # the draft's tokens are never emitted, so it computes no logprobs
+        draft.logprobs_topn = 0
+        # the k draft steps run as one burst; scan_steps == 0 (bursts
+        # switched off) keeps the host loop of spec_step
+        if draft.scan_steps != 0:
+            draft.scan_steps = k
+
+    @torch.no_grad()
+    def verify(self, tokens, positions):
+        """Score Q positions for EVERY slot at once: ``tokens`` (S, Q) —
+        column 0 each slot's last accepted token, columns 1..Q-1 the
+        draft's proposals — at base write heads ``positions`` (S,).
+
+        Writes the Q positions' K/V per slot and layer — dense writes past
+        ``max_len`` are dropped, paged writes past the slot's reservation
+        or ``max_len`` go to the null block, so an overrun row near the
+        budget edge never lands on a live entry — embeds row j at position
+        ``min(positions[s] + j, max_len - 1)``, and attends through K4 or
+        K5.  Returns a host int32 (S, Q) array: ``out[s, j]`` is the token
+        sampled after consuming ``tokens[s, :j + 1]``, keyed at position
+        ``positions[s] + j + 1`` exactly as :meth:`decode` keys it there.
+        With Q == 1 this is :meth:`decode`."""
+        S, L = self.max_slots, self.num_layers
+        H, D = self.num_heads, self.head_dim
+        toks = _np.asarray(tokens, _np.int64).reshape(S, -1)
+        Q = toks.shape[1]
+        pos_h = self._host_positions(positions)
+        pos_q_h = pos_h[:, None] + _np.arange(Q)[None, :]           # (S, Q)
+        pos_q = self._ids(pos_q_h)
+        pos32 = self._ids(pos_h).to(torch.int32)
+        ck, cv = self._cache[:L], self._cache[L:]
+        if self.paged:
+            tables = self._tables_tensor()
+            MB = self.max_blocks_per_slot
+            col = pos_q // self.block_size
+            ok = (col < MB) & (pos_q < self.max_len)
+            rows = torch.arange(S, device=self.device)[:, None]
+            blk = torch.where(ok, tables[rows, col.clamp(max=MB - 1)].long(),
+                              torch.zeros_like(col))
+            off = pos_q % self.block_size
+
+            def write(l, k, v):
+                # several redirected (slot, row) pairs may land on one null
+                # block address: it is garbage by contract and no live row
+                # reads a position written there
+                ck[l][blk, :, off] = k
+                cv[l][blk, :, off] = v
+
+            def attend(l, q):
+                return paged_verify_decode_attention(
+                    q.transpose(1, 2).contiguous(), ck[l], cv[l], tables,
+                    pos32).transpose(1, 2)
+        else:
+            keep = _np.flatnonzero(pos_q_h.reshape(-1) < self.max_len)
+            src = self._ids(keep)
+            ri, pi = self._ids(keep // Q), self._ids(pos_q_h.reshape(-1)[keep])
+
+            def write(l, k, v):
+                ck[l][ri, :, pi] = k.reshape(S * Q, H, D)[src]
+                cv[l][ri, :, pi] = v.reshape(S * Q, H, D)[src]
+
+            def attend(l, q):
+                return verify_decode_attention(
+                    q.transpose(1, 2).contiguous(), ck[l], cv[l],
+                    pos32).transpose(1, 2)
+        lg = self._layers(self._ids(toks),
+                          torch.clamp(pos_q, max=self.max_len - 1),
+                          write, attend)
+        # each slot's sampling parameters repeated over its Q rows
+        nxt, lp = self._sample(lg.reshape(S * Q, -1),
+                               (pos_q + 1).reshape(-1),
+                               _np.repeat(_np.arange(S), Q))
+        self._last_verify_logprobs = None if lp is None else tuple(
+            a.reshape(S, Q, -1) for a in lp)
+        return nxt.reshape(S, Q).cpu().numpy().astype(_np.int32)
+
+    def spec_step(self, last_tokens, positions):
+        """One speculative step for EVERY slot: the draft proposes
+        ``spec_k`` tokens per slot (one burst, or ``spec_k`` decodes when
+        the draft's bursts are off), then one :meth:`verify` scores all
+        ``spec_k + 1`` positions.
+
+        Acceptance is the JAX engine's Gumbel-coupled speculative
+        sampling: both engines key their samples by (slot root, position),
+        so at every position they share one noise vector, and a draft
+        token is accepted while it equals the target's sample there.
+        Every emitted token is a target sample, the same token plain
+        decode emits at that position, at any accept rate; greedy is the
+        temperature-0 case.
+
+        Returns ``(out, accepted)``: ``out`` (S, spec_k + 1) int32, of
+        which ``out[s, :accepted[s] + 1]`` are this step's tokens, and
+        ``accepted`` (S,) in ``[0, spec_k]``.  Rejected positions are
+        rolled back by not advancing past them: their stale K/V is masked
+        and overwritten by the next dispatch, and in paged mode
+        :meth:`~.kvcache.BlockPool.rewind` keeps that overwrite out of
+        any shared block."""
+        if self.draft is None:
+            raise MXNetError(f"{self.name}: no draft attached "
+                             "(attach_draft first)")
+        k, S = self.spec_k, self.max_slots
+        last = _np.asarray(last_tokens, _np.int32).reshape(S)
+        pos = self._host_positions(positions)
+        # The draft never writes past position max_len - 1.  A proposal
+        # consumed at position p is a guess for position p + 1, and no
+        # token is ever emitted at max_len or later, so a slot's burst
+        # stops after max_len - pos steps (its later proposals repeat the
+        # last one, as a frozen burst slot does) and every proposal that
+        # can be emitted is still the one JAX drafts.  The JAX draft runs
+        # on past the cap, with dropped or clamped writes, where the
+        # port's index checks would raise.
+        room = self.max_len - pos
+        if self.draft.scan_steps == k:
+            drafted, _ = self.draft.decode_burst(
+                last, pos, budgets=_np.minimum(room, k + 1),
+                eos_ids=_np.full(S, -1, _np.int32),
+                active=_np.ones(S, bool))
+            drafted = _np.ascontiguousarray(drafted.T)              # (S, k)
+        else:
+            drafted = _np.zeros((S, k), _np.int32)
+            lt, pv = last, pos
+            for j in range(k):
+                nxt = _np.asarray(self.draft.decode(lt, pv),
+                                  _np.int32).reshape(S)
+                drafted[:, j] = nxt
+                go = pv + 1 < self.max_len
+                lt, pv = _np.where(go, nxt, lt), _np.where(go, pv + 1, pv)
+        out = self.verify(_np.concatenate([last[:, None], drafted], axis=1),
+                          pos)
+        match = out[:, :k] == drafted                               # (S, k)
+        accepted = _np.where(match.all(axis=1), k,
+                             _np.argmin(match, axis=1))
+        if self.paged or self.draft.paged:
+            self._rollback_rejected(pos, accepted)
+        return out, accepted
+
+    def _rollback_rejected(self, base_positions, accepted) -> None:
+        """Paged rollback after a verify: for every slot that rejected
+        draft tokens, run the pool's copy-on-write guard over the dirty
+        tail of both engines' tables, so the next dispatch's overwrites
+        cannot touch a shared block."""
+        for s in range(self.max_slots):
+            if int(accepted[s]) >= self.spec_k:
+                continue
+            keep = int(base_positions[s]) + int(accepted[s]) + 1
+            for eng in (self, self.draft):
+                if not eng.paged or not eng._slot_blocks[s]:
+                    continue
+                blocks = eng._slot_blocks[s]
+                new = eng.pool.rewind(blocks, keep)
+                if new != blocks:
+                    eng._slot_blocks[s] = new
+                    row = _np.zeros(eng.max_blocks_per_slot, _np.int32)
+                    row[:len(new)] = new
+                    eng._tables[s] = row
+                    eng._tables_dev = None
+
     # -- paged-pool bookkeeping (no-ops in dense mode) --------------------
     def release_slot(self, slot: int) -> None:
         """Return ``slot``'s blocks to the pool (decref: shared prefix
-        blocks stay live for their other readers and the prefix cache)."""
+        blocks stay live for their other readers and the prefix cache).
+        Cascades to an attached draft's mirrored slot."""
+        if self.draft is not None:
+            self.draft.release_slot(slot)
+        self._release_blocks(slot)
+
+    def _release_blocks(self, slot: int) -> None:
+        """:meth:`release_slot` of this engine's own blocks."""
         if not self.paged:
             return
         blocks = self._slot_blocks[int(slot)]
@@ -583,12 +851,20 @@ class GenerationEngine:
                   reserved_blocks: int = 0) -> bool:
         """Can the pool reserve worst-case capacity for this prompt now?
         ``reserved_blocks`` discounts capacity promised to earlier admits
-        of the same scheduling step.  Dense mode always admits."""
+        of the same scheduling step.  Dense mode always admits.  With a
+        draft attached both pools must fit the reservation plus the
+        ``spec_k`` verify headroom."""
+        if self.draft is not None and not self.draft.can_admit(
+                tokens, int(reserve_tokens) + self.spec_k,
+                reserved_blocks):
+            return False
         if not self.paged:
             return True
         toks = _np.asarray(tokens, _np.int32).reshape(-1)
         n = int(toks.shape[0])
-        reserve = max(n + 1, min(int(reserve_tokens), self.max_len))
+        reserve = int(reserve_tokens) \
+            + (self.spec_k if self.draft is not None else 0)
+        reserve = max(n + 1, min(reserve, self.max_len))
         return self.pool.can_admit(toks, n, reserve, reserved_blocks)
 
     def reserve_estimate(self, reserve_tokens: int) -> int:
@@ -596,8 +872,9 @@ class GenerationEngine:
         positions takes (no sharing assumed)."""
         if not self.paged:
             return 0
-        return blocks_for(min(int(reserve_tokens), self.max_len),
-                          self.block_size)
+        reserve = int(reserve_tokens) \
+            + (self.spec_k if self.draft is not None else 0)
+        return blocks_for(min(reserve, self.max_len), self.block_size)
 
     def kv_capacity_tokens(self) -> int:
         """Token positions the KV cache holds across all requests."""
@@ -625,9 +902,10 @@ class GenerationEngine:
     def warmup(self) -> int:
         """Run every entry point once — each prefill bucket (miss, and
         with the prefix cache the suffix variant, whose writes land in
-        the null block), decode and the burst — so kernels are built and
-        the allocator is warm, then reset the cache.  Returns the number
-        of dispatches warmed."""
+        the null block), decode, the burst and, with a draft attached,
+        verify — so kernels are built and the allocator is warm, then
+        reset the cache and warm the draft.  Returns the number of this
+        engine's dispatches warmed."""
         n = 0
         self._warming = True
         try:
@@ -653,17 +931,28 @@ class GenerationEngine:
                                   _np.full(self.max_slots, -1, _np.int32),
                                   _np.ones(self.max_slots, bool))
                 n += 1
+            if self.draft is not None:
+                self.verify(_np.zeros((self.max_slots, self.spec_k + 1),
+                                      _np.int32), zeros)
+                n += 1
         finally:
             self._warming = False
         self.reset()
+        if self.draft is not None:
+            self.draft.warmup()
         return n
 
     def generate(self, tokens, max_new_tokens: int = 32,
-                 eos_id: Optional[int] = None, sampling=None):
+                 eos_id: Optional[int] = None,
+                 speculative: Optional[bool] = None, sampling=None):
         """Solo generation through the serving entry points (slot 0):
-        prefill, then one :meth:`decode` per token.  ``sampling`` is an
-        optional :class:`~.sampling.SamplingParams` (None: greedy).
-        Returns the generated tokens as a list."""
+        prefill, then one :meth:`decode` per token — or, with a draft
+        attached, one :meth:`spec_step` per 1 to ``spec_k + 1`` tokens
+        (the default then; ``speculative=False`` forces plain decode).
+        Every emitted token is a target sample either way, so the outputs
+        are the same.  ``sampling`` is an optional
+        :class:`~.sampling.SamplingParams` (None: greedy).  Returns the
+        generated tokens as a list."""
         toks = list(_np.asarray(tokens, _np.int32).reshape(-1))
         n = len(toks)
         budget = min(int(max_new_tokens), self.max_len - n)
@@ -671,6 +960,8 @@ class GenerationEngine:
             raise MXNetError(
                 f"{self.name}: no token budget (prompt {n}, max_len "
                 f"{self.max_len})")
+        spec = self.draft is not None and (speculative is None
+                                           or bool(speculative))
         self.set_slot_sampling(0, sampling)
         out = [self.prefill(toks, 0, reserve_tokens=n + budget)]
         try:
@@ -680,7 +971,15 @@ class GenerationEngine:
                                          or out[-1] != int(eos_id)):
                 lt[0] = out[-1]
                 pv[0] = n + len(out) - 1
-                out.append(int(self.decode(lt, pv)[0]))
+                if not spec:
+                    out.append(int(self.decode(lt, pv)[0]))
+                    continue
+                burst, acc = self.spec_step(lt, pv)
+                for t in burst[0, :int(acc[0]) + 1]:
+                    out.append(int(t))
+                    if len(out) >= budget or (eos_id is not None
+                                              and out[-1] == int(eos_id)):
+                        break
         finally:
             self.release_slot(0)
         return out

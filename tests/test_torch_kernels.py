@@ -288,4 +288,5 @@ def test_cuda_decode_kernels_match_plain(D):
     # one loop over two address computations: bitwise equal on the card
     np.testing.assert_array_equal(dense.cpu().numpy(), got.cpu().numpy())
     assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 1,
-                                 "decode": 1}
+                                 "decode": 1, "paged_verify": 0,
+                                 "verify": 0}

@@ -15,7 +15,12 @@ prompts of 5 to 700 tokens and measures four windows:
 * ``burst``: one ``decode_burst`` of 8 steps over the 8 live slots;
 * ``decode``: one per-step ``decode`` over the 8 live slots;
 * ``prefill-1024`` / ``prefill-64``: one prefix-cache-miss prefill in
-  the 1024- and 64-token buckets.
+  the 1024- and 64-token buckets;
+* ``spec-step``: one speculative step over the 8 live slots of a second
+  target engine with ``chip_smoke.py``'s 6-layer draft attached
+  (``build_draft``, ``spec_k`` 4), and its two parts on their own:
+  ``spec-draft``, the draft's burst of 4 steps, and ``verify``, the
+  target's verify of 5 rows per slot.
 
 For each window it prints the host-clock wall time (median of
 ``--repeats`` unprofiled runs, each ending synchronised), then one
@@ -35,8 +40,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (LENGTHS, build_served, card_line,  # noqa: E402
-                        served_requests)
+from chip_smoke import (LENGTHS, build_draft, build_served,  # noqa: E402
+                        card_line, served_requests)
 
 
 def kernel_times(prof):
@@ -148,6 +153,41 @@ def main():
     measure("decode", fill, decode, args.repeats, card)
     measure("prefill-1024", *prefill(1000), args.repeats, card)
     measure("prefill-64", *prefill(60), args.repeats, card)
+
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    spec = GenerationEngine(net, name="spec")
+    spec.attach_draft(GenerationEngine(build_draft(net), name="draft6"))
+    spec.warmup()
+    sk = spec.spec_k
+
+    def fill_spec():
+        """All 8 slots of the target and its draft live, each just past
+        its prompt, and the draft's 4 proposals for the verify window."""
+        spec.reset()
+        last = np.zeros(S, np.int32)
+        for s, p in enumerate(prompts):
+            last[s] = spec.prefill(p, s, reserve_tokens=len(p) + 64)
+        state["last"] = last
+        state["pos"] = np.array(LENGTHS, np.int32)
+        toks, _ = spec.draft.decode_burst(last, state["pos"],
+                                          np.full(S, sk + 1), np.full(S, -1),
+                                          np.ones(S, bool))
+        state["rows"] = np.concatenate([last[:, None], toks.T], axis=1)
+
+    def spec_step():
+        spec.spec_step(state["last"], state["pos"])
+
+    def spec_draft():
+        spec.draft.decode_burst(state["last"], state["pos"],
+                                np.full(S, sk + 1), np.full(S, -1),
+                                np.ones(S, bool))
+
+    def verify():
+        spec.verify(state["rows"], state["pos"])
+
+    measure("spec-step", fill_spec, spec_step, args.repeats, card)
+    measure("spec-draft", fill_spec, spec_draft, args.repeats, card)
+    measure("verify", fill_spec, verify, args.repeats, card)
     print(f"launches: {dict(fa.launch_counts)}", flush=True)
 
 
