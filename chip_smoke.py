@@ -18,9 +18,15 @@ Phases, each of which raises (exit code 1) on any failure:
    card at the serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5
    and 9 query rows, rows running past T), max abs error within
    ``KERNEL_TOL``; K2 == K3 and K4 == K5 bit for bit on the same live
-   K/V, K4 at Q = 1 against K2; time each kernel, its plain version and,
-   where one PyTorch call computes the same function, that call, with CUDA
-   events, beside the least time the card could take (the bound);
+   K/V, K4 at Q = 1 against K2; K1's logsumexp output, K6 flash_bwd_dq
+   and K7 flash_bwd_dkv against the plain forward-with-lse and backward
+   at the training path's attention shape (BERT-large: B = 32, 16 heads
+   of 64, T = 128), with a ragged key mask at T = 512 (B = 8) and causal
+   at a ragged T, within ``KERNEL_TOL`` (relative where a value exceeds
+   1); time each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call (for K6/K7 the backward of
+   ``scaled_dot_product_attention``), with CUDA events, beside the least
+   time the card could take (the bound);
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -42,7 +48,20 @@ Phases, each of which raises (exit code 1) on any failure:
    plain path's tokens (or first differ where the plain path's top-2
    logit gap is below ``LOGIT_GAP_TOL``), and the two runs together must
    have slot-steps that accepted all ``spec_k`` draft tokens and
-   slot-steps that rolled back.
+   slot-steps that rolled back;
+6. training path: BERT-large (``bert_large``: 24 layers of 1024 units,
+   16 heads of 64, FFN 4096, vocab 30522) at full width and depth with
+   random ``Normal(0.02)`` weights from the seed, ``BERTForPretrain`` +
+   ``BERTPretrainLoss`` + Adam (lr 1e-4) through ``SPMDTrainer`` on a
+   ``{"data": 1}`` mesh, fp32, on one fixed batch (B = 32, T = 128) drawn
+   as ``bench.py`` draws it: 2 warm-up steps, then 5 timed steps in their
+   own launch-count window, which must launch K1, K6 and K7 exactly 24
+   times per step and no serving kernel; every loss finite and the loss
+   after the steps below the first.  Then one full-width
+   ``TransformerEncoderCell`` (B = 32, T = 128, ragged valid lengths)
+   must give the same input and parameter gradients through the kernels
+   as through the plain attention on the card, within ``CELL_TOL`` of
+   each gradient's largest value.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
@@ -64,6 +83,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 SEED = 0
 KERNEL_TOL = 1e-4       # kernel vs plain, both fp32: summation order only
 LOGIT_GAP_TOL = 1e-3    # a greedy near-tie the two attention paths may split
+CELL_TOL = 1e-4         # cell gradients, kernels vs plain attention, relative
+                        # to each gradient's largest value
+TRAIN_B, TRAIN_T = 32, 128
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+BERT_HEADS, BERT_LAYERS, BERT_VOCAB = 16, 24, 30522
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor-core) peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -113,6 +137,16 @@ def time_ms(fn, arg_sets, reps):
 def max_err(a, b):
     torch.cuda.synchronize()
     return float((a.float() - b.float()).abs().max())
+
+
+def check_close(what, got, want, tol=KERNEL_TOL):
+    """Max abs error of ``got`` against ``want``; fails past ``tol`` times
+    the larger of 1 and ``want``'s largest magnitude."""
+    e = max_err(got, want)
+    lim = tol * max(1.0, float(want.abs().max()))
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(e <= lim, f"{what}: error {e} > {lim}")
+    return e
 
 
 # ------------------------------------------------------------ phase 3
@@ -324,6 +358,124 @@ def check_k4_k5(fa, dev, rng):
          "replaces": TPU_KERNELS + "841", "max_abs_err": e5, "ms": k5,
          "plain_ms": k5_plain, "bound_ms": bnd, "bound_by": by,
          "library_ms": k5_lib, "shape": shape + f" T={T}"}]
+
+
+def check_k6_k7(fa, dev, rng):
+    """K1 with lse, K6 flash_bwd_dq and K7 flash_bwd_dkv against the plain
+    forward-with-lse and backward on the same inputs: BERT-large's
+    attention (B=32, H=16, T=128, D=64, dense, no mask), a ragged key mask
+    at T=512 (B=8) and causal at T=300 with a mask.  Also K1's lse through
+    the public ``flash_attention_lse``.  Timed at the first shape, the
+    training path's."""
+    H, D = BERT_HEADS, HEAD_DIM
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    def key_mask(B, T):
+        m = np.ones((B, T), np.float32)
+        for b in range(B):
+            m[b, rng.randint(1, T + 1):] = 0.0      # ragged valid length
+        return torch.from_numpy(m).to(dev)
+
+    e_lse = e6 = e7 = 0.0
+    for B, T, causal, masked in ((TRAIN_B, TRAIN_T, False, False),
+                                 (8, 512, False, True), (2, 300, True, True)):
+        q, k, v, g = (rand(B * H, T, D) for _ in range(4))
+        mask = key_mask(B, T) if masked else None
+        bias = fa._key_bias(mask, B, T, dev)
+        out, lse = fa._flash_fwd_cuda(q, k, v, bias, scale, causal, H,
+                                      with_lse=True)
+        pout, plse = fa._plain_attention_lse(q, k, v, scale, causal,
+                                             fa._per_head(bias, H))
+        e_out = check_close(f"K1 T={T} out", out, pout)
+        el = check_close(f"K1 T={T} lse", lse, plse)
+        dd = fa._bwd_dd(out, g)
+        dq, dk, dv, dbs = fa._flash_bwd_cuda(q, k, v, bias, g, lse, dd,
+                                             scale, causal, H)
+        pdq, pdk, pdv, pdbs = fa._plain_flash_bwd_dd(q, k, v, bias, g, plse,
+                                                     fa._bwd_dd(pout, g),
+                                                     scale, causal, H)
+        ea = check_close(f"K6 T={T} dq", dq, pdq)
+        eb = max(check_close(f"K7 T={T} dk", dk, pdk),
+                 check_close(f"K7 T={T} dv", dv, pdv),
+                 check_close(f"K7 T={T} dbias rows", dbs, pdbs))
+        print(f"K1+lse / K6 / K7 B={B} H={H} T={T} D={D} causal={causal} "
+              f"mask={masked}: max_abs_err out {e_out:.3e} lse {el:.3e} "
+              f"dq {ea:.3e} dk/dv/dbs {eb:.3e} (tol {KERNEL_TOL}, relative "
+              f"past 1)", flush=True)
+        e_lse, e6, e7 = max(e_lse, el), max(e6, ea), max(e7, eb)
+    # the public entry: (B, H, T, D) with a (B, T) mask
+    B, T = 4, 200
+    q, k, v = (rand(B, H, T, D) for _ in range(3))
+    mask = key_mask(B, T)
+    out, lse = fa.flash_attention_lse(q, k, v, mask=mask)
+    pout, plse = fa._plain_attention_lse(
+        *(x.reshape(B * H, T, D) for x in (q, k, v)), scale, False,
+        fa._per_head(fa._key_bias(mask, B, T, dev), H))
+    el = check_close("flash_attention_lse lse", lse.reshape(B * H, T), plse)
+    check_close("flash_attention_lse out", out.reshape(B * H, T, D), pout)
+    print(f"flash_attention_lse B={B} H={H} T={T}: lse max_abs_err "
+          f"{el:.3e}", flush=True)
+    e_lse = max(e_lse, el)
+
+    # timing at the training path's shape, 8 rotating input sets
+    B, T = TRAIN_B, TRAIN_T
+    BH = B * H
+    sets = []
+    for _ in range(8):
+        q, k, v, g = (torch.randn(BH, T, D, device=dev) for _ in range(4))
+        out, lse = fa._flash_fwd_cuda(q, k, v, None, scale, False, H,
+                                      with_lse=True)
+        sets.append((q, k, v, g, lse, fa._bwd_dd(out, g)))
+    outs = [torch.empty(BH, T, D, device=dev) for _ in range(2)]
+    dbs = torch.empty(BH, T, device=dev, dtype=f32)
+    args = (BH, H, T, D, float(scale), 0)
+    k6 = time_ms(lambda q, k, v, g, lse, dd: fa._launch(
+        "flash_bwd_dq", q, k, v, None, g, lse, dd, outs[0], *args), sets, 20)
+    k7 = time_ms(lambda q, k, v, g, lse, dd: fa._launch(
+        "flash_bwd_dkv", q, k, v, None, g, lse, dd, outs[0], outs[1], dbs,
+        *args), sets, 20)
+    plain = time_ms(lambda q, k, v, g, lse, dd: fa._plain_flash_bwd_dd(
+        q, k, v, None, g, lse, dd, scale, False, H), sets, 5)
+    k1_lse = time_ms(lambda q, k, v, *_: fa._flash_fwd_cuda(
+        q, k, v, None, scale, False, H, with_lse=True), sets, 20)
+    k1 = time_ms(lambda q, k, v, *_: fa._flash_fwd_cuda(
+        q, k, v, None, scale, False, H), sets, 20)
+
+    def sdpa_bwd(wrt):
+        """``scaled_dot_product_attention``'s backward alone, w.r.t. the
+        inputs ``wrt`` indexes, over the same sets (forward outside the
+        timed region)."""
+        graphs = []
+        for q, k, v, g, *_ in sets:
+            xs = [x.reshape(B, H, T, D).detach().requires_grad_()
+                  for x in (q, k, v)]
+            o = F.scaled_dot_product_attention(*xs, scale=scale)
+            graphs.append((o, [xs[i] for i in wrt], g.reshape(B, H, T, D)))
+        return time_ms(lambda o, x, g: torch.autograd.grad(
+            o, x, g, retain_graph=True), graphs, 20)
+
+    lib6, lib7 = sdpa_bwd((0,)), sdpa_bwd((1, 2))
+    n = BH * T
+    bnd6, by6 = bound_ms((5 * n * D + 2 * n) * 4, 6 * BH * T * T * D)
+    bnd7, by7 = bound_ms((6 * n * D + 3 * n) * 4, 8 * BH * T * T * D)
+    bnd1, _ = bound_ms((4 * n * D + n) * 4, 4 * BH * T * T * D)
+    print(f"time: K1 flash_fwd at the training shape (B={B} H={H} T={T} "
+          f"D={D}, dense): {k1:.4f} ms without lse, {k1_lse:.4f} ms with "
+          f"lse, bound {bnd1:.4f} ms", flush=True)
+    shape = f"B={B} H={H} T={T} D={D} dense"
+    return e_lse, [
+        {"name": "flash_bwd_dq", "source": SOURCES + "flash_bwd_dq.cu",
+         "replaces": TPU_KERNELS + "184", "max_abs_err": e6, "ms": k6,
+         "plain_ms": plain, "bound_ms": bnd6, "bound_by": by6,
+         "library_ms": lib6, "shape": shape},
+        {"name": "flash_bwd_dkv", "source": SOURCES + "flash_bwd_dkv.cu",
+         "replaces": TPU_KERNELS + "227", "max_abs_err": e7, "ms": k7,
+         "plain_ms": plain, "bound_ms": bnd7, "bound_by": by7,
+         "library_ms": lib7, "shape": shape}]
 
 
 # ------------------------------------------------------------ phase 4
@@ -643,6 +795,145 @@ def drive_spec_path(fa, net, prompts, budgets, plain):
     return counts, dense_counts
 
 
+# ------------------------------------------------------------ phase 6
+def bert_batch(V, B, T, seed=SEED):
+    """``bench.py``'s batch (bench.py:183-202): from ``default_rng(seed)``,
+    the settling batch it draws first, then ids, zero token types and the
+    packed labels (T MLM targets + 1 NSP class, float32)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, V, (B, T))                  # bench.py's settle batch
+    ids = rng.integers(0, V, (B, T)).astype(np.int32)
+    types = np.zeros((B, T), np.int32)
+    labels = np.concatenate([rng.integers(0, V, (B, T)),
+                             rng.integers(0, 2, (B, 1))],
+                            axis=1).astype(np.float32)
+    return ids, types, labels
+
+
+def drive_training(fa, card):
+    """BERT-large pretraining steps through ``SPMDTrainer``: 2 warm-up
+    steps, then ``TRAIN_STEPS`` timed steps in their own launch-count
+    window.  Returns the window's counts."""
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    V, B, T = BERT_VOCAB, TRAIN_B, TRAIN_T
+    t0 = time.perf_counter()
+    net = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
+                                   vocab_size=V)
+    net.initialize(init.Normal(0.02), seed=SEED)
+    trainer = SPMDTrainer(net, bert_mod.BERTPretrainLoss(V), "adam",
+                          {"learning_rate": 1e-4},
+                          mesh=make_mesh({"data": 1}))
+    n_params = sum(p.numel() for p in net.parameters())
+    torch.cuda.synchronize()
+    print(f"train: bert_large + pretrain heads on {net.device}, "
+          f"{n_params} parameters, Normal(0.02) seed {SEED}, built in "
+          f"{time.perf_counter() - t0:.1f} s; B={B} T={T} fp32, Adam lr "
+          f"1e-4, mesh {trainer.mesh}", flush=True)
+    ids, types, labels = bert_batch(V, B, T)
+    losses = [trainer.step(ids, types, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fa.reset_launch_counts()                 # --- the training path
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.step(ids, types, labels))
+    end.record()
+    end.synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the training path
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        dev = net.device
+        after = float(bert_mod.BERTPretrainLoss(V)(
+            *net(torch.from_numpy(ids).to(dev),
+                 torch.from_numpy(types).to(dev)),
+            torch.from_numpy(labels).to(dev)))
+    losses = [float(x) for x in losses]
+    print(f"train: losses {[round(x, 5) for x in losses]}; after the "
+          f"{len(losses)} steps {after:.5f}", flush=True)
+    print(f"train: {ms:.2f} ms per step, {B * 1e3 / ms:.2f} samples/s over "
+          f"{TRAIN_STEPS} steps (B={B} T={T}, CUDA events), peak "
+          f"{peak:.2f} GiB allocated [{card}]", flush=True)
+    print(f"train: launches in the {TRAIN_STEPS}-step window {counts}",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses + [after]),
+          "a non-finite loss")
+    check(after < losses[0], f"loss did not fall: {losses[0]} -> {after}")
+    want = BERT_LAYERS * TRAIN_STEPS
+    for name, n in counts.items():
+        expect = want if name in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv") else 0
+        check(n == expect, f"training path: kernel {name} launched {n} "
+              f"times, expected {expect}")
+    del trainer, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_cell_grads(fa, dev):
+    """One full-width ``TransformerEncoderCell`` (1024 units, 16 heads,
+    FFN 4096) at B=32, T=128 with ragged valid lengths: input and
+    parameter gradients through the kernels (K1 with lse, K6, K7) against
+    the same cell with the plain attention on the card."""
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    B, T, C = TRAIN_B, TRAIN_T, 1024
+    cell = bert_mod.TransformerEncoderCell(C, 4096, BERT_HEADS, device=dev)
+    init.initialize(cell, init.Normal(0.02), SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(B, T, C, device=dev, generator=gen)
+    dy = torch.randn(B, T, C, device=dev, generator=gen)
+    valid = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
+    mask = (torch.arange(T, device=dev)[None] < valid[:, None]).float()
+    params = list(cell.parameters())
+
+    def grads():
+        xi = x.clone().requires_grad_()
+        return torch.autograd.grad(cell(xi, mask), [xi] + params, dy)
+
+    fa.reset_launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    launched = (fa.launch_counts["flash_fwd"],
+                fa.launch_counts["flash_bwd_dq"],
+                fa.launch_counts["flash_bwd_dkv"])
+    real = bert_mod.flash_attention
+    bert_mod.flash_attention = (
+        lambda q, k, v, scale=None, causal=False, mask=None:
+        fa._plain_flash_attention(q, k, v, scale, causal, mask))
+    try:
+        want = grads()
+    finally:
+        bert_mod.flash_attention = real
+    worst = 0.0
+    names = ["x"] + [n for n, _ in cell.named_parameters()]
+    top = max(float(b.abs().max()) for b in want)
+    for n, a, b in zip(names, got, want):
+        if n == "attention.key.bias":
+            # zero in exact arithmetic (the softmax over keys ignores a
+            # shift shared by every key): both must be ~0 against the
+            # cell's largest gradient
+            small = max(float(a.abs().max()), float(b.abs().max())) / top
+            check(small <= CELL_TOL, f"cell gradient {n}: {small} of the "
+                  f"largest gradient, expected ~0")
+            continue
+        rel = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+        check(rel <= CELL_TOL, f"cell gradient {n}: relative error {rel} > "
+              f"{CELL_TOL}")
+        worst = max(worst, rel)
+    check(launched == (1, 1, 1), f"cell: launches {launched}, expected one "
+          "each of K1, K6, K7")
+    print(f"train: full-width TransformerEncoderCell (B={B} T={T} C={C}, 16 "
+          f"heads, valid lengths {valid.min().item()}..{valid.max().item()})"
+          f": {len(names)} gradients through K1/K6/K7 agree with the plain "
+          f"attention's to {worst:.3e} of each one's largest value (tol "
+          f"{CELL_TOL})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -675,6 +966,9 @@ def main():
     torch.manual_seed(SEED)
     rows = [check_k1(fa, dev, rng)] + check_k2_k3(fa, dev, rng) \
         + check_k4_k5(fa, dev, rng)
+    e_lse, bwd_rows = check_k6_k7(fa, dev, rng)
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e_lse)
+    rows += bwd_rows
     for r in rows:
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
@@ -683,16 +977,22 @@ def main():
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
     # main path, K3 on the dense engine's run, K4 on the paged spec path,
-    # K5 on the dense spec run
+    # K5 on the dense spec run, K6 and K7 on the training path
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
         counts, dense_counts, net, prompts, budgets, plain = drive_path(fa)
         spec, dense_spec = drive_spec_path(fa, net, prompts, budgets, plain)
+        del net
+        torch.cuda.empty_cache()
+        train = drive_training(fa, card)
+        check_cell_grads(fa, dev)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
                     "paged_verify": spec["paged_verify"],
-                    "verify": dense_spec["verify"]}
+                    "verify": dense_spec["verify"],
+                    "flash_bwd_dq": train["flash_bwd_dq"],
+                    "flash_bwd_dkv": train["flash_bwd_dkv"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

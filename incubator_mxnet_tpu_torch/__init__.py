@@ -8,8 +8,9 @@ CUDA kernels for Hopper (``kernels/csrc``).  Entry points run on
 explicit CPU they raise :class:`MXNetError`.
 
 Ported so far: generation serving of the GPT models (``models``,
-``serving``) with the three attention kernels it runs
-(``kernels.flash_attention``)."""
+``serving``), speculative decoding, and one BERT pretraining step
+(``models.bert``, ``gluon.loss``, ``optimizer``, ``parallel``), with the
+seven attention kernels they run (``kernels.flash_attention``)."""
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 

@@ -3,7 +3,10 @@
 ``params`` is a ``{name: numpy array}`` dict keyed by the JAX package's own
 parameter names — ``net.collect_params()`` keys with the model's prefix
 stripped, e.g. ``embedding0_weight`` or
-``gptcell0_multiheadattention0_dense0_weight``.  The port's modules carry
+``gptcell0_multiheadattention0_dense0_weight``; a ``BERTForPretrain``'s
+heads are ``dense0_weight`` ... and its encoder ``bertmodel0_...`` (JAX
+builds the encoder outside the heads' name scope, so only the heads carry
+the ``bertforpretrain0_`` prefix to strip).  The port's modules carry
 the same names (:func:`.gluon.nn.mx_named_parameters`), so after
 :func:`load_jax_params` both packages compute the same function."""
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Gluon layers of the PyTorch port."""
-from . import nn
+"""Gluon layers and losses of the PyTorch port."""
+from . import loss, nn
 
-__all__ = ["nn"]
+__all__ = ["loss", "nn"]

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...base import MXNetError
+
 __all__ = ["Block", "Dense", "LayerNorm", "Embedding", "Dropout", "gelu",
            "mx_named_parameters"]
 
@@ -23,6 +25,20 @@ class Block(nn.Module):
     """A module that takes part in MXNet-style parameter naming."""
 
     _alias = "block"
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the block's (first) parameter."""
+        return next(self.parameters()).device
+
+    def initialize(self, init=None, seed=0):
+        """Draw every parameter from ``numpy.random.RandomState(seed)``
+        (default initializer ``Uniform(0.07)``, as in MXNet)."""
+        # initializer names parameters through this module
+        from ... import initializer as _init
+        _init.initialize(self, init if init is not None else _init.Uniform(),
+                         seed)
+        return self
 
 
 def _scope_children(module: nn.Module):
@@ -60,15 +76,26 @@ def mx_named_parameters(module: nn.Module) -> List[Tuple[str, nn.Parameter]]:
     return out
 
 
+# Dense activations that are ported (MXNet ``act_type`` names)
+_ACTIVATIONS = {"tanh": torch.tanh}
+
+
 class Dense(Block):
-    """``out = x @ weight.T + bias``; ``weight`` is (units, in_units)."""
+    """``out = act(x @ weight.T + bias)``; ``weight`` is (units, in_units)
+    and ``activation`` is None or ``"tanh"``.  ``flatten`` folds every axis
+    after the first into the input, as MXNet's (default False here: the
+    port's callers pass the JAX layer's value)."""
 
     _alias = "dense"
 
     def __init__(self, units, in_units, use_bias=True, flatten=False,
-                 device=None):
+                 activation=None, device=None):
         super().__init__()
+        if activation is not None and activation not in _ACTIVATIONS:
+            raise MXNetError(f"Dense activation {activation!r} is not "
+                             f"ported; have {sorted(_ACTIVATIONS)} or None")
         self._flatten = bool(flatten)
+        self._act = _ACTIVATIONS.get(activation)
         self.weight = nn.Parameter(torch.zeros(units, in_units, device=device))
         self.bias = nn.Parameter(torch.zeros(units, device=device)) \
             if use_bias else None
@@ -76,7 +103,8 @@ class Dense(Block):
     def forward(self, x):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        return F.linear(x, self.weight, self.bias)
+        out = F.linear(x, self.weight, self.bias)
+        return out if self._act is None else self._act(out)
 
 
 class LayerNorm(Block):

@@ -5,7 +5,9 @@ Values are drawn on the host from a numpy ``RandomState(seed)`` passed in
 explicitly, in MXNet ``collect_params()`` order, and copied to the
 parameters' device — so one seed gives the same weights on the CPU and on
 the card.  Dispatch by name suffix follows MXNet: ``*bias`` and ``*beta``
-are zeros, ``*gamma`` ones, everything else goes to ``_init_weight``."""
+are zeros, ``*gamma`` ones, everything else goes to ``_init_weight``.  A
+parameter with its own initializer (an ``mx_init`` attribute, MXNet's
+``Parameter.init``) takes that one instead of the one passed in."""
 from __future__ import annotations
 
 import numpy as _np
@@ -77,6 +79,6 @@ def initialize(module: torch.nn.Module, init: Initializer, seed: int):
     rng = _np.random.RandomState(int(seed))
     with torch.no_grad():
         for name, p in mx_named_parameters(module):
-            val = init(name, tuple(p.shape), rng)
+            val = getattr(p, "mx_init", init)(name, tuple(p.shape), rng)
             p.copy_(torch.from_numpy(val))
     return module

@@ -25,13 +25,16 @@ __all__ = ["KERNELS", "build_all", "library", "build_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-HEADERS = ("common.cuh", "decode_common.cuh", "verify_common.cuh")
+HEADERS = ("common.cuh", "decode_common.cuh", "verify_common.cuh",
+           "flash_bwd_common.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
            "decode": "decode.cu",
            "paged_verify": "paged_verify.cu",
-           "verify": "verify.cu"}
+           "verify": "verify.cu",
+           "flash_bwd_dq": "flash_bwd_dq.cu",
+           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -119,11 +122,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.mx_error_string.restype = ctypes.c_char_p
     # each C entry point's arguments in order; the last is the stream
     argtypes = {
-        "flash_fwd": [p, p, p, p, p, i, i, i, i, f, i, p],
+        "flash_fwd": [p, p, p, p, p, p, i, i, i, i, f, i, p],
         "paged_decode": [p, p, p, p, p, p, i, i, i, i, i, i, f, p],
         "decode": [p, p, p, p, p, i, i, i, i, f, p],
         "paged_verify": [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "verify": [p, p, p, p, p, i, i, i, i, i, f, p],
+        "flash_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
+        "flash_bwd_dkv": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
     }
     fn = getattr(lib, "mx_" + name)
     fn.argtypes = argtypes[name]

@@ -1,11 +1,17 @@
 // K1 flash_fwd: online-softmax (FlashAttention-2 style) attention forward,
-// fp32, for the prefill self-attention of the GPT path.
+// fp32, for the prefill self-attention of the GPT path and the encoder
+// self-attention of the BERT training step.
 //
 // Replaces: _fwd_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
 // (launched by _flash_fwd_impl).  Same function: q, k, v (B*H, T, D) fp32,
 // dense or causal, an optional (B, 1, T) additive key bias shared by the
 // batch's H heads (indexed bh / H), keys past the diagonal or past T weigh
 // exactly 0, and a fully masked row stays finite (the safe_m guard).
+// With a non-null ``lse`` it also writes each row's logsumexp of the scaled,
+// biased, masked scores, (B*H, T) fp32: the residual the backward (K6, K7)
+// recomputes P from, as _fwd_kernel does under with_lse.  That output is a
+// template parameter, so the serving path's instance (no lse) compiles to
+// the same code as a kernel without the output.
 //
 // Bound on this card: for a long prompt the kernel is bound by operations,
 // about 2*B*H*T^2*D FLOP causal (half of dense), against the bytes of
@@ -36,12 +42,12 @@ constexpr int smem_floats() {
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) + 3 * kBQ;
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, int T, int H, float scale,
-                 int causal) {
+                 float* __restrict__ o, float* __restrict__ lse, int T,
+                 int H, float scale, int causal) {
   constexpr int LD = D + 1;    // padded row stride of the q and k tiles
   constexpr int LP = kBK + 1;  // padded row stride of the score tile
   constexpr int CPT = D / 16;  // output columns per thread
@@ -175,34 +181,46 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         o[base + static_cast<size_t>(t) * D + tx + 16 * c] = acc[i][c] * inv;
     }
   }
+  // row_m / row_l were last written before the loop's final barrier
+  if (kLse && tid < kBQ && q0 + tid < T) {
+    const float m = row_m[tid];
+    const float safe = m == -CUDART_INF_F ? 0.f : m;
+    lse[static_cast<size_t>(bh) * T + q0 + tid] =
+        safe + logf(fmaxf(row_l[tid], 1e-30f));
+  }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* o, int BH, int H, int T, float scale, int causal,
+           float* o, float* lse, int BH, int H, int T, float scale, int causal,
            cudaStream_t stream) {
   const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  auto kernel = lse != nullptr ? flash_fwd_kernel<D, true>
+                               : flash_fwd_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, bias, o, T,
-                                                          H, scale, causal);
+  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, o, lse, T, H, scale,
+                                            causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: (BH, T, D) contiguous fp32; bias: (BH / H, 1, T) fp32 or null.
+// q, k, v, o: (BH, T, D) contiguous fp32; bias: (BH / H, 1, T) fp32 or null;
+// lse: (BH, T) fp32 or null (then no logsumexp is written).
 extern "C" int mx_flash_fwd(const float* q, const float* k, const float* v,
-                            const float* bias, float* o, int BH, int H, int T,
-                            int D, float scale, int causal, void* stream) {
+                            const float* bias, float* o, float* lse, int BH,
+                            int H, int T, int D, float scale, int causal,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, bias, o, BH, H, T, scale, causal, s);
-    case 32: return launch<32>(q, k, v, bias, o, BH, H, T, scale, causal, s);
-    case 64: return launch<64>(q, k, v, bias, o, BH, H, T, scale, causal, s);
-    case 128: return launch<128>(q, k, v, bias, o, BH, H, T, scale, causal, s);
+    case 16: return launch<16>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 32: return launch<32>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 64: return launch<64>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 128:
+      return launch<128>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
     default: return MX_ERR_UNSUPPORTED_D;
   }
 }

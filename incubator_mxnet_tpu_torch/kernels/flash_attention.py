@@ -1,11 +1,17 @@
 """Attention kernels of the PyTorch port (counterpart of
 ``incubator_mxnet_tpu/kernels/flash_attention.py``).
 
-Five public entry points keep the JAX signatures and layouts:
+Six public entry points keep the JAX signatures and layouts:
 
 * :func:`flash_attention` — (B, H, T, D) self-attention, dense or causal,
   with an optional (B, T) key-validity mask; CUDA kernel K1
-  ``csrc/flash_fwd.cu`` (replaces the Pallas ``_fwd_kernel``);
+  ``csrc/flash_fwd.cu`` (replaces the Pallas ``_fwd_kernel``).  Where a
+  gradient is wanted it runs :class:`_FlashAttention`: K1 with its
+  logsumexp output forward, and the FlashAttention-2 backward as CUDA
+  kernels K6 ``csrc/flash_bwd_dq.cu`` (replaces ``_bwd_dq_kernel``) and
+  K7 ``csrc/flash_bwd_dkv.cu`` (replaces ``_bwd_dkv_kernel``);
+* :func:`flash_attention_lse` — the same, also returning the per-row
+  logsumexp, with gradients through both outputs;
 * :func:`decode_attention` — one query per slot over a dense (S, H, T, D)
   cache; CUDA kernel K3 ``csrc/decode.cu`` (replaces ``_decode_kernel``);
 * :func:`paged_decode_attention` — one query per slot through an int32
@@ -30,19 +36,24 @@ Masking: keys past the causal diagonal weigh exactly 0 (as in the Pallas
 kernel), and a (B, T) mask becomes an additive -1e30 key bias, so a row
 whose every key is masked averages the values instead of making a NaN.
 For every row that keeps a valid key this equals the JAX ``_xla_attention``
-oracle, which masks the diagonal with -1e30."""
+oracle, which masks the diagonal with -1e30.  The backward recomputes
+P = exp(S - lse) as the Pallas kernels do; for a row whose every key is
+masked the fp32 lse is -1e30 itself, so that row's P is 1 per key (not
+1/T) there, exactly as in ``_flash_bwd_impl``.  ``MXNET_FLASH_BWD=xla``
+is not ported: the backward raises under it."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, getenv
 from . import _build
 
-__all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
-           "verify_decode_attention", "paged_verify_decode_attention",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
+           "paged_decode_attention", "verify_decode_attention",
+           "paged_verify_decode_attention", "launch_counts",
+           "reset_launch_counts"]
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -63,9 +74,10 @@ def reset_launch_counts() -> None:
 # plain versions (CPU path, and the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def _plain_attention(q, k, v, scale, causal, bias=None):
-    """(BH, T, D) attention; ``bias`` an optional (BH, 1, Tk) additive key
-    bias (0 valid / -1e30 masked)."""
+def _plain_scores(q, k, scale, causal, bias=None):
+    """(BH, T, Tk) scores q k^T * scale + ``bias`` (an optional (BH, 1, Tk)
+    additive key bias, 0 valid / -1e30 masked), -inf past the causal
+    diagonal."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias
@@ -73,8 +85,65 @@ def _plain_attention(q, k, v, scale, causal, bias=None):
         T, Tk = q.shape[1], k.shape[1]
         tri = torch.ones(T, Tk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~tri, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def _plain_attention(q, k, v, scale, causal, bias=None):
+    """(BH, T, D) attention; ``bias`` an optional (BH, 1, Tk) additive key
+    bias (0 valid / -1e30 masked)."""
+    p = torch.softmax(_plain_scores(q, k, scale, causal, bias), dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def _plain_attention_lse(q, k, v, scale, causal, bias=None):
+    """:func:`_plain_attention` that also returns the per-row logsumexp
+    (BH, T) fp32 of the scaled, biased, masked scores (a port of
+    ``_xla_attention_lse``, with the causal keys at -inf as in K1).  The
+    output is normalised by the row sum, not by exp(lse), so a row whose
+    every key is masked averages the values as K1 does (its fp32 lse is
+    -1e30 itself)."""
+    s = _plain_scores(q, k, scale, causal, bias)
+    p = torch.softmax(s, dim=-1)
+    return (torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype),
+            torch.logsumexp(s, dim=-1))
+
+
+def _per_head(bias, n_heads):
+    """A (B, 1, T) key bias as the (B*H, 1, T) the plain versions add."""
+    if bias is None:
+        return None
+    B, _, T = bias.shape
+    return bias[:, None].expand(B, n_heads, 1, T).reshape(B * n_heads, 1, T)
+
+
+def _bwd_dd(out, g, g_lse=None):
+    """dd = rowsum(dO * O) - g_lse (BH, T) fp32, computed outside the
+    kernels as ``_flash_bwd_impl`` computes it outside Pallas."""
+    dd = (out.float() * g.float()).sum(-1)
+    if g_lse is not None:
+        dd = dd - g_lse.float()
+    return dd
+
+
+def _plain_flash_bwd_dd(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
+    """K6 and K7's plain version: the FlashAttention-2 backward formulas
+    over whole (BH, T, T) matrices.  ``bias`` None or (B, 1, T).  Returns
+    (dq, dk, dv, dbs) with dbs (BH, T) the column sums of dS."""
+    s = _plain_scores(q, k, scale, causal, _per_head(bias, n_heads))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", g.float(), v.float())
+    ds = p * (dp - dd[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, g.float())
+    return dq, dk, dv, ds.sum(1)
+
+
+def _dbias(dbs, n_heads):
+    """(BH, T) key-bias rows -> the (B, 1, T) bias's cotangent: the head
+    axis summed out (``_flash_bwd_impl`` :356-359)."""
+    BH, T = dbs.shape
+    return dbs.reshape(BH // n_heads, n_heads, T).sum(1)[:, None, :]
 
 
 def _key_bias(mask, B, T, device):
@@ -91,12 +160,10 @@ def _plain_flash_attention(q, k, v, scale, causal, mask=None):
     on any device: the key bias broadcast over the heads, then
     :func:`_plain_attention`."""
     B, H, T, D = q.shape
-    bias = _key_bias(mask, B, T, q.device)
-    if bias is not None:
-        bias = bias[:, None].expand(B, H, 1, T).reshape(B * H, 1, T)
     return _plain_attention(q.reshape(B * H, T, D), k.reshape(B * H, T, D),
                             v.reshape(B * H, T, D), scale, causal,
-                            bias).reshape(B, H, T, D)
+                            _per_head(_key_bias(mask, B, T, q.device), H)
+                            ).reshape(B, H, T, D)
 
 
 def _plain_decode_attention(q, k, v, positions, scale):
@@ -200,29 +267,100 @@ def _head_dim_ok(name, D):
         raise MXNetError(f"{name}: head dim {D} not in {HEAD_DIMS}")
 
 
-def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads):
-    """K1 on (BH, T, D) fp32 CUDA tensors; ``bias`` None or (BH/n_heads,
-    1, T) fp32."""
+def _attn_checks(name, q, k, v, bias, n_heads, **more):
+    """The checks K1, K6 and K7 share: fp32 contiguous (BH, T, D) q, k, v
+    (and ``more``) on one CUDA device, a supported D, and ``bias`` None or
+    (BH / n_heads, 1, T)."""
     BH, T, D = q.shape
     f32 = torch.float32
-    _check("flash_fwd", q.device, q=(q, f32), k=(k, f32), v=(v, f32))
-    if k.shape != q.shape or v.shape != q.shape:
-        raise MXNetError("flash_fwd: q, k, v must share one (BH, T, D) shape")
-    _head_dim_ok("flash_fwd", D)
+    _check(name, q.device, q=(q, f32), k=(k, f32), v=(v, f32),
+           **{n: (t, f32) for n, t in more.items()})
+    if any(t.shape != q.shape for t in (k, v)):
+        raise MXNetError(f"{name}: q, k, v must share one (BH, T, D) shape")
+    _head_dim_ok(name, D)
     if BH % n_heads or BH > _MAX_GRID_Y:
-        raise MXNetError(f"flash_fwd: BH={BH} with {n_heads} heads "
-                         f"unsupported")
+        raise MXNetError(f"{name}: BH={BH} with {n_heads} heads unsupported")
     if bias is not None:
-        _check("flash_fwd", q.device, bias=(bias, f32))
+        _check(name, q.device, bias=(bias, f32))
         if tuple(bias.shape) != (BH // n_heads, 1, T):
-            raise MXNetError(f"flash_fwd: bias shape {tuple(bias.shape)} != "
+            raise MXNetError(f"{name}: bias shape {tuple(bias.shape)} != "
                              f"{(BH // n_heads, 1, T)}")
+
+
+def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads, with_lse=False):
+    """K1 on (BH, T, D) fp32 CUDA tensors; ``bias`` None or (BH/n_heads,
+    1, T) fp32.  Returns o, or (o, lse (BH, T) fp32) ``with_lse``."""
+    BH, T, D = q.shape
+    _attn_checks("flash_fwd", q, k, v, bias, n_heads)
     o = torch.empty_like(q)
-    if T == 0:
-        return o
-    _launch("flash_fwd", q, k, v, bias, o,
-            BH, n_heads, T, D, float(scale), int(bool(causal)))
-    return o
+    lse = torch.empty(BH, T, device=q.device, dtype=torch.float32) \
+        if with_lse else None
+    if T:
+        _launch("flash_fwd", q, k, v, bias, o, lse,
+                BH, n_heads, T, D, float(scale), int(bool(causal)))
+    return (o, lse) if with_lse else o
+
+
+def _flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
+    """K6 then K7 on (BH, T, D) fp32 CUDA tensors, ``lse`` and ``dd`` (BH,
+    T) fp32.  Returns (dq, dk, dv, dbs)."""
+    BH, T, D = q.shape
+    _attn_checks("flash_bwd", q, k, v, bias, n_heads, g=g, lse=lse, dd=dd)
+    if g.shape != q.shape or tuple(lse.shape) != (BH, T) \
+            or lse.shape != dd.shape:
+        raise MXNetError(f"flash_bwd: dO {tuple(g.shape)}, lse "
+                         f"{tuple(lse.shape)}, dd {tuple(dd.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbs = torch.empty(BH, T, device=q.device, dtype=torch.float32)
+    if T:
+        args = (BH, n_heads, T, D, float(scale), int(bool(causal)))
+        _launch("flash_bwd_dq", q, k, v, bias, g, lse, dd, dq, *args)
+        _launch("flash_bwd_dkv", q, k, v, bias, g, lse, dd, dk, dv, dbs,
+                *args)
+    return dq, dk, dv, dbs
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(BH, T, D) attention with its FlashAttention-2 backward, where the
+    JAX package's ``_flash``/``_flash_lse`` ``custom_vjp`` stand.  Forward:
+    K1 with lse (CUDA) or :func:`_plain_attention_lse` (CPU); saves (q, k,
+    v, bias, out, lse).  Backward: dd = rowsum(dO * O) - g_lse, then K6 and
+    K7 (CUDA) or :func:`_plain_flash_bwd_dd` (CPU).  ``bias`` None or (B,
+    1, T); its cotangent is returned only when it needs one.  Outputs (out,
+    lse); gradients flow through both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal, n_heads):
+        if _route("flash_attention", q) == "cuda":
+            out, lse = _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads,
+                                       with_lse=True)
+        else:
+            out, lse = _plain_attention_lse(q, k, v, scale, causal,
+                                            _per_head(bias, n_heads))
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale, ctx.causal, ctx.n_heads = scale, causal, n_heads
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        if (getenv("MXNET_FLASH_BWD") or "pallas").lower() == "xla":
+            raise MXNetError("MXNET_FLASH_BWD=xla is not ported: the "
+                             "backward is kernels K6 and K7 on the card and "
+                             "their plain version on the CPU")
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        g = torch.zeros_like(out) if g_out is None else g_out.contiguous()
+        dd = _bwd_dd(out, g, g_lse)
+        args = (ctx.scale, ctx.causal, ctx.n_heads)
+        if q.device.type == "cuda":
+            dq, dk, dv, dbs = _flash_bwd_cuda(q, k, v, bias, g, lse, dd, *args)
+        else:
+            dq, dk, dv, dbs = _plain_flash_bwd_dd(q, k, v, bias, g, lse, dd,
+                                                  *args)
+        dbias = _dbias(dbs, ctx.n_heads) \
+            if bias is not None and ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None, None, None
 
 
 def _decode_checks(name, q, positions, S, H, D):
@@ -332,24 +470,52 @@ def _route(name, t):
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _with_lse(q, k, v, scale, causal, mask):
+    """(out (B, H, T, D), lse (B, H, T)) through :class:`_FlashAttention`."""
+    B, H, T, D = q.shape
+    out, lse = _FlashAttention.apply(
+        *(x.reshape(B * H, T, D) for x in (q, k, v)),
+        _key_bias(mask, B, T, q.device), scale, causal, H)
+    return out.reshape(B, H, T, D), lse.reshape(B, H, T)
+
+
+def _attn_args(name, q, k, v, scale):
+    """Check the (B, H, T, D) shapes and device; return the scale."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise MXNetError(f"{name}: q, k, v must share one (B, H, T, D) "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _route(name, q)
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
 def flash_attention(q, k, v, scale=None, causal=False, mask=None):
     """Online-softmax self-attention over (B, H, T, D) tensors.
 
     ``mask``: optional (B, T) key-validity tensor (nonzero = attend),
-    applied as an additive -1e30 bias shared by the heads.  CUDA tensors
-    run kernel K1 at any T; CPU tensors run :func:`_plain_attention`."""
-    B, H, T, D = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise MXNetError("flash_attention: q, k, v must share one "
-                         f"(B, H, T, D) shape; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    if _route("flash_attention", q) == "cpu":
+    applied as an additive -1e30 bias shared by the heads.  Without a
+    gradient to record, CUDA tensors run kernel K1 at any T and CPU
+    tensors :func:`_plain_attention`; with one, :class:`_FlashAttention`
+    (K1 with lse, then K6 and K7 in the backward)."""
+    scale = _attn_args("flash_attention", q, k, v, scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _with_lse(q, k, v, scale, causal, mask)[0]
+    if q.device.type == "cpu":
         return _plain_flash_attention(q, k, v, scale, causal, mask)
+    B, H, T, D = q.shape
     qf, kf, vf = (x.reshape(B * H, T, D) for x in (q, k, v))
     return _flash_fwd_cuda(qf, kf, vf, _key_bias(mask, B, T, q.device),
                            scale, causal, H).reshape(B, H, T, D)
+
+
+def flash_attention_lse(q, k, v, scale=None, causal=False, mask=None):
+    """Like :func:`flash_attention` but also returns the per-row
+    logsumexp: (out (B, H, T, D), lse (B, H, T) fp32).  Gradients flow
+    through both outputs (the lse cotangent folds into dd).  CUDA tensors
+    run K1 with its lse output (K6 and K7 in the backward); CPU tensors
+    :func:`_plain_attention_lse`."""
+    scale = _attn_args("flash_attention_lse", q, k, v, scale)
+    return _with_lse(q, k, v, scale, causal, mask)
 
 
 def decode_attention(q, k, v, positions, scale=None):

@@ -15,7 +15,6 @@ import torch
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.nn import Block, Dropout, Embedding, LayerNorm
-from .. import initializer as _init
 from .bert import MultiHeadAttention, PositionwiseFFN, _sdpa, cached_step_attn
 
 __all__ = ["GPTCell", "GPTModel", "gpt_tiny", "gpt2_124m"]
@@ -96,17 +95,6 @@ class GPTModel(Block):
         # inference mode by default: MXNet applies dropout only while
         # training (autograd.record), so a fresh model does not drop
         self.eval()
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.weight.device
-
-    def initialize(self, init=None, seed=0):
-        """Draw every parameter from ``numpy.random.RandomState(seed)``
-        (default initializer ``Uniform(0.07)``, as in MXNet)."""
-        _init.initialize(self, init if init is not None else _init.Uniform(),
-                         seed)
-        return self
 
     # -- helpers -------------------------------------------------------
     def _embed_at(self, ids, offset=0):

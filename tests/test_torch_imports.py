@@ -2,7 +2,8 @@
 ``incubator_mxnet_tpu_torch`` (in a fresh interpreter) pulls in neither
 ``jax`` nor the JAX package, ``chip_smoke.py`` imports neither, and an
 entry point called without ``device`` on a host without a GPU raises
-instead of running on the CPU."""
+instead of running on the CPU (the serving models, BERT and the
+one-device mesh)."""
 import ast
 import json
 import os
@@ -23,9 +24,12 @@ for m in mods:
     importlib.import_module(m)
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.models.gpt import gpt_tiny
+from incubator_mxnet_tpu_torch.models.bert import bert_tiny
+from incubator_mxnet_tpu_torch.parallel import make_mesh
 from incubator_mxnet_tpu_torch import default_device
 raised = []
-for fn in (default_device, lambda: gpt_tiny(dropout=0.0)):
+for fn in (default_device, lambda: gpt_tiny(dropout=0.0),
+           lambda: bert_tiny(dropout=0.0), lambda: make_mesh({"data": 1})):
     try:
         fn()
         raised.append(False)
@@ -47,16 +51,17 @@ def probe():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(probe):
-    assert "incubator_mxnet_tpu_torch.serving.engine" in probe["modules"]
-    assert "incubator_mxnet_tpu_torch.kernels.flash_attention" \
-        in probe["modules"]
+    for mod in ("serving.engine", "kernels.flash_attention", "models.bert",
+                "gluon.loss", "optimizer.cores", "parallel.optim",
+                "parallel.mesh", "parallel.spmd"):
+        assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
 
 
 def test_entry_points_without_device_raise_on_a_cpu_only_host(probe):
-    assert probe["raised"] == [True, True]
+    assert probe["raised"] == [True, True, True, True]
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -289,4 +289,5 @@ def test_cuda_decode_kernels_match_plain(D):
     np.testing.assert_array_equal(dense.cpu().numpy(), got.cpu().numpy())
     assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 1,
                                  "decode": 1, "paged_verify": 0,
-                                 "verify": 0}
+                                 "verify": 0, "flash_bwd_dq": 0,
+                                 "flash_bwd_dkv": 0}

@@ -58,7 +58,8 @@ def kernel_times(prof):
 
 def measure(name, setup, window, repeats, card):
     """Median unprofiled wall ms of ``window`` (``setup`` runs untimed
-    before each), then one profiled run; print the breakdown."""
+    before each), then one profiled run; print the breakdown.  Returns
+    (wall ms, the profiled run's {kernel: (device us, launches)})."""
     walls = []
     for _ in range(repeats):
         setup()
@@ -95,6 +96,7 @@ def measure(name, setup, window, repeats, card):
     for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"{name}:   {e.self_cpu_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key}", flush=True)
+    return wall, kt
 
 
 def main():
