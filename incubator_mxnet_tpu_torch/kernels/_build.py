@@ -93,7 +93,8 @@ def build_all() -> Dict[str, dict]:
                 continue
             os.replace(tmp, out)
             lines: List[str] = [ln.strip() for ln in text.splitlines()
-                                if "registers" in ln or "spill" in ln]
+                                if "registers" in ln or "spill" in ln
+                                or "entry function" in ln]
             build_report[name] = {"seconds": secs, "ptxas": lines}
         if failed:
             raise MXNetError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -123,8 +124,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     # each C entry point's arguments in order; the last is the stream
     argtypes = {
         "flash_fwd": [p, p, p, p, p, p, i, i, i, i, f, i, p],
-        "paged_decode": [p, p, p, p, p, p, i, i, i, i, i, i, f, p],
-        "decode": [p, p, p, p, p, i, i, i, i, f, p],
+        "paged_decode": [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p],
+        "decode": [p, p, p, p, p, p, i, i, i, i, f, p],
         "paged_verify": [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "verify": [p, p, p, p, p, i, i, i, i, i, f, p],
         "flash_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],

@@ -5,14 +5,15 @@
 // (S, H, T, D), positions (S,): slot s attends to cache entries
 // 0..positions[s]; later entries are stale by contract and never read.
 // Same loop as K2 over the dense address computation, so a paged and a
-// dense engine holding the same K/V produce bit-identical outputs.  Bound
-// and design: see decode_common.cuh.
+// dense engine holding the same K/V produce bit-identical outputs.  part:
+// the (S, H, ceil(T / 64), D + 2) fp32 scratch of the split.  Bound and
+// design: see decode_common.cuh.
 #include "decode_common.cuh"
 
 extern "C" int mx_decode(const float* q, const float* k, const float* v,
-                         const int* positions, float* o, int S, int H, int T,
-                         int D, float scale, void* stream) {
+                         const int* positions, float* part, float* o, int S,
+                         int H, int T, int D, float scale, void* stream) {
   const mxdec::DenseKV kv{k, v, H, T};
-  return mxdec::launch(q, kv, positions, o, S, H, D, scale,
-                           static_cast<cudaStream_t>(stream));
+  return mxdec::launch(q, kv, positions, part, o, S, H, T, D, scale,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
-// K1 flash_fwd: online-softmax (FlashAttention-2 style) attention forward,
-// fp32, for the prefill self-attention of the GPT path and the encoder
-// self-attention of the BERT training step.
+// K1 flash_fwd: online-softmax (FlashAttention-2) attention forward, fp32
+// accuracy on the tensor cores, for the prefill self-attention of the GPT
+// path and the encoder self-attention of the BERT training step.
 //
 // Replaces: _fwd_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
 // (launched by _flash_fwd_impl).  Same function: q, k, v (B*H, T, D) fp32,
@@ -10,36 +10,133 @@
 // With a non-null ``lse`` it also writes each row's logsumexp of the scaled,
 // biased, masked scores, (B*H, T) fp32: the residual the backward (K6, K7)
 // recomputes P from, as _fwd_kernel does under with_lse.  That output is a
-// template parameter, so the serving path's instance (no lse) compiles to
-// the same code as a kernel without the output.
+// template parameter, so the serving path's instance has no lse code.
 //
-// Bound on this card: for a long prompt the kernel is bound by operations,
-// about 2*B*H*T^2*D FLOP causal (half of dense), against the bytes of
-// reading q, k, v once and writing o once.  The data is fp32 and the
-// result must agree with the fp32 plain version to 1e-4, so the products
-// run as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), not as TF32 on the
-// tensor cores.
+// Bound on this card: for a long prompt, operations.  Both products
+// (S = Q K^T and O += P V, 4 * D FLOP per live (query, key) pair) run as
+// 3xTF32 on the tensor cores: each fp32 operand x splits into
+// hi = tf32(x) and lo = x - hi, and a_hi b_hi + a_hi b_lo + a_lo b_hi
+// accumulates in fp32, which keeps the error near fp32's (~1e-6 relative)
+// at three tensor-core products per product.  The bound is therefore the
+// larger of the bytes (q, k, v read once, o written once) over 3.35 TB/s
+// and 3 * 4 * D * pairs FLOP over the 495 TFLOP/s TF32 peak.
 //
-// Design: one block of 256 threads owns a 64-row query tile of one
-// (batch, head) and streams 64-key K/V tiles through shared memory, keeping
-// a running max, sum and fp32 accumulator per row, so the (T, T) score
-// matrix never exists in device memory.  Each thread computes a 4 x 4
-// patch of the score tile from shared memory (rows padded by one float to
-// dodge bank conflicts); one warp per 8 rows does the softmax update; each
-// thread keeps 4 rows x D/16 columns of the output in registers.  Causal
-// blocks stop at the tile holding the diagonal.  D is a template
-// parameter in {16, 32, 64, 128}.  wgmma/TMA pipelining is later work.
+// Design: one block of 4 warps owns a 64-row query tile of one (batch,
+// head); warp w owns rows 16w..16w+15 and keeps their S fragment, running
+// max, partial sum and O accumulator in registers (mma.sync m16n8k8 tf32
+// fragments).  Q is pre-scaled by scale * log2(e), so the scores come out
+// in base-2 units and each softmax exponent is one ex2.approx (2 ulp); the
+// lse converts back to base e.  The row max is a quad shuffle; the row sum
+// stays per thread until the end.  P never leaves registers: the PV product reads P's
+// accumulator fragment as its A fragment with the keys of each 8-key step
+// permuted (A column t is key 2t, column t + 4 is key 2t + 1), and reads V
+// in the same permuted order, so no shuffle or shared-memory re-layout is
+// needed.  K/V tiles of 64 keys are double-buffered in shared memory with
+// cp.async (16 bytes a thread; rows past T zero-filled), one barrier per
+// tile: the next tile's copy is issued right after the barrier and
+// overlaps this tile's products.  Rows are padded to D + 4 floats, which
+// makes every fragment read of K (row = key) and of V (row = key, in the
+// permuted order) free of bank conflicts.  The query tile is staged once
+// through the second stage's buffer.  The grid is (B*H, query tiles);
+// under causal the query tiles run in reverse, so the heaviest tiles of
+// every head are scheduled first, and a causal block stops at the tile
+// holding its diagonal.  D is a template parameter in {16, 32, 64, 128}.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per streamed tile
-constexpr int kThreads = 256;  // a 16 x 16 thread grid over a 64 x 64 tile
+constexpr int kWarps = 4;      // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
 
+// two stages of (K tile, V tile), rows padded to D + 4 floats
 template <int D>
 constexpr int smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) + 3 * kBQ;
+  return 4 * kBK * (D + 4);
+}
+
+// x = hi + lo: the tensor core reads a TF32 operand's sign, exponent and
+// top 10 mantissa bits and ignores the low 13, so x's own bits serve as hi
+// (x truncated), lo = x - trunc(x) is exact in fp32, and lo truncated in
+// turn leaves an error below 2^-20 |x|.  Two instructions a value, where
+// cvt.rna.tf32 compiles to a compare-and-select sequence on sm_90.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// 2^x (ex2.approx: 2 ulp, exactly 0 at -inf)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// an A fragment's four elements, split once and reused across n-tiles
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ explicit FragA(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+  }
+};
+
+// d += a b in 3xTF32: the two small cross terms first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
+                                           const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split(b[0], bh[0], bl[0]);
+  split(b[1], bh[1], bl[1]);
+  mma_tf32(d, a.lo, bh);
+  mma_tf32(d, a.hi, bl);
+  mma_tf32(d, a.hi, bh);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows [0, 64) of a (rows, D) tile starting at src into dst (row stride
+// D + 4); rows at or past ``rows`` are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int rows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  static_assert(kBK * kChunks % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kBK * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = r < rows;
+    cp_async16(dst + r * (D + 4) + c,
+               ok ? src + static_cast<size_t>(r) * D + c : src, ok);
+  }
 }
 
 template <int D, bool kLse>
@@ -48,145 +145,170 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int T,
                  int H, float scale, int causal) {
-  constexpr int LD = D + 1;    // padded row stride of the q and k tiles
-  constexpr int LP = kBK + 1;  // padded row stride of the score tile
-  constexpr int CPT = D / 16;  // output columns per thread
-  constexpr int RPW = kBQ / (kThreads / 32);  // softmax rows per warp
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBQ * LD;
-  float* vs = ks + kBK * LD;
-  float* ps = vs + kBK * D;
-  float* row_m = ps + kBQ * LP;
-  float* row_l = row_m + kBQ;
-  float* row_a = row_l + kBQ;
+  constexpr int LD = D + 4;          // padded row stride in shared memory
+  constexpr int TILE = kBK * LD;     // floats of one K or V tile
+  constexpr int KS = D / 8;          // k-steps of S = Q K^T
+  constexpr int NO = D / 8;          // n-tiles of O
+  constexpr int NS = kBK / 8;        // n-tiles of S = k-steps of P V
+  extern __shared__ float smem[];    // [K0 | V0 | K1 | V1]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBQ;
   const size_t base = static_cast<size_t>(bh) * T * D;
   const float* brow =
       bias != nullptr ? bias + static_cast<size_t>(bh / H) * T : nullptr;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    qs[r * LD + c] = t < T ? q[base + static_cast<size_t>(t) * D + c] : 0.f;
-  }
-  if (tid < kBQ) {
-    row_m[tid] = -CUDART_INF_F;
-    row_l[tid] = 0.f;
-  }
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
   int n_tiles = (T + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+
+  // the query tile goes through stage 1's K buffer, tile 0 to stage 0
+  float* qs = smem + 2 * TILE;
+  load_tile<D>(qs, q + base + static_cast<size_t>(q0) * D, T - q0);
+  load_tile<D>(smem, k + base, T);
+  load_tile<D>(smem + TILE, v + base, T);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this thread's rows r0 and r0 + 8, pre-scaled by scale * log2(e): the
+  // scores come out in base-2 units, and the softmax exponent is one
+  // subtraction and one ex2
+  const int r0 = warp * 16 + g;
+  const float qscale = scale * kLog2e;
+  float qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    qf[ks][0] = qs[r0 * LD + ks * 8 + t] * qscale;
+    qf[ks][1] = qs[(r0 + 8) * LD + ks * 8 + t] * qscale;
+    qf[ks][2] = qs[r0 * LD + ks * 8 + t + 4] * qscale;
+    qf[ks][3] = qs[(r0 + 8) * LD + ks * 8 + t + 4] * qscale;
+  }
+  const int row_q[2] = {q0 + r0, q0 + r0 + 8};
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
   for (int j = 0; j < n_tiles; ++j) {
+    // tile j has landed, and every warp is done with tile j - 1 (and, at
+    // j = 0, with the query tile), so its stage may be refilled
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      const int k1 = (j + 1) * kBK;
+      float* dst = smem + ((j + 1) & 1) * 2 * TILE;
+      load_tile<D>(dst, k + base + static_cast<size_t>(k1) * D, T - k1);
+      load_tile<D>(dst + TILE, v + base + static_cast<size_t>(k1) * D,
+                   T - k1);
+      cp_async_commit();
+    }
+    const float* ks_ = smem + (j & 1) * 2 * TILE;
+    const float* vs_ = ks_ + TILE;
     const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's ps / vs are consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      const size_t off = base + static_cast<size_t>(t) * D + c;
-      ks[r * LD + c] = t < T ? k[off] : 0.f;
-      vs[r * D + c] = t < T ? v[off] : 0.f;
-    }
-    __syncthreads();
 
-    float s[4][4];
+    float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
+    for (int ks = 0; ks < KS; ++ks) {
+      const FragA a(qf[ks]);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = ks[(tx + 16 * jj) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int r = ty + 16 * i, c = tx + 16 * jj;
-        const int tq = q0 + r, tk = k0 + c;
-        float val = s[i][jj] * scale;
-        if (brow != nullptr && tk < T) val += brow[tk];
-        if (tk >= T || (causal && tk > tq)) val = -CUDART_INF_F;
-        ps[r * LP + c] = val;
+      for (int n = 0; n < NS; ++n) {
+        const float* kr = ks_ + (n * 8 + g) * LD + ks * 8 + t;
+        const float b[2] = {kr[0], kr[4]};
+        mma_3xtf32(s[n], a, b);
       }
     }
-    __syncthreads();
 
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      float a = ps[r * LP + lane], b = ps[r * LP + lane + 32];
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx_warp_max(fmaxf(a, b)));
+    // key bias (in base-2 units), and -inf past T and past the diagonal;
+    // element e of n-tile n is row row_q[e >> 1], key k0 + 8n + 2t + (e & 1)
+    const bool edge = k0 + kBK > T || (causal && k0 + kBK - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        float val = s[n][e];
+        if (brow != nullptr && key < T)
+          val = fmaf(__ldg(brow + key), kLog2e, val);
+        if (edge && (key >= T || (causal && key > row_q[e >> 1])))
+          val = -CUDART_INF_F;
+        s[n][e] = val;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
       // a row with every key so far masked keeps m = -inf: pin its
-      // exponent base to 0 so exp(-inf - -inf) never makes a NaN
+      // exponent base to 0 so exp(-inf - -inf) never makes a NaN; with a
+      // finite base, exp(-inf - safe) is exactly 0, so a masked score (and
+      // a first tile's alpha) needs no branch
       const float safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-      a = a == -CUDART_INF_F ? 0.f : expf(a - safe);
-      b = b == -CUDART_INF_F ? 0.f : expf(b - safe);
-      const float sum = mx_warp_sum(a + b);
-      ps[r * LP + lane] = a;
-      ps[r * LP + lane + 32] = b;
-      if (lane == 0) {
-        const float alpha = m_old == -CUDART_INF_F ? 0.f : expf(m_old - safe);
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
+      const float alpha = exp2_approx(m[r] - safe);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = exp2_approx(s[n][e] - safe);
+          s[n][e] = p;
+          l[r] += p;
+        }
       }
     }
-    __syncthreads();
 
+    // O += P V over the 8 key steps of the tile, keys permuted as above
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = row_a[ty + 16 * i];
+    for (int n = 0; n < NS; ++n) {
+      const float p[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+      const FragA a(p);
+      const float* vr = vs_ + (n * 8 + 2 * t) * LD + g;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      for (int no = 0; no < NO; ++no) {
+        const float b[2] = {vr[no * 8], vr[LD + no * 8]};
+        mma_3xtf32(acc[no], a, b);
+      }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
-    if (t < T) {
-      const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row_q[r];
+    if (row >= T) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    float* orow = o + base + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        o[base + static_cast<size_t>(t) * D + tx + 16 * c] = acc[i][c] * inv;
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (kLse && t == 0) {
+      const float safe = m[r] == -CUDART_INF_F ? 0.f : m[r];
+      lse[static_cast<size_t>(bh) * T + row] =
+          safe * kLn2 + logf(fmaxf(sum, 1e-30f));
     }
-  }
-  // row_m / row_l were last written before the loop's final barrier
-  if (kLse && tid < kBQ && q0 + tid < T) {
-    const float m = row_m[tid];
-    const float safe = m == -CUDART_INF_F ? 0.f : m;
-    lse[static_cast<size_t>(bh) * T + q0 + tid] =
-        safe + logf(fmaxf(row_l[tid], 1e-30f));
   }
 }
 
@@ -200,7 +322,7 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBQ - 1) / kBQ, BH);
+  const dim3 grid(BH, (T + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, o, lse, T, H, scale,
                                             causal);
   return static_cast<int>(cudaGetLastError());
@@ -208,8 +330,9 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
 
 }  // namespace
 
-// q, k, v, o: (BH, T, D) contiguous fp32; bias: (BH / H, 1, T) fp32 or null;
-// lse: (BH, T) fp32 or null (then no logsumexp is written).
+// q, k, v, o: (BH, T, D) contiguous fp32, 16-byte aligned; bias:
+// (BH / H, 1, T) fp32 or null; lse: (BH, T) fp32 or null (then no
+// logsumexp is written).
 extern "C" int mx_flash_fwd(const float* q, const float* k, const float* v,
                             const float* bias, float* o, float* lse, int BH,
                             int H, int T, int D, float scale, int causal,

@@ -5,17 +5,18 @@
 // pages (NB, H, bs, D), an int32 block table (S, MB) padded with the null
 // block 0, and positions (S,): slot s attends to logical positions
 // 0..positions[s], key t living in pages[tables[s, t / bs], h, t % bs].
-// The Pallas kernel walks every table entry and masks; this one stops at
-// the last live block (masked keys weigh exactly 0 there, so the results
-// match).  Bound and design: see decode_common.cuh.
+// The Pallas kernel walks every table entry and masks; this one reads only
+// the live keys (masked keys weigh exactly 0 there, so the results match).
+// part: the (S, H, ceil(MB * bs / 64), D + 2) fp32 scratch of the split.
+// Bound and design: see decode_common.cuh.
 #include "decode_common.cuh"
 
 extern "C" int mx_paged_decode(const float* q, const float* k_pages,
                                const float* v_pages, const int* tables,
-                               const int* positions, float* o, int S, int H,
-                               int NB, int bs, int MB, int D, float scale,
-                               void* stream) {
+                               const int* positions, float* part, float* o,
+                               int S, int H, int NB, int bs, int MB, int D,
+                               float scale, void* stream) {
   const mxdec::PagedKV kv{k_pages, v_pages, tables, H, NB, bs, MB};
-  return mxdec::launch(q, kv, positions, o, S, H, D, scale,
-                           static_cast<cudaStream_t>(stream));
+  return mxdec::launch(q, kv, positions, part, o, S, H, MB * bs, D, scale,
+                       static_cast<cudaStream_t>(stream));
 }

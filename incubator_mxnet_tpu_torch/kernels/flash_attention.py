@@ -59,6 +59,8 @@ NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 _VERIFY_CHUNK = 8       # query rows per block of K4/K5 (kChunk)
+_DECODE_CHUNK = 64      # keys per split block of K2/K3 (kChunkKeys)
+_FWD_TILE = 64          # query rows per block of K1 (kBQ)
 
 # kernel name -> launches since the last reset (kernel launches only; the
 # plain versions never count)
@@ -292,6 +294,8 @@ def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads, with_lse=False):
     1, T) fp32.  Returns o, or (o, lse (BH, T) fp32) ``with_lse``."""
     BH, T, D = q.shape
     _attn_checks("flash_fwd", q, k, v, bias, n_heads)
+    if -(-T // _FWD_TILE) > _MAX_GRID_Y:
+        raise MXNetError(f"flash_fwd: T={T} exceeds the grid")
     o = torch.empty_like(q)
     lse = torch.empty(BH, T, device=q.device, dtype=torch.float32) \
         if with_lse else None
@@ -363,6 +367,23 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None
 
 
+def _decode_scratch_shape(S, H, length, D):
+    """The (S, H, n_split, D + 2) fp32 scratch of K2/K3's split over a
+    cache of ``length`` keys: one (acc[D], m, l) partial per (slot, head,
+    key chunk), n_split = ceil(length / 64), fixed by the shape alone
+    (the split kernel's grid depth)."""
+    return (S, H, -(-int(length) // _DECODE_CHUNK), D + 2)
+
+
+def _decode_scratch(name, q, S, H, length, D):
+    """Allocate the split's scratch on ``q``'s device; raise where the
+    split count exceeds the grid."""
+    shape = _decode_scratch_shape(S, H, length, D)
+    if shape[2] > _MAX_GRID_Y:
+        raise MXNetError(f"{name}: {length} keys exceed the split grid")
+    return torch.empty(shape, device=q.device, dtype=torch.float32)
+
+
 def _decode_checks(name, q, positions, S, H, D):
     _check(name, q.device, q=(q, torch.float32),
            positions=(positions, torch.int32))
@@ -377,7 +398,8 @@ def _decode_checks(name, q, positions, S, H, D):
 
 def _decode_cuda(q, k, v, positions, scale):
     """K3 on CUDA tensors: q (S, H, D), k/v (S, H, T, D) fp32, positions
-    (S,) int32 read by the kernel on the device."""
+    (S,) int32 read by the kernel on the device.  Two launches, the split
+    over 64-key chunks and the merge, counted as one."""
     S, H, T, D = k.shape
     _decode_checks("decode", q, positions, S, H, D)
     _check("decode", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -386,14 +408,16 @@ def _decode_cuda(q, k, v, positions, scale):
     o = torch.empty_like(q)
     if S == 0 or T == 0:
         return o.zero_()
-    _launch("decode", q, k, v, positions, o, S, H, T, D, float(scale))
+    part = _decode_scratch("decode", q, S, H, T, D)
+    _launch("decode", q, k, v, positions, part, o, S, H, T, D, float(scale))
     return o
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     """K2 on CUDA tensors: q (S, H, D), pages (NB, H, bs, D) fp32, tables
     (S, MB) and positions (S,) int32, both read by the kernel on the
-    device."""
+    device.  Two launches, the split over 64-key chunks and the merge,
+    counted as one."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _decode_checks("paged_decode", q, positions, S, H, D)
@@ -404,7 +428,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     o = torch.empty_like(q)
     if S == 0 or MB == 0:
         return o.zero_()
-    _launch("paged_decode", q, k_pages, v_pages, tables, positions, o,
+    part = _decode_scratch("paged_decode", q, S, H, MB * bs, D)
+    _launch("paged_decode", q, k_pages, v_pages, tables, positions, part, o,
             S, H, NB, bs, MB, D, float(scale))
     return o
 

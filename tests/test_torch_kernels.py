@@ -291,3 +291,157 @@ def test_cuda_decode_kernels_match_plain(D):
                                  "decode": 1, "paged_verify": 0,
                                  "verify": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0}
+
+
+# ------------------------------------- K2/K3 split geometry (host helpers)
+@pytest.mark.parametrize("length,splits", [
+    (1, 1), (63, 1), (64, 1), (65, 2), (1000, 16), (1024, 16), (1064, 17)])
+def test_decode_splits_fixed_by_shape(length, splits):
+    """K2/K3 split a cache of L keys into ceil(L / 64) chunks, from the
+    shape alone (the grid a CUDA graph would capture)."""
+    assert tfa._DECODE_CHUNK == 64
+    assert tfa._decode_scratch_shape(8, 12, length, 64)[2] == splits
+
+
+def test_decode_scratch_shape():
+    """One (acc[D], m, l) partial per (slot, head, chunk), fp32."""
+    assert tfa._decode_scratch_shape(8, 12, 1024, 64) == (8, 12, 16, 66)
+    assert tfa._decode_scratch_shape(3, 2, 65, 16) == (3, 2, 2, 18)
+
+
+def _split_merge(q, k, v, positions, scale, chunk):
+    """A host model of K2/K3's design: each fixed 64-key chunk up to the
+    slot's head gives a partial (acc, m, l), and the partials merge with
+    weights exp(m_c - max m)."""
+    S, H, T, D = k.shape
+    out = torch.zeros(S, H, D)
+    for s in range(S):
+        last = min(int(positions[s]), T - 1)
+        parts = []
+        for t0 in range(0, last + 1, chunk):
+            t1 = min(t0 + chunk, last + 1)
+            sc = torch.einsum("hd,htd->ht", q[s], k[s, :, t0:t1]) * scale
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[:, None])
+            parts.append((torch.einsum("ht,htd->hd", p, v[s, :, t0:t1]), m,
+                          p.sum(-1)))
+        big = torch.stack([m for _, m, _ in parts]).amax(0)
+        num = sum(a * torch.exp(m - big)[:, None] for a, m, _ in parts)
+        den = sum(l * torch.exp(m - big) for _, m, l in parts)
+        out[s] = num / den[:, None]
+    return out
+
+
+@pytest.mark.parametrize("positions", [
+    (0, 63, 64, 65, 199), (199, 199, 199, 199, 199), (1, 127, 128, 129, 5)])
+def test_decode_split_merge_equals_plain(positions):
+    """The split-then-merge arithmetic equals the plain decode at the
+    chunk edges (0, C - 1, C, C + 1) and at the cache's last position."""
+    rng = np.random.RandomState(12)
+    S, H, T, D = len(positions), 2, 200, 16
+    q, k, v = (_t(_rand(rng, *sh)) for sh in
+               ((S, H, D), (S, H, T, D), (S, H, T, D)))
+    pos = _t(np.asarray(positions, np.int32))
+    got = _split_merge(q, k, v, pos, 0.25, tfa._DECODE_CHUNK)
+    want = tfa._plain_decode_attention(q, k, v, pos, 0.25)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# ------------------------------- the redesigned kernels' edges, on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 1000])
+def test_cuda_flash_fwd_edges(T, D, causal):
+    """K1 (3xTF32 on the tensor cores) against its plain version at the
+    tile edges, every D, causal and dense: no bias; a key bias with masked
+    keys and a fully masked batch row; with and without the lse output."""
+    _need_cuda()
+    B, H = 2, 3
+    BH = B * H
+    scale = 1.0 / np.sqrt(D)
+    rng = np.random.RandomState(13)
+    q, k, v = (_t(_rand(rng, BH, T, D)).cuda() for _ in range(3))
+    b, bb = _bias(_mask(rng, B, T, all_masked_row=1), H)
+    for bias, per_head in ((None, None),
+                           (_t(b).cuda(), _t(np.ascontiguousarray(bb)))):
+        want, want_lse = tfa._plain_attention_lse(
+            q.cpu(), k.cpu(), v.cpu(), scale, causal, per_head)
+        tfa.reset_launch_counts()
+        got = tfa._flash_fwd_cuda(q, k, v, bias, scale, causal, H)
+        out, lse = tfa._flash_fwd_cuda(q, k, v, bias, scale, causal, H,
+                                       with_lse=True)
+        torch.cuda.synchronize()
+        assert tfa.launch_counts["flash_fwd"] == 2
+        for o in (got, out):
+            assert torch.isfinite(o).all()
+            np.testing.assert_allclose(o.cpu().numpy(), want.numpy(),
+                                       **CUDA_TOL)
+        # the plain lse of a fully masked row is -1e30 itself, as K1's
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
+                                   **CUDA_TOL)
+
+
+def _paged_pool(rng, S, H, bs, D, MB, positions):
+    """A shuffled pool of 1 + S * MB blocks (block 0 the null block) whose
+    tables hold distinct blocks up to each slot's position."""
+    NB = 1 + S * MB
+    kp, vp = _rand(rng, NB, H, bs, D), _rand(rng, NB, H, bs, D)
+    perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    tables = np.zeros((S, MB), np.int32)
+    used = 0
+    for s, p in enumerate(positions):
+        live = p // bs + 1
+        tables[s, :live] = perm[used:used + live]
+        used += live
+    return kp, vp, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edges", "full", "short"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_cuda_decode_split_edges(bs, D, case):
+    """K2 and K3 (split over 64-key chunks, then merged) against their
+    plain versions with positions at 0, C - 1, C, C + 1 and max_len - 1
+    (``edges``), every slot at max_len - 1 (``full``), or a short cache
+    (``short``); and K2 == K3 bit for bit where the dense cache is the
+    paged one viewed densely, with a dense T other than MB * bs: longer
+    (stale rows past max_len) or cut after the last live key."""
+    _need_cuda()
+    H, max_len = 4, 1024
+    MB = max_len // bs
+    positions = {"edges": (0, 63, 64, 65, max_len - 1, 1, 500, 127),
+                 "full": (max_len - 1,) * 8,
+                 "short": (0, 63, 64, 65, 700, 3, 130, 200)}[case]
+    S = len(positions)
+    rng = np.random.RandomState(14)
+    kp, vp, tables = _paged_pool(rng, S, H, bs, D, MB, positions)
+    q = _rand(rng, S, H, D)
+    pos = np.asarray(positions, np.int32)
+    cu = [_t(a).cuda() for a in (q, kp, vp, tables, pos)]
+    tfa.reset_launch_counts()
+    got = tfa.paged_decode_attention(*cu)
+    torch.cuda.synchronize()
+    want = tfa.paged_decode_attention(*(_t(a) for a in (q, kp, vp, tables,
+                                                        pos)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+    kd = kp[tables].transpose(0, 2, 1, 3, 4).reshape(S, H, max_len, D)
+    vd = vp[tables].transpose(0, 2, 1, 3, 4).reshape(S, H, max_len, D)
+    if case == "short":
+        T = max(positions) + 1
+        kd, vd = kd[:, :, :T], vd[:, :, :T]
+    else:
+        stale = _rand(rng, S, H, 40, D)
+        kd = np.concatenate([kd, stale], axis=2)
+        vd = np.concatenate([vd, -stale], axis=2)
+    dense = tfa.decode_attention(_t(q).cuda(), _t(kd).cuda(), _t(vd).cuda(),
+                                 cu[4])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dense.cpu().numpy(), got.cpu().numpy())
+    np.testing.assert_allclose(
+        dense.cpu().numpy(),
+        tfa.decode_attention(_t(q), _t(kd), _t(vd), _t(pos)).numpy(),
+        **CUDA_TOL)
+    assert (tfa.launch_counts["paged_decode"],
+            tfa.launch_counts["decode"]) == (1, 1)
