@@ -13,27 +13,28 @@ Phases, each of which raises (exit code 1) on any failure:
 2. build: compile the CUDA kernels from ``incubator_mxnet_tpu_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, in parallel) and
    print the build time and ``ptxas`` register/spill lines;
-3. kernels: hold K1 flash_fwd, K2 paged_decode, K3 decode, K4
-   paged_verify and K5 verify against their plain PyTorch versions on the
-   card at the serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5
-   and 9 query rows, rows running past T), max abs error within
-   ``KERNEL_TOL``; K2 == K3 and K4 == K5 bit for bit on the same live
-   K/V, K4 at Q = 1 against K2; K1's logsumexp output, K6 flash_bwd_dq
-   and K7 flash_bwd_dkv against the plain forward-with-lse and backward
-   at the training path's attention shape (BERT-large: B = 32, 16 heads
-   of 64, T = 128), with a ragged key mask at T = 512 (B = 8) and causal
-   at a ragged T, within ``KERNEL_TOL`` (relative where a value exceeds
-   1); time each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call (for K6/K7 the backward of
-   ``scaled_dot_product_attention``; for K1 at the training shape the
-   efficient-attention op with its logsumexp), with CUDA events, beside
-   the least time the card could take (the bound; K1's for 3xTF32 on the
-   tensor cores).  A kernel's and a forward library call's time is the
-   card's, from a replayed CUDA graph of the calls; the eager time per
-   call, host work included, is printed beside it; the plain versions
-   and the library backward are timed eagerly.  Also print the kernel
-   names the profiler gives SDPA's forward, and K2's split count and
-   scratch bytes;
+3. kernels: hold K1 flash_fwd, K2 paged_decode, K3 decode, K4 paged_verify
+   and K5 verify against their plain PyTorch versions on the card at the
+   serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5 and 9 query
+   rows, rows running past T, and at Q = 5 with rows straddling a 64-key
+   chunk edge), max abs error within ``KERNEL_TOL``; K2 == K3 and K4 == K5
+   bit for bit on the same live K/V, every K4 row j against K2 at
+   ``positions + j`` (within ``KERNEL_TOL``, and whether bit for bit);
+   K1's logsumexp output, K6 flash_bwd_dq and K7 flash_bwd_dkv against the
+   plain forward-with-lse and backward at the training path's attention
+   shape (BERT-large: B = 32, 16 heads of 64, T = 128), with a ragged key
+   mask at T = 512 (B = 8) and causal at a ragged T, within ``KERNEL_TOL``
+   (relative where a value exceeds 1); time each kernel, its plain version
+   and, where one PyTorch call computes the same function, that call (for
+   K6/K7 the backward of ``scaled_dot_product_attention``; for K1 at the
+   training shape the efficient-attention op with its logsumexp), with
+   CUDA events, beside the least time the card could take (the bound; K1's
+   for 3xTF32 on the tensor cores). A kernel's and a forward library
+   call's time is the card's, from a replayed CUDA graph of the calls; the
+   eager time per call, host work included, is printed beside it; the
+   plain versions and the library backward are timed eagerly. Also print
+   the kernel names the profiler gives SDPA's forward, and K2's and
+   K4/K5's split counts and scratch bytes;
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -101,6 +102,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 HEADS, HEAD_DIM = 12, 64
+# the timed decode and verify slots' positions, and a verify case whose
+# rows straddle the 64-key chunk edges (60 + 0..4 crosses 63/64)
+DECODE_POSITIONS = (0, 15, 16, 500, 1023, 1, 77, 256)
+STRADDLE_POSITIONS = (60, 59, 61, 0, 1020, 63, 124, 200)
 SOURCES = "incubator_mxnet_tpu_torch/kernels/csrc/"
 TPU_KERNELS = "incubator_mxnet_tpu/kernels/flash_attention.py:"
 
@@ -262,7 +267,7 @@ def check_k1(fa, dev, rng):
             "shape": f"B={B} H={H} T={T} D={D} causal"}
 
 
-def decode_inputs(dev, rng, copies, rows=1):
+def decode_inputs(dev, rng, copies, rows=1, positions=DECODE_POSITIONS):
     """The serving path's decode shapes: 8 slots, 12 heads of 64, blocks
     of 16, 64 blocks per slot (max_len 1024) in a pool of 1 + 8 * 64,
     tables shuffled, holding the blocks up to each slot's position plus
@@ -270,7 +275,7 @@ def decode_inputs(dev, rng, copies, rows=1):
     ``copies`` pools (one per layer, as the engine holds them)."""
     S, H, D, bs, MB = 8, HEADS, HEAD_DIM, 16, 64
     NB = 1 + S * MB
-    positions = np.array([0, 15, 16, 500, 1023, 1, 77, 256], np.int32)
+    positions = np.array(positions, np.int32)
     perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
     tables = np.zeros((S, MB), np.int32)
     used = 0
@@ -363,43 +368,54 @@ def check_k2_k3(fa, dev, rng):
 
 def check_k4_k5(fa, dev, rng):
     """K4 paged_verify and K5 verify at the decode shapes with Q = 1, 5
-    and 9 query rows (the slot at 1023 runs past T = 1024).  Timed at
-    Q = 5, the verify of ``spec_k`` 4."""
+    and 9 query rows (the slot at 1023 runs past T = 1024), and at Q = 5
+    with rows straddling the 64-key chunk edges (a slot at 60); every row
+    against K2 at its own position.  Timed at Q = 5, the verify of
+    ``spec_k`` 4."""
     sets, tables, pos, pos_h, _ = decode_inputs(dev, rng, 12, rows=9)
     S, MB = tables.shape
     _, H, bs, D = sets[0][1].shape
     T = MB * bs
     scale = 1.0 / math.sqrt(D)
     _, kp, vp = sets[0]
-    kd, vd = dense_view(kp, tables), dense_view(vp, tables)
     e4 = e5 = 0.0
-    for Q in (1, 5, 9):
+    straddle = decode_inputs(dev, np.random.RandomState(SEED + 1), 1, rows=5,
+                             positions=STRADDLE_POSITIONS)
+    cases = [(Q, kp, vp, tables, pos, pos_h) for Q in (1, 5, 9)]
+    cases.append((5, *straddle[0][0][1:], *straddle[1:4]))
+    for Q, kp_c, vp_c, tab_c, pos_c, ph in cases:
+        kd, vd = dense_view(kp_c, tab_c), dense_view(vp_c, tab_c)
         q = torch.randn(S, H, Q, D, device=dev)
-        got4 = fa.paged_verify_decode_attention(q, kp, vp, tables, pos,
+        got4 = fa.paged_verify_decode_attention(q, kp_c, vp_c, tab_c, pos_c,
                                                 scale=scale)
-        got5 = fa.verify_decode_attention(q, kd, vd, pos, scale=scale)
+        got5 = fa.verify_decode_attention(q, kd, vd, pos_c, scale=scale)
         err4 = max_err(got4, fa._plain_paged_verify_decode_attention(
-            q, kp, vp, tables, pos, scale))
+            q, kp_c, vp_c, tab_c, pos_c, scale))
         err5 = max_err(got5, fa._plain_verify_decode_attention(
-            q, kd, vd, pos, scale))
+            q, kd, vd, pos_c, scale))
         same = bool(torch.equal(got4, got5))
-        print(f"K4 paged_verify S={S} H={H} Q={Q} bs={bs} MB={MB} D={D}: "
-              f"max_abs_err {err4:.3e}; K5 verify T={T}: max_abs_err "
-              f"{err5:.3e} (tol {KERNEL_TOL}); bitwise equal: {same}",
-              flush=True)
+        print(f"K4 paged_verify S={S} H={H} Q={Q} bs={bs} MB={MB} D={D} "
+              f"positions {ph.tolist()}: max_abs_err {err4:.3e}; K5 verify "
+              f"T={T}: max_abs_err {err5:.3e} (tol {KERNEL_TOL}); bitwise "
+              f"equal: {same}", flush=True)
         check(bool(torch.isfinite(got4).all()), f"K4 Q={Q}: non-finite")
         check(err4 <= KERNEL_TOL, f"K4 Q={Q}: error {err4} > {KERNEL_TOL}")
         check(err5 <= KERNEL_TOL, f"K5 Q={Q}: error {err5} > {KERNEL_TOL}")
         check(same, f"K4 and K5 disagree on the same live K/V at Q={Q}")
         e4, e5 = max(e4, err4), max(e5, err5)
-        if Q == 1:
-            k2 = fa.paged_decode_attention(q[:, :, 0].contiguous(), kp, vp,
-                                           tables, pos, scale=scale)
-            e = max_err(got4[:, :, 0], k2)
-            print(f"K4 at Q=1 against K2: max_abs_err {e:.3e} (tol "
-                  f"{KERNEL_TOL}); bitwise equal: "
-                  f"{bool(torch.equal(got4[:, :, 0], k2))}", flush=True)
-            check(e <= KERNEL_TOL, f"K4 at Q=1 differs from K2 by {e}")
+        # row j against K2 at positions[s] + j
+        errs, equal = [], []
+        for j in range(Q):
+            k2 = fa.paged_decode_attention(q[:, :, j].contiguous(), kp_c,
+                                           vp_c, tab_c, pos_c + j,
+                                           scale=scale)
+            errs.append(max_err(got4[:, :, j], k2))
+            equal.append(bool(torch.equal(got4[:, :, j], k2)))
+        print(f"K4 rows 0..{Q - 1} against K2 at positions + j: max_abs_err "
+              f"{max(errs):.3e} (tol {KERNEL_TOL}); bitwise equal per row: "
+              f"{equal}", flush=True)
+        check(max(errs) <= KERNEL_TOL,
+              f"K4 at Q={Q} differs from K2 by {max(errs)}")
 
     Q = 5
     vsets = [(torch.randn(S, H, Q, D, device=dev), kp, vp)
@@ -413,6 +429,13 @@ def check_k4_k5(fa, dev, rng):
     nbytes = (2 * H * int(live.sum()) * D + 2 * S * H * Q * D + S
               + int(-(-live // bs).sum())) * 4
     bnd, by = bound_ms(nbytes, 4 * H * pairs * D)
+    part = fa._verify_scratch_shape(S, H, Q, T, D)
+    print(f"K4/K5 split: {part[3]} chunks of {fa._DECODE_CHUNK} keys "
+          f"(grid {H} x {S} x {part[3]}, "
+          f"{int((heads[:, -1] // fa._DECODE_CHUNK + 1).sum()) * H} live "
+          f"blocks; merge grid {H} x {S} x {Q}), scratch {tuple(part)} fp32 "
+          f"= {4 * math.prod(part)} bytes", flush=True)
+
     def k4_call(q, kp, vp):
         return fa.paged_verify_decode_attention(q, kp, vp, tables, pos,
                                                 scale=scale)

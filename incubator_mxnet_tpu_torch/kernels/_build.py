@@ -25,8 +25,7 @@ __all__ = ["KERNELS", "build_all", "library", "build_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-HEADERS = ("common.cuh", "decode_common.cuh", "verify_common.cuh",
-           "flash_bwd_common.cuh")
+HEADERS = ("common.cuh", "decode_common.cuh", "flash_bwd_common.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
@@ -126,8 +125,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "flash_fwd": [p, p, p, p, p, p, i, i, i, i, f, i, p],
         "paged_decode": [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p],
         "decode": [p, p, p, p, p, p, i, i, i, i, f, p],
-        "paged_verify": [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
-        "verify": [p, p, p, p, p, i, i, i, i, i, f, p],
+        "paged_verify": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
+        "verify": [p, p, p, p, p, p, i, i, i, i, i, f, p],
         "flash_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
         "flash_bwd_dkv": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
     }

@@ -1,5 +1,6 @@
-// Shared helpers of the attention kernels: warp reductions and the C
-// entry point that turns a CUDA error code into its message.
+// Shared by the attention kernels: the error code of an unsupported head
+// dimension and the C entry point that turns an error code into its
+// message.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -7,19 +8,6 @@
 
 // Returned by an entry point for a head dimension it has no instance for.
 #define MX_ERR_UNSUPPORTED_D 10001
-
-__device__ __forceinline__ float mx_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float mx_warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 extern "C" const char* mx_error_string(int code) {
   if (code == MX_ERR_UNSUPPORTED_D) return "unsupported head dimension";

@@ -7,17 +7,18 @@
 // block 0, and positions (S,): row j of slot s attends to logical positions
 // 0..min(positions[s] + j, MB * bs - 1), key t living in
 // pages[tables[s, t / bs], h, t % bs].  The Pallas kernel walks every table
-// entry and masks; this one stops at the last row's head (masked keys weigh
-// exactly 0 there, so the results match).  Bound and design: see
-// verify_common.cuh.
-#include "verify_common.cuh"
+// entry and masks; this one reads only the keys up to the last row's head
+// (masked keys weigh exactly 0 there, so the results match).  part: the
+// (S, H, Q, ceil(MB * bs / 64), D + 2) fp32 scratch of the split.  Bound
+// and design: see decode_common.cuh.
+#include "decode_common.cuh"
 
 extern "C" int mx_paged_verify(const float* q, const float* k_pages,
                                const float* v_pages, const int* tables,
-                               const int* positions, float* o, int S, int H,
-                               int NB, int bs, int MB, int Q, int D,
-                               float scale, void* stream) {
+                               const int* positions, float* part, float* o,
+                               int S, int H, int NB, int bs, int MB, int Q,
+                               int D, float scale, void* stream) {
   const mxdec::PagedKV kv{k_pages, v_pages, tables, H, NB, bs, MB};
-  return mxver::launch(q, kv, positions, o, S, H, Q, D, scale,
+  return mxdec::launch(q, kv, positions, part, o, S, H, MB * bs, Q, D, scale,
                        static_cast<cudaStream_t>(stream));
 }

@@ -6,15 +6,18 @@
 // (S, H, T, D), positions (S,): row j of slot s attends to cache entries
 // 0..min(positions[s] + j, T - 1); later entries are stale by contract and
 // never read.  The Pallas kernel walks every key block of T and masks; this
-// one stops at the last row's head.  Same loop as K4 over the dense address
-// computation, so a paged and a dense engine holding the same K/V produce
-// bit-identical outputs.  Bound and design: see verify_common.cuh.
-#include "verify_common.cuh"
+// one reads only the keys up to the last row's head.  K2/K3's split over
+// 64-key chunks with Q rows per chunk, then the merge, over the dense
+// address computation, so a paged and a dense engine holding the same K/V
+// produce bit-identical outputs.  part: the (S, H, Q, ceil(T / 64), D + 2)
+// fp32 scratch of the split.  Bound and design: see decode_common.cuh.
+#include "decode_common.cuh"
 
 extern "C" int mx_verify(const float* q, const float* k, const float* v,
-                         const int* positions, float* o, int S, int H, int T,
-                         int Q, int D, float scale, void* stream) {
+                         const int* positions, float* part, float* o, int S,
+                         int H, int T, int Q, int D, float scale,
+                         void* stream) {
   const mxdec::DenseKV kv{k, v, H, T};
-  return mxver::launch(q, kv, positions, o, S, H, Q, D, scale,
+  return mxdec::launch(q, kv, positions, part, o, S, H, T, Q, D, scale,
                        static_cast<cudaStream_t>(stream));
 }

@@ -58,8 +58,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
-_VERIFY_CHUNK = 8       # query rows per block of K4/K5 (kChunk)
-_DECODE_CHUNK = 64      # keys per split block of K2/K3 (kChunkKeys)
+_DECODE_CHUNK = 64      # keys per split block of K2-K5 (kChunkKeys)
 _FWD_TILE = 64          # query rows per block of K1 (kBQ)
 
 # kernel name -> launches since the last reset (kernel launches only; the
@@ -375,12 +374,19 @@ def _decode_scratch_shape(S, H, length, D):
     return (S, H, -(-int(length) // _DECODE_CHUNK), D + 2)
 
 
-def _decode_scratch(name, q, S, H, length, D):
-    """Allocate the split's scratch on ``q``'s device; raise where the
-    split count exceeds the grid."""
-    shape = _decode_scratch_shape(S, H, length, D)
-    if shape[2] > _MAX_GRID_Y:
-        raise MXNetError(f"{name}: {length} keys exceed the split grid")
+def _verify_scratch_shape(S, H, Q, length, D):
+    """The (S, H, Q, n_split, D + 2) fp32 scratch of K4/K5's split: K2/K3's
+    with one partial per query row, n_split = ceil(length / 64)."""
+    return (S, H, Q, -(-int(length) // _DECODE_CHUNK), D + 2)
+
+
+def _split_scratch(name, q, shape):
+    """Allocate a split's scratch of ``shape`` (its split count second to
+    last) on ``q``'s device; raise where the split count exceeds the
+    grid."""
+    if shape[-2] > _MAX_GRID_Y:
+        raise MXNetError(f"{name}: {shape[-2]} key chunks exceed the split "
+                         f"grid")
     return torch.empty(shape, device=q.device, dtype=torch.float32)
 
 
@@ -408,7 +414,7 @@ def _decode_cuda(q, k, v, positions, scale):
     o = torch.empty_like(q)
     if S == 0 or T == 0:
         return o.zero_()
-    part = _decode_scratch("decode", q, S, H, T, D)
+    part = _split_scratch("decode", q, _decode_scratch_shape(S, H, T, D))
     _launch("decode", q, k, v, positions, part, o, S, H, T, D, float(scale))
     return o
 
@@ -428,7 +434,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     o = torch.empty_like(q)
     if S == 0 or MB == 0:
         return o.zero_()
-    part = _decode_scratch("paged_decode", q, S, H, MB * bs, D)
+    part = _split_scratch("paged_decode", q,
+                          _decode_scratch_shape(S, H, MB * bs, D))
     _launch("paged_decode", q, k_pages, v_pages, tables, positions, part, o,
             S, H, NB, bs, MB, D, float(scale))
     return o
@@ -443,15 +450,15 @@ def _verify_checks(name, q, positions, S, H, D):
                          f"{tuple(positions.shape)} do not match ({S}, {H}, "
                          f"Q, {D}) / ({S},)")
     _head_dim_ok(name, D)
-    chunks = -(-q.shape[2] // _VERIFY_CHUNK)
-    if S > _MAX_GRID_Y or chunks > _MAX_GRID_Y:
+    if S > _MAX_GRID_Y or q.shape[2] > _MAX_GRID_Y:
         raise MXNetError(f"{name}: {S} slots or {q.shape[2]} query rows "
                          f"exceed the grid")
 
 
 def _verify_cuda(q, k, v, positions, scale):
     """K5 on CUDA tensors: q (S, H, Q, D), k/v (S, H, T, D) fp32, positions
-    (S,) int32 read by the kernel on the device."""
+    (S,) int32 read by the kernel on the device.  Two launches, the split
+    over 64-key chunks and the merge, counted as one."""
     S, H, T, D = k.shape
     _verify_checks("verify", q, positions, S, H, D)
     _check("verify", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -460,7 +467,9 @@ def _verify_cuda(q, k, v, positions, scale):
     o = torch.empty_like(q)
     if q.numel() == 0 or T == 0:
         return o.zero_()
-    _launch("verify", q, k, v, positions, o, S, H, T, q.shape[2], D,
+    Q = q.shape[2]
+    part = _split_scratch("verify", q, _verify_scratch_shape(S, H, Q, T, D))
+    _launch("verify", q, k, v, positions, part, o, S, H, T, Q, D,
             float(scale))
     return o
 
@@ -468,7 +477,8 @@ def _verify_cuda(q, k, v, positions, scale):
 def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
     """K4 on CUDA tensors: q (S, H, Q, D), pages (NB, H, bs, D) fp32,
     tables (S, MB) and positions (S,) int32, both read by the kernel on
-    the device."""
+    the device.  Two launches, the split over 64-key chunks and the merge,
+    counted as one."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _verify_checks("paged_verify", q, positions, S, H, D)
@@ -479,8 +489,11 @@ def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
     o = torch.empty_like(q)
     if q.numel() == 0 or MB == 0:
         return o.zero_()
-    _launch("paged_verify", q, k_pages, v_pages, tables, positions, o,
-            S, H, NB, bs, MB, q.shape[2], D, float(scale))
+    Q = q.shape[2]
+    part = _split_scratch("paged_verify", q,
+                          _verify_scratch_shape(S, H, Q, MB * bs, D))
+    _launch("paged_verify", q, k_pages, v_pages, tables, positions, part, o,
+            S, H, NB, bs, MB, Q, D, float(scale))
     return o
 
 

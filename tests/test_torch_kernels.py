@@ -2,8 +2,9 @@
 the plain PyTorch versions of K1 flash_fwd, K2 paged_decode and K3 decode
 held to the JAX package's lax oracles and to its Pallas kernels in
 interpret mode, fp32 at atol/rtol 1e-5 (the two sides sum in different
-orders); the wrappers' input checks; and, on a card, each CUDA kernel
-against its plain version (``cuda`` marker, skipped without a GPU)."""
+orders); a host model of the split-then-merge that K2 to K5 share; the
+wrappers' input checks; and, on a card, each CUDA kernel against its
+plain version (``cuda`` marker, skipped without a GPU)."""
 import importlib
 
 import numpy as np
@@ -310,25 +311,34 @@ def test_decode_scratch_shape():
 
 
 def _split_merge(q, k, v, positions, scale, chunk):
-    """A host model of K2/K3's design: each fixed 64-key chunk up to the
-    slot's head gives a partial (acc, m, l), and the partials merge with
-    weights exp(m_c - max m)."""
-    S, H, T, D = k.shape
-    out = torch.zeros(S, H, D)
+    """A host model of the K2-K5 design: q (S, H, Q, D), row j's head h_j =
+    min(positions[s] + j, T - 1).  Each fixed chunk of keys up to the last
+    row's head is read once and gives every row whose head reaches it a
+    partial (acc, m, l) over its keys <= h_j; row j merges the partials of
+    chunks 0..h_j // chunk in chunk order with weights exp(m_c - max m)."""
+    S, H, Q, D = q.shape
+    T = k.shape[2]
+    out = torch.zeros(S, H, Q, D)
     for s in range(S):
-        last = min(int(positions[s]), T - 1)
-        parts = []
-        for t0 in range(0, last + 1, chunk):
-            t1 = min(t0 + chunk, last + 1)
-            sc = torch.einsum("hd,htd->ht", q[s], k[s, :, t0:t1]) * scale
-            m = sc.amax(-1)
-            p = torch.exp(sc - m[:, None])
-            parts.append((torch.einsum("ht,htd->hd", p, v[s, :, t0:t1]), m,
-                          p.sum(-1)))
-        big = torch.stack([m for _, m, _ in parts]).amax(0)
-        num = sum(a * torch.exp(m - big)[:, None] for a, m, _ in parts)
-        den = sum(l * torch.exp(m - big) for _, m, l in parts)
-        out[s] = num / den[:, None]
+        heads = [min(int(positions[s]) + j, T - 1) for j in range(Q)]
+        parts = [[] for _ in range(Q)]
+        for t0 in range(0, heads[-1] + 1, chunk):
+            kc, vc = k[s, :, t0:t0 + chunk], v[s, :, t0:t0 + chunk]
+            for j in range(Q):
+                if heads[j] < t0:
+                    continue
+                n = min(t0 + chunk, heads[j] + 1) - t0
+                sc = torch.einsum("hd,htd->ht", q[s, :, j], kc[:, :n]) * scale
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[:, None])
+                parts[j].append((torch.einsum("ht,htd->hd", p, vc[:, :n]), m,
+                                 p.sum(-1)))
+        for j in range(Q):
+            assert len(parts[j]) == heads[j] // chunk + 1
+            big = torch.stack([m for _, m, _ in parts[j]]).amax(0)
+            num = sum(a * torch.exp(m - big)[:, None] for a, m, _ in parts[j])
+            den = sum(l * torch.exp(m - big) for _, m, l in parts[j])
+            out[s, :, j] = num / den[:, None]
     return out
 
 
@@ -342,9 +352,48 @@ def test_decode_split_merge_equals_plain(positions):
     q, k, v = (_t(_rand(rng, *sh)) for sh in
                ((S, H, D), (S, H, T, D), (S, H, T, D)))
     pos = _t(np.asarray(positions, np.int32))
-    got = _split_merge(q, k, v, pos, 0.25, tfa._DECODE_CHUNK)
+    got = _split_merge(q[:, :, None], k, v, pos, 0.25, tfa._DECODE_CHUNK)
     want = tfa._plain_decode_attention(q, k, v, pos, 0.25)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), want.numpy(), **TOL)
+
+
+# ------------------------------------- K4/K5 split geometry (host helpers)
+@pytest.mark.parametrize("Q", [1, 2, 5, 9])
+@pytest.mark.parametrize("positions", [
+    (60, 61, 62, 63, 64, 65),           # heads straddling 63/64/65
+    (0, 1, 127, 128, 30, 100),          # position 0 and the next edge
+    (195, 197, 199, 199, 59, 120)])     # rows past T - 1 clamp at its end
+def test_verify_split_merge_equals_plain(positions, Q):
+    """K4/K5's split-then-merge (one read of each chunk for every row,
+    row j masked at its own head) equals the plain verify: rows whose
+    heads straddle a chunk edge, a slot at position 0, and rows past the
+    cache's end clamped at T - 1."""
+    rng = np.random.RandomState(16)
+    S, H, T, D = len(positions), 2, 200, 16
+    q, k, v = (_t(_rand(rng, *sh)) for sh in
+               ((S, H, Q, D), (S, H, T, D), (S, H, T, D)))
+    pos = _t(np.asarray(positions, np.int32))
+    got = _split_merge(q, k, v, pos, 0.25, tfa._DECODE_CHUNK)
+    want = tfa._plain_verify_decode_attention(q, k, v, pos, 0.25)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("Q", [1, 5, 9])
+@pytest.mark.parametrize("length,splits", [
+    (1, 1), (63, 1), (64, 1), (65, 2), (1000, 16), (1024, 16), (1064, 17)])
+def test_verify_splits_fixed_by_shape(length, splits, Q):
+    """K4/K5 split a cache of L keys into ceil(L / 64) chunks, from the
+    shape alone and whatever the number of query rows."""
+    assert tfa._verify_scratch_shape(8, 12, Q, length, 64)[3] == splits
+
+
+def test_verify_scratch_shape():
+    """One (acc[D], m, l) partial per (slot, head, row, chunk), fp32; a
+    split count past the grid raises before anything is allocated."""
+    assert tfa._verify_scratch_shape(8, 12, 5, 1024, 64) == (8, 12, 5, 16, 66)
+    assert tfa._verify_scratch_shape(3, 2, 9, 65, 16) == (3, 2, 9, 2, 18)
+    with pytest.raises(MXNetError, match="split grid"):
+        tfa._split_scratch("verify", torch.zeros(1), (1, 1, 1, 65536, 18))
 
 
 # ------------------------------- the redesigned kernels' edges, on the card
@@ -382,16 +431,17 @@ def test_cuda_flash_fwd_edges(T, D, causal):
                                    **CUDA_TOL)
 
 
-def _paged_pool(rng, S, H, bs, D, MB, positions):
+def _paged_pool(rng, S, H, bs, D, MB, positions, rows=1):
     """A shuffled pool of 1 + S * MB blocks (block 0 the null block) whose
-    tables hold distinct blocks up to each slot's position."""
+    tables hold distinct blocks up to each slot's position plus ``rows -
+    1`` (a verify's last row)."""
     NB = 1 + S * MB
     kp, vp = _rand(rng, NB, H, bs, D), _rand(rng, NB, H, bs, D)
     perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
     tables = np.zeros((S, MB), np.int32)
     used = 0
     for s, p in enumerate(positions):
-        live = p // bs + 1
+        live = min(MB, (p + rows - 1) // bs + 1)
         tables[s, :live] = perm[used:used + live]
         used += live
     return kp, vp, tables
@@ -445,3 +495,72 @@ def test_cuda_decode_split_edges(bs, D, case):
         **CUDA_TOL)
     assert (tfa.launch_counts["paged_decode"],
             tfa.launch_counts["decode"]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edges", "full", "short"])
+@pytest.mark.parametrize("Q", [1, 2, 5, 9])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_cuda_verify_split_edges(bs, D, Q, case):
+    """K4 and K5 (split over 64-key chunks with every query row per chunk,
+    then merged) against their plain versions with positions at 0, C - 1,
+    C, C + 1, 60 (rows straddling C) and max_len - 1 (rows clamped at the
+    cache's end) (``edges``), every slot at max_len - 1 (``full``), or a
+    short cache (``short``).  K4 == K5 bit for bit where the dense cache
+    is the paged one viewed densely: longer (stale rows past max_len; the
+    rows whose head stays inside max_len) or cut after the last live key
+    (every row).  Row j equals K2 at positions[s] + j bit for bit.  One
+    launch-counter tick per call."""
+    _need_cuda()
+    H, max_len = 4, 1024
+    MB = max_len // bs
+    positions = {"edges": (0, 63, 64, 65, max_len - 1, 60, 500, 127),
+                 "full": (max_len - 1,) * 8,
+                 "short": (0, 63, 64, 65, 700, 60, 130, 200)}[case]
+    S = len(positions)
+    rng = np.random.RandomState(17)
+    kp, vp, tables = _paged_pool(rng, S, H, bs, D, MB, positions, rows=Q)
+    q = _rand(rng, S, H, Q, D)
+    pos = np.asarray(positions, np.int32)
+    cu = [_t(a).cuda() for a in (q, kp, vp, tables, pos)]
+    tfa.reset_launch_counts()
+    got = tfa.paged_verify_decode_attention(*cu)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts["paged_verify"] == 1
+    want = tfa.paged_verify_decode_attention(*(_t(a) for a in (q, kp, vp,
+                                                               tables, pos)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
+
+    rows = pos[:, None] + np.arange(Q)[None, :]            # (S, Q) positions
+    kd = kp[tables].transpose(0, 2, 1, 3, 4).reshape(S, H, max_len, D)
+    vd = vp[tables].transpose(0, 2, 1, 3, 4).reshape(S, H, max_len, D)
+    if case == "short":
+        T = int(np.minimum(rows, max_len - 1).max()) + 1
+        kd, vd = kd[:, :, :T], vd[:, :, :T]
+        inside = np.ones_like(rows, dtype=bool)
+    else:
+        stale = _rand(rng, S, H, 40, D)
+        kd = np.concatenate([kd, stale], axis=2)
+        vd = np.concatenate([vd, -stale], axis=2)
+        inside = rows <= max_len - 1       # past it the dense rows go on
+    dense = tfa.verify_decode_attention(cu[0], _t(kd).cuda(), _t(vd).cuda(),
+                                        cu[4])
+    torch.cuda.synchronize()
+    assert tfa.launch_counts["verify"] == 1
+    np.testing.assert_array_equal(
+        dense.cpu().numpy().transpose(0, 2, 1, 3)[inside],
+        got.cpu().numpy().transpose(0, 2, 1, 3)[inside])
+    np.testing.assert_allclose(
+        dense.cpu().numpy(),
+        tfa.verify_decode_attention(_t(q), _t(kd), _t(vd), _t(pos)).numpy(),
+        **CUDA_TOL)
+    for j in range(Q):
+        dec = tfa.paged_decode_attention(cu[0][:, :, j].contiguous(),
+                                         *cu[1:4], _t(pos + j).cuda())
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(dec.cpu().numpy(),
+                                      got[:, :, j].cpu().numpy())
+    assert {n: tfa.launch_counts[n] for n in ("paged_verify", "verify",
+                                              "paged_decode")} \
+        == {"paged_verify": 1, "verify": 1, "paged_decode": Q}

@@ -474,7 +474,7 @@ def _need_cuda():
 def test_cuda_verify_kernels_match_plain(D):
     """K4 and K5 against their plain versions at Q in {1, 5, 9} (rows
     past T at position 1023), bitwise equal to each other on the same
-    live K/V, and row 0 against K2."""
+    live K/V, and row 0 bitwise equal to K2."""
     _need_cuda()
     positions = (0, 15, 16, 500, 1023, 1, 77, 256)
     for Q in (1, 5, 9):
@@ -496,7 +496,6 @@ def test_cuda_verify_kernels_match_plain(D):
                                    **CUDA_TOL)
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       got_p.cpu().numpy())
-        # one loop order, but the compiler may contract other products
-        # into FMAs in the two kernels: equal to rounding
-        np.testing.assert_allclose(got_p[:, :, 0].cpu().numpy(),
-                                   dec.cpu().numpy(), **CUDA_TOL)
+        # K2 is the split kernel at one row: row 0 is the same arithmetic
+        np.testing.assert_array_equal(got_p[:, :, 0].cpu().numpy(),
+                                      dec.cpu().numpy())

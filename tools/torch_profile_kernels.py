@@ -23,8 +23,11 @@ T=1024 D=64 causal) and ``flash_attention_lse`` at the training shape
 (B=32 H=16 T=128 D=64 dense, no gradient recorded), K2
 ``paged_decode_attention`` and K3 ``decode_attention`` at
 ``chip_smoke.py``'s decode shape and inputs (``decode_inputs``: 8 slots
-at positions 0..1023, 12 heads of 64, blocks of 16, 64 blocks a slot).
-Each is timed over 8 (K1) or 12 (K2/K3) rotating input sets by this
+at positions 0..1023, 12 heads of 64, blocks of 16, 64 blocks a slot),
+and K4 ``paged_verify_decode_attention`` and K5
+``verify_decode_attention`` at ``check_k4_k5``'s timed shape and inputs
+(the same slots with Q = 5 query rows, tables holding 9 rows' blocks).
+Each is timed over 8 (K1) or 12 (K2-K5) rotating input sets by this
 tree's ``chip_smoke.py`` timers, two ways: on the card (``device_ms``:
 one round captured in a CUDA graph, replayed between CUDA events) and
 eagerly (``time_ms``: CUDA events around the Python calls, host work
@@ -100,6 +103,20 @@ def main():
     del sets
     report("decode S=8 H=12 D=64 T=1024",
            lambda q, k, v: fa.decode_attention(q, k, v, pos, scale=0.125),
+           dsets, 50)
+    del dsets
+    sets, tables, pos, _, _ = decode_inputs(dev, rng, 12, rows=9)
+    vsets = [(rand(8, 12, 5, 64), kp, vp) for _, kp, vp in sets]
+    del sets
+    report("paged_verify S=8 H=12 Q=5 D=64 bs=16 MB=64",
+           lambda q, kp, vp: fa.paged_verify_decode_attention(
+               q, kp, vp, tables, pos, scale=0.125), vsets, 50)
+    dsets = [(q, dense_view(kp, tables), dense_view(vp, tables))
+             for q, kp, vp in vsets]
+    del vsets
+    report("verify S=8 H=12 Q=5 D=64 T=1024",
+           lambda q, k, v: fa.verify_decode_attention(q, k, v, pos,
+                                                      scale=0.125),
            dsets, 50)
     print(json.dumps({"root": root, "card": card, "kernels": out,
                       "ms_per": "mean per call"}), flush=True)
