@@ -26,15 +26,16 @@ Phases, each of which raises (exit code 1) on any failure:
    mask at T = 512 (B = 8) and causal at a ragged T, within ``KERNEL_TOL``
    (relative where a value exceeds 1); time each kernel, its plain version
    and, where one PyTorch call computes the same function, that call (for
-   K6/K7 the backward of ``scaled_dot_product_attention``; for K1 at the
-   training shape the efficient-attention op with its logsumexp), with
-   CUDA events, beside the least time the card could take (the bound; K1's
-   for 3xTF32 on the tensor cores). A kernel's and a forward library
-   call's time is the card's, from a replayed CUDA graph of the calls; the
-   eager time per call, host work included, is printed beside it; the
-   plain versions and the library backward are timed eagerly. Also print
-   the kernel names the profiler gives SDPA's forward, and K2's and
-   K4/K5's split counts and scratch bytes;
+   K6 and K7 together the efficient-attention backward, which computes
+   dq, dk and dv in one call; for K1 at the training shape the
+   efficient-attention op with its logsumexp), with CUDA events, beside
+   the least time the card could take (the bound; K1's, K6's and K7's for
+   3xTF32 on the tensor cores). A kernel's and a library call's time is
+   the card's, from a replayed CUDA graph of the calls; the eager time
+   per call, host work included, is printed beside it; the plain versions
+   are timed eagerly. Also print the kernel names the profiler gives
+   SDPA's forward and the library backward, and K2's and K4/K5's split
+   counts and scratch bytes;
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -150,8 +151,8 @@ def time_ms(fn, arg_sets, reps):
 
 
 def k1_bounds(nbytes, flops):
-    """K1's bound for the arithmetic it does, 3xTF32 (three TF32
-    tensor-core products per fp32 product): max(bytes / 3.35 TB/s,
+    """The bound of K1, K6 and K7 for the arithmetic they do, 3xTF32
+    (three TF32 tensor-core products per fp32 product): max(bytes / 3.35 TB/s,
     3 * FLOP / 495 TFLOP/s); and, for comparison with earlier rows, the
     fp32 CUDA-core bound max(bytes / 3.35 TB/s, FLOP / 67 TFLOP/s)."""
     return (bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S),
@@ -467,6 +468,38 @@ def check_k4_k5(fa, dev, rng):
          "library_ms": k5_lib, "eager_ms": k5_eager, "shape": shape + f" T={T}"}]
 
 
+def library_bwd(fa, sets, B, H, T, D, scale):
+    """PyTorch's one backward call for K6 and K7's function: the
+    efficient-attention backward (dq, dk and dv together) on its own
+    forward's saved out, logsumexp and seeds, over ``sets`` reshaped to
+    (B, H, T, D), timed on the card as the kernels are (``device_ms``).
+    Prints the kernels it launches and its largest gradient error
+    against the plain backward on the first set.  Returns (ms, what)."""
+    fwd = torch.ops.aten._scaled_dot_product_efficient_attention
+    bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    saved = []
+    for q, k, v, g, *_ in sets:
+        xs = [x.reshape(B, H, T, D) for x in (q, k, v)]
+        o, lse, seed, offset = fwd(*xs, None, True, scale=scale)
+        saved.append((g.reshape(B, H, T, D), *xs, o, lse, seed, offset))
+
+    def call(g, q, k, v, o, lse, seed, offset):
+        return bwd(g, q, k, v, None, o, lse, seed, offset, 0.0,
+                   [True, True, True, False], False, scale=scale)
+    ms = device_ms(call, saved, 20)
+    what = "aten._scaled_dot_product_efficient_attention_backward"
+    print(f"K6/K7 library: {what} runs "
+          f"{device_kernel_names(call, *saved[0]) or 'no traced kernel'}",
+          flush=True)
+    q, k, v, g, lse, dd = sets[0]
+    want = fa._plain_flash_bwd_dd(q, k, v, None, g, lse, dd, scale, False, H)
+    err = max(max_err(a.reshape(b.shape), b)
+              for a, b in zip(call(*saved[0])[:3], want[:3]))
+    print(f"K6/K7 library: max abs error of its dq, dk, dv against the "
+          f"plain backward {err:.3e}", flush=True)
+    return ms, what
+
+
 def check_k6_k7(fa, dev, rng):
     """K1 with lse, K6 flash_bwd_dq and K7 flash_bwd_dkv against the plain
     forward-with-lse and backward on the same inputs: BERT-large's
@@ -555,23 +588,10 @@ def check_k6_k7(fa, dev, rng):
     k1 = device_ms(lambda q, k, v, *_: fa._flash_fwd_cuda(
         q, k, v, None, scale, False, H), sets, 20)
 
-    def sdpa_bwd(wrt):
-        """``scaled_dot_product_attention``'s backward alone, w.r.t. the
-        inputs ``wrt`` indexes, over the same sets (forward outside the
-        timed region)."""
-        graphs = []
-        for q, k, v, g, *_ in sets:
-            xs = [x.reshape(B, H, T, D).detach().requires_grad_()
-                  for x in (q, k, v)]
-            o = F.scaled_dot_product_attention(*xs, scale=scale)
-            graphs.append((o, [xs[i] for i in wrt], g.reshape(B, H, T, D)))
-        return time_ms(lambda o, x, g: torch.autograd.grad(
-            o, x, g, retain_graph=True), graphs, 20)
-
-    lib6, lib7 = sdpa_bwd((0,)), sdpa_bwd((1, 2))
+    lib_bwd, lib_what = library_bwd(fa, sets, B, H, T, D, scale)
     n = BH * T
-    bnd6, by6 = bound_ms((5 * n * D + 2 * n) * 4, 6 * BH * T * T * D)
-    bnd7, by7 = bound_ms((6 * n * D + 3 * n) * 4, 8 * BH * T * T * D)
+    (bnd6, by6), old6 = k1_bounds((5 * n * D + 2 * n) * 4, 6 * BH * T * T * D)
+    (bnd7, by7), old7 = k1_bounds((6 * n * D + 3 * n) * 4, 8 * BH * T * T * D)
     (bnd1, _), old1 = k1_bounds((4 * n * D + n) * 4, 4 * BH * T * T * D)
     # the library yardstick: PyTorch's efficient-attention op with its
     # logsumexp (the same two outputs), else SDPA's forward alone
@@ -598,16 +618,22 @@ def check_k6_k7(fa, dev, rng):
           f"lse, bound {bnd1:.4f} ms (3xTF32; fp32 CUDA-core bound "
           f"{old1:.4f} ms); library {lib1:.4f} ms ({lib1_what}), SDPA's "
           f"forward {sdpa1:.4f} ms", flush=True)
+    print(f"time: K6 + K7 at the training shape: {k6:.4f} + {k7:.4f} = "
+          f"{k6 + k7:.4f} ms on the card, against the library backward's "
+          f"{lib_bwd:.4f} ms ({lib_what}: dq, dk and dv in one call; each "
+          f"row's library_ms is that whole backward); bounds K6 {bnd6:.4f} "
+          f"ms by {by6}, K7 {bnd7:.4f} ms by {by7} (3xTF32; fp32 CUDA-core "
+          f"bounds {old6:.4f} and {old7:.4f} ms)", flush=True)
     shape = f"B={B} H={H} T={T} D={D} dense"
     return e_lse, [
         {"name": "flash_bwd_dq", "source": SOURCES + "flash_bwd_dq.cu",
          "replaces": TPU_KERNELS + "184", "max_abs_err": e6, "ms": k6,
          "plain_ms": plain, "bound_ms": bnd6, "bound_by": by6,
-         "library_ms": lib6, "eager_ms": k6_eager, "shape": shape},
+         "library_ms": lib_bwd, "eager_ms": k6_eager, "shape": shape},
         {"name": "flash_bwd_dkv", "source": SOURCES + "flash_bwd_dkv.cu",
          "replaces": TPU_KERNELS + "227", "max_abs_err": e7, "ms": k7,
          "plain_ms": plain, "bound_ms": bnd7, "bound_by": by7,
-         "library_ms": lib7, "eager_ms": k7_eager, "shape": shape}]
+         "library_ms": lib_bwd, "eager_ms": k7_eager, "shape": shape}]
 
 
 # ------------------------------------------------------------ phase 4

@@ -21,11 +21,14 @@ from typing import Dict, List
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "build_all", "library", "build_report"]
+__all__ = ["KERNELS", "ARGTYPES", "HEADERS", "build_all", "library",
+           "build_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-HEADERS = ("common.cuh", "decode_common.cuh", "flash_bwd_common.cuh")
+# every header a source includes: they feed each library's digest
+HEADERS = ("common.cuh", "decode_common.cuh", "flash_bwd_common.cuh",
+           "tf32_mma.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
@@ -34,6 +37,22 @@ KERNELS = {"flash_fwd": "flash_fwd.cu",
            "verify": "verify.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
            "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each kernel's C entry point ``mx_<name>``: its arguments in order, the
+# last being the stream
+ARGTYPES = {
+    "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                     _P],
+    "decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "paged_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _F, _P],
+    "verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                     _P],
+    "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _F, _I, _P],
+}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -117,19 +136,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mx_error_string.argtypes = [i]
+    lib.mx_error_string.argtypes = [ctypes.c_int]
     lib.mx_error_string.restype = ctypes.c_char_p
-    # each C entry point's arguments in order; the last is the stream
-    argtypes = {
-        "flash_fwd": [p, p, p, p, p, p, i, i, i, i, f, i, p],
-        "paged_decode": [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p],
-        "decode": [p, p, p, p, p, p, i, i, i, i, f, p],
-        "paged_verify": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
-        "verify": [p, p, p, p, p, p, i, i, i, i, i, f, p],
-        "flash_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
-        "flash_bwd_dkv": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p],
-    }
     fn = getattr(lib, "mx_" + name)
-    fn.argtypes = argtypes[name]
-    fn.restype = i
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = ctypes.c_int

@@ -1,78 +1,96 @@
 // Pieces shared by the two FlashAttention-2 backward kernels, K6 flash_bwd_dq
 // (query-parallel) and K7 flash_bwd_dkv (key-parallel).
 //
-// Both recompute one 64 x 64 tile of P = exp(S - lse) and of
+// Both recompute a 64 x 64 tile of P = exp(S - lse) and of
 // dS = P * (dP - dd) from the forward's logsumexp ``lse`` and
 // dd = rowsum(dO * O) (minus the lse cotangent), both (B*H, T) fp32, as
-// _bwd_dq_kernel and _bwd_dkv_kernel do.  A 16 x 16 grid of 256 threads
-// covers a tile, each thread a 4 x 4 patch (rows ty + 16 i, columns
-// tx + 16 j); tiles live in shared memory with rows padded by one float.
-// Masking follows the forward (K1): keys past T or past the causal diagonal
-// weigh exactly 0, the key bias is added as is (-1e30 for a masked key), and
-// query rows past T contribute nothing.
+// _bwd_dq_kernel and _bwd_dkv_kernel do.  A block of 4 warps holds the
+// tiles it reads in shared memory (rows padded to D + 4 floats, so every
+// fragment read below is free of bank conflicts); each warp owns 16 rows
+// of the tile (query rows in K6, keys in K7) and keeps its score, dP, P
+// and dS fragments in registers.  Every product runs as 3xTF32 mma.sync
+// (tf32_mma.cuh).  Masking follows the forward (K1): keys past T or past
+// the causal diagonal, and query rows past T, weigh exactly 0; the key
+// bias is added as is (-1e30 for a masked key), in the order the plain
+// version adds it, so a row whose every key is masked (lse == -1e30) gets
+// P = 1 per key as in _flash_bwd_impl.
 #pragma once
 
-#include "common.cuh"
+#include "tf32_mma.cuh"
 
-namespace mx_bwd {
+namespace {
 
-constexpr int kTile = 64;      // query rows and keys per tile
-constexpr int kThreads = 256;  // a 16 x 16 thread grid over a 64 x 64 tile
+constexpr int kTile = 64;                // query rows and keys per tile
+constexpr int kWarps = 4;                // 16 rows of the tile each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNT = kTile / 8;           // 8-column n-tiles across a tile
+static_assert(kTile == kTileRows && kThreads == kTileThreads,
+              "load_tile copies one whole tile with the whole block");
 
-// Copy rows [t0, t0 + kTile) of a (T, D) matrix into a tile with row stride
-// D + 1, zero past T.
+// The two score-shaped products of a tile, for the warp's 16 rows:
+//   c1[n] = A1 B1^T and c2[n] = A2 B2^T over the D columns,
+// where A1, A2 are tiles whose rows r0 and r0 + 8 are this thread's
+// fragment rows, and B1, B2 are 64-row tiles (row 8n + g is column g of
+// n-tile n).  ``a1``/``a2`` point at row r0, column t of A; ``b1``/``b2``
+// at row g, column t of B (row stride D + 4).  K6: (S, dP) = (Q K^T,
+// dO V^T); K7: (S^T, dP^T) = (K Q^T, V dO^T).
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int t0, int T) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * (D + 1) + c] =
-        t < T ? src[static_cast<size_t>(t) * D + c] : 0.f;
+__device__ __forceinline__ void tile_products(float (&c1)[kNT][4],
+                                              float (&c2)[kNT][4],
+                                              const float* a1,
+                                              const float* b1,
+                                              const float* a2,
+                                              const float* b2) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[n][e] = c2[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const int c = ks * 8;
+    const float x1[4] = {a1[c], a1[8 * LD + c], a1[c + 4], a1[8 * LD + c + 4]};
+    const float x2[4] = {a2[c], a2[8 * LD + c], a2[c + 4], a2[8 * LD + c + 4]};
+    const FragA f1(x1), f2(x2);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float* r1 = b1 + n * 8 * LD + c;
+      const float* r2 = b2 + n * 8 * LD + c;
+      const float y1[2] = {r1[0], r1[4]};
+      const float y2[2] = {r2[0], r2[4]};
+      mma_3xtf32(c1[n], f1, y1);
+      mma_3xtf32(c2[n], f2, y2);
+    }
   }
 }
 
-// s[i][j] = q_row . k_row and dp[i][j] = do_row . v_row for the thread's
-// 4 x 4 patch: query rows ty + 16 i of (qs, dos), keys tx + 16 j of
-// (ks, vs).
+// acc[no] += C B over one 8-column step: the C fragment ``c`` of a
+// product's n-tile (P, dS, or their transposes) read as the A fragment with
+// its 8 columns permuted (tf32_mma.cuh), against the 8 rows of a tile it
+// contracts with, read in the same order.  ``rows`` points at row 8n + 2t,
+// column g of that tile (row stride D + 4).  K6: dQ += dS K; K7: dV += P^T
+// dO and dK += dS^T Q.  Rows 2t and 2t + 1 of a padded tile hit 32
+// distinct banks across the warp.
 template <int D>
-__device__ __forceinline__ void score_patches(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    int ty, int tx, float (&s)[4][4], float (&dp)[4][4]) {
-  constexpr int LD = D + 1;
+__device__ __forceinline__ void acc_product(float (&acc)[D / 8][4],
+                                            const float (&c)[4],
+                                            const float* rows) {
+  constexpr int LD = D + 4;
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  const FragA a(x);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = qs[(ty + 16 * i) * LD + d];
-      ov[i] = dos[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = ks[(tx + 16 * j) * LD + d];
-      vv[j] = vs[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
+  for (int no = 0; no < D / 8; ++no) {
+    const float y[2] = {rows[no * 8], rows[LD + no * 8]};
+    mma_3xtf32(acc[no], a, y);
   }
 }
 
-// P of one (query tq, key tk) pair from its raw score ``s`` (q . k, not yet
-// scaled), the key's bias ``b`` and the row's logsumexp; 0 where masked.
-__device__ __forceinline__ float prob(float s, float b, float row_lse,
-                                      int tq, int tk, int T, float scale,
-                                      int causal) {
-  if (tq >= T || tk >= T || (causal && tk > tq)) return 0.f;
-  return expf(s * scale + b - row_lse);
+// P of one (query, key) pair from its raw score ``s`` (q . k, unscaled),
+// the key's bias ``b`` and the query row's logsumexp: exp(s * scale + b -
+// lse), summed in the plain version's order, as one ex2.approx.
+__device__ __forceinline__ float prob(float s, float scale, float b,
+                                      float lse) {
+  return exp2_approx((fmaf(s, scale, b) - lse) * kLog2e);
 }
 
-}  // namespace mx_bwd
+}  // namespace

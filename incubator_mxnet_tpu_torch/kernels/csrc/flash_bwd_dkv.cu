@@ -1,5 +1,6 @@
 // K7 flash_bwd_dkv: the key-parallel half of the FlashAttention-2 backward,
-// fp32, for the encoder self-attention of the BERT training step.
+// fp32 accuracy on the tensor cores, for the encoder self-attention of the
+// BERT training step.
 //
 // Replaces: _bwd_dkv_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
 // (launched by _flash_bwd_impl).  Same function: from q, k, v, dO (B*H, T, D),
@@ -9,31 +10,67 @@
 // always written, as the Pallas kernel writes them; the wrapper sums dbs
 // over the heads into the key bias's cotangent when the bias needs one.
 //
-// Bound on this card: about 8*B*H*T^2*D FLOP dense (four T x T x D
-// products: S, dP, P^T dO and dS^T Q), half of that causal, against the
-// bytes of reading q, k, v, dO once and writing dK, dV once.  fp32 FMAs on
-// the CUDA cores, as K1 and K6.
+// Bound on this card: four T x T x D products (S, dP, P^T dO and dS^T Q),
+// 8 * D FLOP per live (query, key) pair, run as 3xTF32 on the tensor cores
+// (tf32_mma.cuh), so the larger of 3 * 8 * D * pairs FLOP over the
+// 495 TFLOP/s TF32 peak and the bytes of reading q, k, v, dO, lse, dd once
+// and writing dK, dV and dbs once over 3.35 TB/s; at BERT-large's shape
+// (T = 128, D = 64) the bytes bound it.
 //
-// Design: one block of 256 threads owns a 64-key tile of one (batch, head);
-// it keeps that tile's k, v and bias in shared memory and streams 64-row
-// q/dO/lse/dd tiles, recomputing the S and dP patches
-// (flash_bwd_common.cuh), writing the P and dS tiles to shared memory and
-// accumulating dK and dV in registers (4 keys x D/16 columns each per
-// thread).  A causal block starts at the first query tile that can see its
-// keys, as the Pallas loop starts at kj * block_k // block_q.  D is a
+// Design: K6's tile in transposed form, so that nothing goes through shared
+// memory but the inputs.  One block of 4 warps owns 64 keys of one (batch,
+// head); warp w owns keys 16w..16w+15 as its fragment rows.  The block's K
+// and V tiles stay in shared memory (K and V A fragments are read and split
+// per k-step: held in registers for the whole block they would not fit
+// beside the dK and dV accumulators), and 64-row q/dO tiles with their lse
+// and dd are double-buffered with cp.async, one barrier per tile.  Per tile
+// a warp forms S^T = K q^T and dP^T = V dO^T (keys as rows, queries as
+// columns; flash_bwd_common.cuh), turns them into P^T (lse read per
+// column; exactly 0 past T and before the diagonal) and dS^T = P^T *
+// (dP^T - dd[column]) in place, adds dS^T's row sums to the thread's dbs
+// partials, and accumulates dV += P^T dO and dK += dS^T q from registers,
+// each fragment read as the A fragment with its 8 queries permuted and the
+// dO / q rows read in the same order.  The partial dbs sums meet by quad
+// shuffle at the end.  The grid is (B*H, key tiles); a causal block starts
+// at the first query tile that sees its keys, as the Pallas loop starts at
+// kj * block_k // block_q, so key tile 0, the heaviest, goes first.  D is a
 // template parameter in {16, 32, 64, 128}.
 #include "flash_bwd_common.cuh"
 
 namespace {
 
-using mx_bwd::kThreads;
-using mx_bwd::kTile;
-
+// K and V tiles, two stages of (q tile, dO tile) with rows of D + 4
+// floats, and two stages of (lse row, dd row)
 template <int D>
 constexpr int smem_floats() {
-  // ks, vs, qs, dos (rows padded to D + 1), the P and dS tiles, lse and dd
-  // rows, the key bias
-  return 4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 3 * kTile;
+  return 6 * kTile * (D + 4) + 4 * kTile;
+}
+
+// 4-byte copy, zero-filled where ``valid`` is false (lse and dd rows have
+// no 16-byte alignment at a ragged T)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+// query tile i's q, dO (row stride D + 4) and its lse, dd values
+template <int D>
+__device__ __forceinline__ void load_query_tile(float* qs, float* rows,
+                                                const float* q,
+                                                const float* dout,
+                                                const float* lse,
+                                                const float* dd, int q0,
+                                                int T) {
+  load_tile<D>(qs, q + static_cast<size_t>(q0) * D, T - q0);
+  load_tile<D>(qs + kTile * (D + 4), dout + static_cast<size_t>(q0) * D,
+               T - q0);
+  const int i = threadIdx.x & (kTile - 1);
+  const bool ok = q0 + i < T;
+  const float* src = threadIdx.x < kTile ? lse : dd;
+  cp_async4(rows + threadIdx.x, ok ? src + q0 + i : src, ok);
 }
 
 template <int D>
@@ -46,112 +83,116 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dd, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ dbs, int T,
                      int H, float scale, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int LP = kTile + 1;
-  constexpr int CPT = D / 16;  // dK / dV columns per thread
+  constexpr int LD = D + 4;
+  constexpr int TILE = kTile * LD;
+  constexpr int NO = D / 8;          // n-tiles of dK and dV
+  // [K | V | q0 | dO0 | q1 | dO1 | lse0 dd0 | lse1 dd1]
   extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * LD;
-  float* qs = vs + kTile * LD;
-  float* dos = qs + kTile * LD;
-  float* pt = dos + kTile * LD;
-  float* dst = pt + kTile * LP;
-  float* lse_s = dst + kTile * LP;
-  float* dd_s = lse_s + kTile;
-  float* bias_s = dd_s + kTile;
+  const float* ks_ = smem;
+  const float* vs_ = smem + TILE;
+  float* rows_s = smem + 6 * TILE;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;
+  const int k0 = kt * kTile;
   const size_t base = static_cast<size_t>(bh) * T * D;
   const size_t row_base = static_cast<size_t>(bh) * T;
-
-  mx_bwd::load_rows<D>(ks, k + base, k0, T);
-  mx_bwd::load_rows<D>(vs, v + base, k0, T);
-  if (tid < kTile) {
-    const int t = k0 + tid;
-    bias_s[tid] = bias != nullptr && t < T
-                      ? bias[static_cast<size_t>(bh / H) * T + t]
-                      : 0.f;
-  }
-
-  float acc_k[4][CPT], acc_v[4][CPT], acc_b[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc_b[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-  }
-
   const int n_tiles = (T + kTile - 1) / kTile;
-  for (int i0 = causal ? k0 / kTile : 0; i0 < n_tiles; ++i0) {
-    const int q0 = i0 * kTile;
-    __syncthreads();  // the previous tile's qs, dos, P and dS are consumed
-    mx_bwd::load_rows<D>(qs, q + base, q0, T);
-    mx_bwd::load_rows<D>(dos, dout + base, q0, T);
-    if (tid < kTile) {
-      const int t = q0 + tid;
-      lse_s[tid] = t < T ? lse[row_base + t] : 0.f;
-      dd_s[tid] = t < T ? dd[row_base + t] : 0.f;
-    }
-    __syncthreads();
+  const int first = causal ? kt : 0;
 
-    // patch: query rows ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
-    mx_bwd::score_patches<D>(qs, dos, ks, vs, ty, tx, s, dp);
+  load_tile<D>(smem, k + base + static_cast<size_t>(k0) * D, T - k0);
+  load_tile<D>(smem + TILE, v + base + static_cast<size_t>(k0) * D, T - k0);
+  load_query_tile<D>(smem + 2 * TILE, rows_s, q + base, dout + base,
+                     lse + row_base, dd + row_base, first * kTile, T);
+  cp_async_commit();
+
+  // this thread's keys r0 and r0 + 8 of the block, and their bias
+  const int r0 = warp * 16 + g;
+  const int key[2] = {k0 + r0, k0 + r0 + 8};
+  float b[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+  for (int r = 0; r < 2; ++r)
+    b[r] = bias != nullptr && key[r] < T
+               ? bias[static_cast<size_t>(bh / H) * T + key[r]]
+               : 0.f;
+
+  float acc_k[NO][4], acc_v[NO][4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tx + 16 * jj;
-        const float p = mx_bwd::prob(s[i][jj], bias_s[c], lse_s[r], q0 + r,
-                                     k0 + c, T, scale, causal);
-        pt[r * LP + c] = p;
-        dst[r * LP + c] = p * (dp[i][jj] - dd_s[r]);
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  float dsum[2] = {0.f, 0.f};
+
+  for (int i = first; i < n_tiles; ++i) {
+    // tile i has landed, and every warp is done with tile i - 1, so its
+    // stage may be refilled
+    cp_async_wait_all();
+    __syncthreads();
+    const int stage = (i - first) & 1;
+    if (i + 1 < n_tiles) {
+      load_query_tile<D>(smem + (2 + 2 * (stage ^ 1)) * TILE,
+                         rows_s + (stage ^ 1) * 2 * kTile, q + base,
+                         dout + base, lse + row_base, dd + row_base,
+                         (i + 1) * kTile, T);
+      cp_async_commit();
+    }
+    const float* qs = smem + (2 + 2 * stage) * TILE;
+    const float* dos = qs + TILE;
+    const float* lse_s = rows_s + stage * 2 * kTile;
+    const float* dd_s = lse_s + kTile;
+    const int q0 = i * kTile;
+
+    // st = K q^T, dpt = V dO^T; element e of n-tile n is key key[e >> 1],
+    // query q0 + 8n + 2t + (e & 1)
+    float st[kNT][4], dpt[kNT][4];
+    tile_products<D>(st, dpt, ks_ + r0 * LD + t, qs + g * LD + t,
+                     vs_ + r0 * LD + t, dos + g * LD + t);
+
+    const bool edge = q0 + kTile > T || (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int col = n * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dd_s + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int query = q0 + col + (e & 1), r = e >> 1;
+        float p = prob(st[n][e], scale, b[r], (e & 1) ? l2.y : l2.x);
+        if (edge && (query >= T || (causal && key[r] > query))) p = 0.f;
+        const float ds = p * (dpt[n][e] - ((e & 1) ? d2.y : d2.x));
+        st[n][e] = p;
+        dpt[n][e] = ds;
+        dsum[r] += ds;
       }
     }
-    __syncthreads();
 
-    // accumulate: keys ty + 16 i, columns tx + 16 c
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float pv[4], dsv[4], ov[CPT], qv[CPT];
+    // dV += P^T dO and dK += dS^T q over the tile's 8 query steps, queries
+    // permuted
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = pt[r * LP + ty + 16 * i];
-        dsv[i] = dst[r * LP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        ov[c] = dos[r * LD + tx + 16 * c];
-        qv[c] = qs[r * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc_b[i] += dsv[i];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          acc_v[i][c] = fmaf(pv[i], ov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(dsv[i], qv[c], acc_k[i][c]);
-        }
-      }
+    for (int n = 0; n < kNT; ++n) {
+      const int row = (n * 8 + 2 * t) * LD + g;
+      acc_product<D>(acc_v, st[n], dos + row);
+      acc_product<D>(acc_k, dpt[n], qs + row);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t < T) {
-      const size_t off = base + static_cast<size_t>(t) * D + tx;
+  for (int r = 0; r < 2; ++r) {
+    float sum = dsum[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (key[r] >= T) continue;
+    const size_t off = base + static_cast<size_t>(key[r]) * D + 2 * t;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        dk[off + 16 * c] = acc_k[i][c] * scale;
-        dv[off + 16 * c] = acc_v[i][c];
-      }
-      if (tx == 0) dbs[row_base + t] = acc_b[i];
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<float2*>(dk + off + n * 8) =
+          make_float2(acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + n * 8) =
+          make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
+    if (t == 0) dbs[row_base + key[r]] = sum;
   }
 }
 
@@ -165,7 +206,7 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
+  const dim3 grid(BH, (T + kTile - 1) / kTile);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, bias, dout, lse, dd, dk, dv, dbs, T, H, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -173,8 +214,8 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: (BH, T, D) contiguous fp32; lse, dd, dbs: (BH, T)
-// fp32; bias: (BH / H, 1, T) fp32 or null.
+// q, k, v, dout, dk, dv: (BH, T, D) contiguous fp32, 16-byte aligned; lse,
+// dd, dbs: (BH, T) fp32; bias: (BH / H, 1, T) fp32 or null.
 extern "C" int mx_flash_bwd_dkv(const float* q, const float* k,
                                 const float* v, const float* bias,
                                 const float* dout, const float* lse,

@@ -59,7 +59,7 @@ NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 _DECODE_CHUNK = 64      # keys per split block of K2-K5 (kChunkKeys)
-_FWD_TILE = 64          # query rows per block of K1 (kBQ)
+_FWD_TILE = 64          # query rows (K1, K6) or keys (K7) per block
 
 # kernel name -> launches since the last reset (kernel launches only; the
 # plain versions never count)
@@ -314,6 +314,8 @@ def _flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
         raise MXNetError(f"flash_bwd: dO {tuple(g.shape)}, lse "
                          f"{tuple(lse.shape)}, dd {tuple(dd.shape)} do not "
                          f"match q {tuple(q.shape)}")
+    if -(-T // _FWD_TILE) > _MAX_GRID_Y:
+        raise MXNetError(f"flash_bwd: T={T} exceeds the grid")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbs = torch.empty(BH, T, device=q.device, dtype=torch.float32)
     if T:

@@ -5,7 +5,8 @@ lse) in interpret mode and to the XLA oracle (``jax.vjp`` of
 ``_xla_attention``), fp32 at atol/rtol 1e-5 (the two sides sum in
 different orders); the autograd route of the public entry points; and,
 on a card, K1-with-lse, K6 and K7 against their plain versions at atol
-1e-4 (``cuda`` marker, skipped without a GPU).
+1e-4, and K6/K7 bit for bit from one launch to the next (``cuda``
+marker, skipped without a GPU).
 
 The JAX functions called here are pure: no JAX-package global (telemetry,
 health ring, ``mx.random``, mesh context) is read or written."""
@@ -39,13 +40,16 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _inputs(seed, B, T, masked=False, all_masked_batch=None, d=D, h=H):
+def _inputs(seed, B, T, masked=False, all_masked_batch=None, d=D, h=H,
+            qk_mag=1.0):
     """q, k, v, dO (B*H, T, D), a (B, 1, T) key bias or None, and the
-    scale.  Key 0 stays valid, so every row keeps a key, except the rows
-    of the batch element ``all_masked_batch`` (every key masked)."""
+    scale; q and k are scaled by ``qk_mag``.  Key 0 stays valid, so every
+    row keeps a key, except the rows of the batch element
+    ``all_masked_batch`` (every key masked)."""
     rng = np.random.RandomState(seed)
     q, k, v, g = (rng.randn(B * h, T, d).astype(np.float32)
                   for _ in range(4))
+    q, k = q * np.float32(qk_mag), k * np.float32(qk_mag)
     bias = None
     if masked or all_masked_batch is not None:
         m = (rng.rand(B, T) > 0.3).astype(np.float32)
@@ -261,20 +265,28 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h,T,d,causal,masked,all_masked", [
-    (4, 16, 128, 64, False, False, None),   # BERT-large's attention shape
-    (2, 4, 512, 64, False, True, None),     # ragged key mask at T = 512
-    (2, 3, 100, 32, True, True, 1),         # causal, ragged T, masked row
-    (1, 2, 70, 16, False, True, 0),
-    (1, 2, 200, 128, True, False, None),
+@pytest.mark.parametrize("B,h,T,d,causal,masked,all_masked,qk_mag", [
+    (4, 16, 128, 64, False, False, None, 1.0),  # BERT-large's attention
+    (2, 4, 512, 64, False, True, None, 1.0),    # ragged key mask, T = 512
+    (2, 3, 100, 32, True, True, 1, 1.0),        # causal, ragged, masked row
+    (1, 2, 70, 16, False, True, 0, 1.0),
+    (1, 2, 200, 128, True, False, None, 1.0),
+    (1, 2, 1, 64, False, False, None, 1.0),     # one query, one key
+    (1, 2, 63, 64, False, True, None, 1.0),     # a tile less one row
+    (1, 2, 65, 32, False, True, None, 1.0),     # a tile and one row
+    (1, 2, 129, 64, True, True, None, 1.0),     # causal, two tiles and one
+    (2, 2, 130, 128, False, True, 1, 1.0),      # D = 128, a masked row
+    # scores 16x larger: P is near one-hot, and dropping the low parts of
+    # the 3xTF32 split misses CUDA_TOL by a factor of 200 or more here
+    (2, 4, 128, 64, False, False, None, 4.0),
 ])
 def test_cuda_flash_bwd_matches_plain(B, h, T, d, causal, masked,
-                                      all_masked):
+                                      all_masked, qk_mag):
     """K1 with lse, K6 and K7 against the plain versions, each launched
     once."""
     _need_cuda()
     q, k, v, g, bias, scale = _inputs(20 + T, B, T, masked, all_masked, d=d,
-                                      h=h)
+                                      h=h, qk_mag=qk_mag)
     cpu = [_t(a) for a in (q, k, v, g)]
     cu = [a.cuda() for a in cpu]
     tb = None if bias is None else _t(bias)
@@ -295,6 +307,24 @@ def test_cuda_flash_bwd_matches_plain(B, h, T, d, causal, masked,
     for a, b in zip((out, lse) + tuple(got), (pout, plse) + tuple(want)):
         assert torch.isfinite(a).all()
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_bwd_is_deterministic(causal):
+    """Two launches of K6 and K7 on the same inputs give the same dq, dk,
+    dv and dbs bit for bit: each output element is summed by one thread in
+    a fixed order (no atomics)."""
+    _need_cuda()
+    q, k, v, g, bias, scale = _inputs(40, 2, 200, masked=True, d=64, h=4)
+    q, k, v, g, bias = (_t(a).cuda() for a in (q, k, v, g, bias))
+    out, lse = tfa._flash_fwd_cuda(q, k, v, bias, scale, causal, 4,
+                                   with_lse=True)
+    dd = tfa._bwd_dd(out, g)
+    first, second = (tfa._flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale,
+                                         causal, 4) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

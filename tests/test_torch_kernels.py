@@ -3,15 +3,19 @@ the plain PyTorch versions of K1 flash_fwd, K2 paged_decode and K3 decode
 held to the JAX package's lax oracles and to its Pallas kernels in
 interpret mode, fp32 at atol/rtol 1e-5 (the two sides sum in different
 orders); a host model of the split-then-merge that K2 to K5 share; the
-wrappers' input checks; and, on a card, each CUDA kernel against its
-plain version (``cuda`` marker, skipped without a GPU)."""
+wrappers' input checks; the build table (``_build.py``) against the
+sources it builds; and, on a card, each CUDA kernel against its plain
+version (``cuda`` marker, skipped without a GPU)."""
+import ctypes
 import importlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.kernels import _build
 
 # the module, not the same-named function its package exports
 tfa = importlib.import_module(
@@ -238,6 +242,37 @@ def test_flash_attention_rejects_mismatched_shapes():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(MXNetError):
         tfa.flash_attention(q, torch.zeros(1, 2, 9, 16), q)
+
+
+# ------------------------------------------------------ build table
+def test_every_header_feeds_the_build_digest():
+    """A header missing from ``_build.HEADERS`` would leave a stale
+    library in ``build/kernels`` after an edit of that header."""
+    found = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
+    assert found == sorted(_build.HEADERS)
+
+
+def test_every_include_names_a_file_in_csrc():
+    for src in _build.CSRC.iterdir():
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (_build.CSRC / name).is_file(), (src.name, name)
+
+
+_C_ARG = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_argtypes_match_the_extern_c_definition(name):
+    """``ARGTYPES[name]`` lists the arguments of the ``extern "C"``
+    definition of ``mx_<name>`` in its source, in order: ``int`` and
+    ``float`` as themselves, every pointer as ``c_void_p``."""
+    src = (_build.CSRC / _build.KERNELS[name]).read_text()
+    m = re.search(r'extern "C" int mx_%s\(([^)]*)\)\s*\{' % name, src)
+    assert m, f"no extern \"C\" definition of mx_{name}"
+    want = [ctypes.c_void_p if "*" in arg
+            else _C_ARG[arg.split()[0]]
+            for arg in (a.strip() for a in m.group(1).split(","))]
+    assert _build.ARGTYPES[name] == want
 
 
 # ------------------------------------------------ on the card (cuda mark)

@@ -17,18 +17,20 @@ command (parent, change, change, parent)::
 
 It imports ``incubator_mxnet_tpu_torch.kernels.flash_attention`` from
 ``--root`` (building that tree's kernels into its own ``build/``) and
-calls only the public entry points every tree has, on inputs drawn from
+calls only functions every tree of the port has, on inputs drawn from
 ``--seed``: K1 ``flash_attention`` at the serving shape (B=1 H=12
 T=1024 D=64 causal) and ``flash_attention_lse`` at the training shape
-(B=32 H=16 T=128 D=64 dense, no gradient recorded), K2
+(B=32 H=16 T=128 D=64 dense, no gradient recorded), the backward at
+that shape through ``_flash_bwd_cuda`` (K6 then K7, on lse and dd from
+``flash_attention_lse`` and ``_bwd_dd``) and K6 and K7 each alone, K2
 ``paged_decode_attention`` and K3 ``decode_attention`` at
 ``chip_smoke.py``'s decode shape and inputs (``decode_inputs``: 8 slots
 at positions 0..1023, 12 heads of 64, blocks of 16, 64 blocks a slot),
 and K4 ``paged_verify_decode_attention`` and K5
 ``verify_decode_attention`` at ``check_k4_k5``'s timed shape and inputs
 (the same slots with Q = 5 query rows, tables holding 9 rows' blocks).
-Each is timed over 8 (K1) or 12 (K2-K5) rotating input sets by this
-tree's ``chip_smoke.py`` timers, two ways: on the card (``device_ms``:
+Each is timed over 8 (K1, K6, K7) or 12 (K2-K5) rotating input sets by
+this tree's ``chip_smoke.py`` timers, two ways: on the card (``device_ms``:
 one round captured in a CUDA graph, replayed between CUDA events) and
 eagerly (``time_ms``: CUDA events around the Python calls, host work
 included).  Prints one line
@@ -94,6 +96,31 @@ def main():
            lambda q, k, v: fa.flash_attention_lse(q, k, v, scale=0.125),
            train, 20)
     del train
+    # the backward at the training shape: K6 then K7 through the wrapper,
+    # then each kernel alone, on lse and dd from the forward
+    BH, T, D = 32 * 16, 128, 64
+    bwd = []
+    for _ in range(8):
+        q, k, v, g = (rand(32, 16, T, D) for _ in range(4))
+        o, lse = fa.flash_attention_lse(q, k, v, scale=0.125)
+        flat = [x.reshape(BH, T, D) for x in (o, q, k, v, g)]
+        bwd.append((*flat[1:], lse.reshape(BH, T),
+                    fa._bwd_dd(flat[0], flat[4])))
+    report("flash_bwd (K6 + K7) training B=32 H=16 T=128 D=64 dense",
+           lambda q, k, v, g, lse, dd: fa._flash_bwd_cuda(
+               q, k, v, None, g, lse, dd, 0.125, False, 16), bwd, 20)
+    dq, dk, dv = (torch.empty(BH, T, D, device=dev) for _ in range(3))
+    dbs = torch.empty(BH, T, device=dev)
+    shape = (BH, 16, T, D, 0.125, 0)
+    report("flash_bwd_dq (K6) training B=32 H=16 T=128 D=64 dense",
+           lambda q, k, v, g, lse, dd: fa._launch(
+               "flash_bwd_dq", q, k, v, None, g, lse, dd, dq, *shape),
+           bwd, 20)
+    report("flash_bwd_dkv (K7) training B=32 H=16 T=128 D=64 dense",
+           lambda q, k, v, g, lse, dd: fa._launch(
+               "flash_bwd_dkv", q, k, v, None, g, lse, dd, dk, dv, dbs,
+               *shape), bwd, 20)
+    del bwd
     sets, tables, pos, _, _ = decode_inputs(dev, rng, 12)
     report("paged_decode S=8 H=12 D=64 bs=16 MB=64",
            lambda q, kp, vp: fa.paged_decode_attention(
