@@ -5,6 +5,7 @@ Run from the repository root, with one CUDA card visible::
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build and check the kernels only
+    python3 chip_smoke.py --windows  # measure the serving windows only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -39,14 +40,22 @@ Phases, each of which raises (exit code 1) on any failure:
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
-   prefix; then a dense (``paged=False``) engine on one request.  The
-   launch counters are zeroed just before each of the two runs and read
-   just after: the paged run must launch K1 and K2 and not K3, the dense
-   run K1 and K3 and not K2.  Each request must equal its solo
-   run, a short request must equal the full-prefix ``net.generate``
-   oracle (or differ only where the oracle's top-2 logit gap is below
-   ``LOGIT_GAP_TOL``), and a dense (``paged=False``) engine must give the
-   same tokens;
+   prefix; then a dense (``paged=False``) engine on one request.  Each
+   engine's warmup captures its closed program set as CUDA graphs
+   ("programs:" lines: expected and captured programs, capture time,
+   graph-pool bytes; every program must be captured).  The launch
+   counters are zeroed just before each of the two runs and read just
+   after: the paged run must launch K1 and K2 and not K3, the dense run
+   K1 and K3 and not K2.  Each request must equal its solo run, a short
+   request must equal the full-prefix ``net.generate`` oracle (or differ
+   only where the oracle's top-2 logit gap is below ``LOGIT_GAP_TOL``),
+   and a dense (``paged=False``) engine must give the same tokens.  Then,
+   on the paged and the dense engine, ``GRAPH_STEPS`` scripted steps with
+   sampling parameters and block tables changed between steps must give
+   the same tokens bit for bit, and the same launch counts, through the
+   graphs as through the bodies run eagerly ("graphs:" lines); and one
+   request of each feature is served and checked: JSON mode, ``n = 2``,
+   a stop sequence and logprobs ("features:" lines);
 5. speculative path: the same target with a 6-layer draft of its width
    (DistilGPT-2's shape: the target's embeddings, first 6 cells and
    ``ln_f``) attached, ``spec_k`` 4, serving the same 8 requests behind a
@@ -57,7 +66,13 @@ Phases, each of which raises (exit code 1) on any failure:
    plain path's tokens (or first differ where the plain path's top-2
    logit gap is below ``LOGIT_GAP_TOL``), and the two runs together must
    have slot-steps that accepted all ``spec_k`` draft tokens and
-   slot-steps that rolled back;
+   slot-steps that rolled back.  Then the paged spec engine's graphs
+   against its eager bodies, as in phase 4.  Then, in a child process
+   (``--windows``, so that the profiler runs where no batcher thread
+   has), the serving windows of a fresh plain engine and spec engine
+   (burst, decode, prefill of 1024 and 64 tokens, spec step, the draft's
+   burst, verify): wall, device time, host launches and idle share
+   ("windows:" lines, ``profile_window``);
 6. training path: BERT-large (``bert_large``: 24 layers of 1024 units,
    16 heads of 64, FFN 4096, vocab 30522) at full width and depth with
    random ``Normal(0.02)`` weights from the seed, ``BERTForPretrain`` +
@@ -75,6 +90,7 @@ Phases, each of which raises (exit code 1) on any failure:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
 import argparse
+import faulthandler
 import importlib
 import json
 import math
@@ -94,6 +110,9 @@ KERNEL_TOL = 1e-4       # kernel vs plain, both fp32: summation order only
 LOGIT_GAP_TOL = 1e-3    # a greedy near-tie the two attention paths may split
 CELL_TOL = 1e-4         # cell gradients, kernels vs plain attention, relative
                         # to each gradient's largest value
+LOGPROB_TOL = 1e-3      # served logprobs vs the full-prefix forward: K1/K2
+                        # against cuBLAS attention, in fp32
+GRAPH_STEPS = 16        # scripted steps of the graph-against-eager check
 TRAIN_B, TRAIN_T = 32, 128
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 BERT_HEADS, BERT_LAYERS, BERT_VOCAB = 16, 24, 30522
@@ -108,6 +127,7 @@ HEADS, HEAD_DIM = 12, 64
 DECODE_POSITIONS = (0, 15, 16, 500, 1023, 1, 77, 256)
 STRADDLE_POSITIONS = (60, 59, 61, 0, 1020, 63, 124, 200)
 SOURCES = "incubator_mxnet_tpu_torch/kernels/csrc/"
+CARD = None             # the card's name and power limit, set by main()
 TPU_KERNELS = "incubator_mxnet_tpu/kernels/flash_attention.py:"
 
 
@@ -663,7 +683,7 @@ def build_served(seed=SEED):
     t0 = time.perf_counter()
     n_warm = eng.warmup()
     torch.cuda.synchronize()
-    print(f"path: engine {eng!r}; warmup of {n_warm} dispatches "
+    print(f"path: engine {eng!r}; warmup of {n_warm} programs "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return net, eng
 
@@ -707,9 +727,10 @@ def same_or_near_tie(net, prompt, want, got, what):
 
 def drive_path(fa):
     """The paged main path (8 batched requests), then the dense engine on
-    one request, each in its own launch-count window.  Returns the two
-    windows' counts, the served net, and the requests with their plain
-    paged outputs."""
+    one request, each in its own launch-count window; then both engines'
+    graphs against their eager bodies, and the request features.
+    Returns the two windows' counts, the served net and engine, and the
+    requests with their plain paged outputs."""
     from incubator_mxnet_tpu_torch.serving import (ContinuousBatcher,
                                                    GenerationEngine)
     net, eng = build_served()
@@ -738,7 +759,10 @@ def drive_path(fa):
     for kind in log:
         setattr(eng, kind, timed(kind, getattr(eng, kind)))
     hits0 = eng.pool.hits
-    dense = GenerationEngine(net, paged=False)
+    dense = GenerationEngine(net, name="dense", paged=False)
+    dense.warmup()
+    program_line("plain", eng, CARD)
+    program_line("plain", dense, CARD)
 
     fa.reset_launch_counts()                 # --- the paged main path
     t0 = time.perf_counter()
@@ -821,7 +845,11 @@ def drive_path(fa):
                         "path: served vs the oracle") is None:
         print(f"path: the first {n_cmp} tokens equal net.generate("
               "use_cache=False)", flush=True)
-    return counts, dense_counts, net, prompts, budgets, outs
+    for what, e in (("paged", eng), ("dense", dense)):
+        graph_check(what, e, prompts)
+    del dense
+    drive_features(net, eng)
+    return counts, dense_counts, net, eng, prompts, budgets, outs
 
 
 # ------------------------------------------------------------ phase 5
@@ -857,12 +885,28 @@ def record_spec_steps(eng):
     return log
 
 
+def graph_check(what, eng, prompts):
+    """Hold ``eng``'s graph replays to its eager bodies over
+    ``GRAPH_STEPS`` scripted steps (:func:`graph_vs_eager`): the same
+    tokens bit for bit and the same launch counts."""
+    same, graph_counts, eager_counts = graph_vs_eager(eng, prompts,
+                                                      GRAPH_STEPS)
+    print(f"graphs: {what}: {GRAPH_STEPS} scripted steps (sampling "
+          f"parameters and tables changed between steps), graph replays "
+          f"equal the eager bodies bit for bit: {same}; launches "
+          f"{graph_counts} (eager {eager_counts})", flush=True)
+    check(same, f"graphs: {what}: graph tokens differ from eager tokens")
+    check(graph_counts == eager_counts, f"graphs: {what}: launch counts "
+          f"differ")
+
+
 def drive_spec_path(fa, net, prompts, budgets, plain):
     """The paged speculative path (the 8 requests behind a
     ``ContinuousBatcher``), then a dense target with a dense draft over
     its own net on one request, each in its own launch-count window.
-    ``plain`` holds the plain paged path's outputs.  Returns the two
-    windows' counts."""
+    ``plain`` holds the plain paged path's outputs.  Then the paged spec
+    engine's graphs against its eager bodies.  Returns the two windows'
+    counts."""
     from incubator_mxnet_tpu_torch.serving import (ContinuousBatcher,
                                                    GenerationEngine)
     t0 = time.perf_counter()
@@ -875,8 +919,10 @@ def drive_spec_path(fa, net, prompts, budgets, plain):
     n_warm = eng.warmup()
     torch.cuda.synchronize()
     print(f"spec: target {eng!r} + draft {draft!r}, spec_k {k}; built and "
-          f"warmed ({n_warm} target dispatches) in "
+          f"warmed ({n_warm} target programs) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    program_line("spec target", eng, CARD)
+    program_line("spec draft", draft, CARD)
     log = record_spec_steps(eng)
 
     fa.reset_launch_counts()                 # --- the paged spec path
@@ -899,6 +945,7 @@ def drive_spec_path(fa, net, prompts, budgets, plain):
     dense = GenerationEngine(net, name="dense", paged=False)
     dense.attach_draft(GenerationEngine(net, name="dense-draft",
                                         paged=False))
+    dense.warmup()
     dense_log = record_spec_steps(dense)
     fa.reset_launch_counts()                 # --- the dense spec path
     dense_out = dense.generate(prompts[0], budgets[0])
@@ -950,7 +997,345 @@ def drive_spec_path(fa, net, prompts, budgets, plain):
     print(f"spec: {len(outs) + 1 - split} of {len(outs) + 1} requests equal "
           f"the plain path's tokens; {split} first differ at a near-tie",
           flush=True)
+    del dense
+    graph_check("paged spec", eng, prompts)
     return counts, dense_counts
+
+
+# ------------------------------------------------- programs and windows
+def program_line(what, eng, card):
+    """Print the closed program set of ``eng``: expected and captured
+    programs, the time warmup spent warming and capturing them, and the
+    bytes its shared graph pool reserved; fail unless every program is
+    captured."""
+    st = eng.graph_stats()
+    print(f"programs: {what} {eng.name!r}: expected {st['expected']}, "
+          f"captured {st['captured']}, capture "
+          f"{st['capture_seconds'] * 1e3:.1f} ms, graph pool "
+          f"{st['pool_bytes']} bytes [{card}]", flush=True)
+    check(st["captured"] == st["expected"] == eng.compiled_programs(),
+          f"{what}: {st['captured']} of {st['expected']} programs captured")
+    return st
+
+
+def scripted_steps(eng, prompts, steps):
+    """``steps`` steps of every live slot through ``eng``'s programs
+    (``decode``, or ``spec_step`` with a draft attached) from a reset,
+    the slots filled from ``prompts`` in turn, with the state changing
+    between steps: every third step one slot gets new sampling parameters
+    and a logit-bias row that forbids 8 random tokens, and every fourth
+    step (or when a slot nears ``max_len``) one slot leaves and the next
+    prompt joins in its place, with new blocks and a new table row.
+    Returns every step's token array."""
+    from incubator_mxnet_tpu_torch.serving import SamplingParams
+    S, V = eng.max_slots, eng.vocab_size
+    k = eng.spec_k if eng.draft is not None else 0
+    rng = np.random.RandomState(SEED)
+    eng.reset()
+    queue = [list(p) for p in prompts]
+    live = {}                              # slot -> (prompt length, tokens)
+
+    def join(s):
+        p = queue.pop(0)
+        queue.append(p)
+        eng.set_slot_sampling(s, None)
+        live[s] = (len(p), [eng.prefill(p, s)])
+
+    for s in range(min(S, len(prompts))):
+        join(s)
+    record = []
+    for step in range(steps):
+        slots = sorted(live)
+        if step % 3 == 2:
+            s = slots[step % len(slots)]
+            eng.set_slot_sampling(s, SamplingParams(
+                temperature=0.7, top_k=int(rng.randint(0, 60)), top_p=0.9,
+                seed=int(rng.randint(1 << 30))))
+            row = np.zeros(V, np.float32)
+            row[rng.randint(0, V, 8)] = -1e9
+            eng.update_slot_bias(s, row)
+        for s in slots:
+            n, toks = live[s]
+            if (step % 4 == 3 and s == slots[step % len(slots)]) \
+                    or n + len(toks) + k + 1 >= eng.max_len:
+                eng.release_slot(s)
+                join(s)
+        last, pos = np.zeros(S, np.int32), np.zeros(S, np.int32)
+        for s, (n, toks) in live.items():
+            last[s], pos[s] = toks[-1], n + len(toks) - 1
+        if k:
+            out, acc = eng.spec_step(last, pos)
+            record.append(out.copy())
+            for s, (_, toks) in live.items():
+                toks.extend(int(t) for t in out[s, :int(acc[s]) + 1])
+        else:
+            nxt = eng.decode(last, pos)
+            record.append(nxt.copy())
+            for s, (_, toks) in live.items():
+                toks.append(int(nxt[s]))
+    for s in list(live):
+        eng.release_slot(s)
+    return record
+
+
+def graph_vs_eager(eng, prompts, steps):
+    """:func:`scripted_steps` through ``eng``'s captured graphs, then again
+    through its bodies run eagerly on the card.  Returns (the two runs'
+    tokens equal bit for bit, the graph run's launch counts, the eager
+    run's)."""
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.kernels.flash_attention")
+    fa.reset_launch_counts()
+    graph = scripted_steps(eng, prompts, steps)
+    torch.cuda.synchronize()
+    graph_counts = dict(fa.launch_counts)
+    with eng._eager_bodies():
+        fa.reset_launch_counts()
+        eager = scripted_steps(eng, prompts, steps)
+        torch.cuda.synchronize()
+        eager_counts = dict(fa.launch_counts)
+    same = len(graph) == len(eager) and all(
+        np.array_equal(a, b) for a, b in zip(graph, eager))
+    return same, graph_counts, eager_counts
+
+
+# host-side API calls that put work on the card, by the profiler's names
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                    "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_window(setup, window, repeats=3):
+    """One serving window on the card: the host-clock wall ms (median of
+    ``repeats`` unprofiled runs, ``setup`` untimed before each, each run
+    ending synchronised), then one ``torch.profiler`` run: the summed
+    device time of every kernel and copy, their count, the host API
+    calls that launch work (``HOST_LAUNCH_APIS``), and the idle share
+    1 - device / wall.  Returns a dict, the profiler beside it."""
+    walls = []
+    for _ in range(repeats):
+        setup()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    setup()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        window()
+        torch.cuda.synchronize()
+    dev_us, kernels, host = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.time_range.end - e.time_range.start
+            kernels += 1
+        elif e.name in HOST_LAUNCH_APIS:
+            host += 1
+    wall = float(np.median(walls))
+    return {"wall_ms": wall, "walls": walls, "device_ms": dev_us / 1e3,
+            "device_ops": kernels, "host_launches": host,
+            "idle_share": 1.0 - dev_us / 1e3 / wall}, prof
+
+
+def serving_windows(eng, spec, prompts, measure):
+    """The serving windows, each through ``measure(name, setup, window)``:
+    ``burst`` (one ``decode_burst`` of ``eng.scan_steps`` steps over 8
+    live slots holding ``prompts``), ``decode`` (one ``decode`` over
+    them), ``prefill-1024`` and ``prefill-64`` (one prefix-miss prefill
+    of 1000 and 60 tokens), and on ``spec`` (a target with its draft):
+    ``spec-step`` (one ``spec_step`` over 8 live slots), ``spec-draft``
+    (the draft's burst of ``spec_k`` steps) and ``verify`` (the target's
+    verify of ``spec_k + 1`` rows).  Returns {name: measure's result}."""
+    S, V = eng.max_slots, eng.vocab_size
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    rng = np.random.RandomState(SEED)
+    state = {}
+
+    def fill(e):
+        def setup():
+            e.reset()
+            last = np.zeros(S, np.int32)
+            for s, p in enumerate(prompts):
+                last[s] = e.prefill(p, s, reserve_tokens=len(p) + 64)
+            state["last"], state["pos"] = last, lengths
+            if e.draft is not None:
+                sk = e.spec_k
+                toks, _ = e.draft.decode_burst(
+                    last, lengths, np.full(S, sk + 1), np.full(S, -1),
+                    np.ones(S, bool))
+                state["rows"] = np.concatenate([last[:, None], toks.T], 1)
+        return setup
+
+    def prefill(n):
+        p = rng.randint(0, V, n)
+        return eng.reset, lambda: eng.prefill(p, 0, reserve_tokens=n + 1)
+
+    out = {}
+    out["burst"] = measure("burst", fill(eng), lambda: eng.decode_burst(
+        state["last"], state["pos"], np.full(S, 64), np.full(S, -1),
+        np.ones(S, bool)))
+    out["decode"] = measure("decode", fill(eng), lambda: eng.decode(
+        state["last"], state["pos"]))
+    out["prefill-1024"] = measure("prefill-1024", *prefill(1000))
+    out["prefill-64"] = measure("prefill-64", *prefill(60))
+    sk = spec.spec_k
+    out["spec-step"] = measure("spec-step", fill(spec), lambda: spec.spec_step(
+        state["last"], state["pos"]))
+    out["spec-draft"] = measure(
+        "spec-draft", fill(spec), lambda: spec.draft.decode_burst(
+            state["last"], state["pos"], np.full(S, sk + 1), np.full(S, -1),
+            np.ones(S, bool)))
+    out["verify"] = measure("verify", fill(spec), lambda: spec.verify(
+        state["rows"], state["pos"]))
+    eng.reset()
+    spec.reset()
+    return out
+
+
+def drive_windows(card):
+    """Measure the serving windows (:func:`serving_windows`) on the
+    plain path's engine and a spec engine with the 6-layer draft, built
+    as the paths build them, and print the ``windows:`` lines: wall,
+    device ms, host launches and idle share of each window."""
+    net, eng = build_served()
+    prompts, _ = served_requests(net._vocab_size)
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    spec = GenerationEngine(net, name="gpt2_124m")
+    spec.attach_draft(GenerationEngine(build_draft(net), name="draft6"))
+    spec.warmup()
+
+    def measure(name, setup, window):
+        return profile_window(setup, window)[0]
+    res = serving_windows(eng, spec, prompts, measure)
+    for name, r in res.items():
+        print(f"windows: {name}: wall {r['wall_ms']:.3f} ms (median of "
+              f"{', '.join(f'{w:.3f}' for w in r['walls'])}), device "
+              f"{r['device_ms']:.3f} ms in {r['device_ops']} kernels and "
+              f"copies, {r['host_launches']} host launches, idle share "
+              f"{r['idle_share']:.3f} [{card}]", flush=True)
+    check(all(r["device_ops"] > 0 for r in res.values()),
+          "a window ran nothing on the card")
+    print("windows: " + json.dumps({name: {k: r[k] for k in (
+        "wall_ms", "device_ms", "host_launches", "idle_share")}
+        for name, r in res.items()}), flush=True)
+
+
+def windows_in_child():
+    """Run :func:`drive_windows` in a child interpreter (``--windows``),
+    so its profiler runs in a process where no batcher thread has run,
+    and print the child's ``windows:`` lines.  Fails unless the child
+    exits 0 and reports every window."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--windows"], capture_output=True, text=True,
+                          timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("windows: ")]
+    for ln in lines:
+        print(ln, flush=True)
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("windows: {"),
+          f"windows: the child exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print(f"windows: measured in a child process in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def parses_as_json(tokens):
+    """``tokens`` read as bytes form a complete JSON document by the JSON
+    mode's grammar, and parse; the grammar's number rule is permissive
+    (it takes "-E." as a number), so a document that fails to parse must
+    parse with every number run replaced by 0."""
+    import re
+    from incubator_mxnet_tpu_torch.serving.sampling import JsonMaskMachine
+    m = JsonMaskMachine([chr(i) for i in range(max(tokens) + 1)])
+    if not (all(m.advance(t) for t in tokens) and m.done):
+        return False
+    text = "".join(chr(t) for t in tokens)
+    try:
+        json.loads(text)
+    except ValueError:
+        json.loads(re.sub(r"[-0-9][-+.eE0-9]*", "0", text))
+    return True
+
+
+def drive_features(net, eng):
+    """One request of each feature through a ``ContinuousBatcher`` over
+    the warmed paged engine, each checked: JSON mode (a complete document
+    that parses, served without a burst), ``n = 2`` (the children are the
+    solo runs with derived seeds), a stop sequence (trimmed inside a
+    burst) and logprobs (one record per token, the greedy token on top,
+    the values the full-prefix forward's within ``LOGPROB_TOL``)."""
+    from incubator_mxnet_tpu_torch.serving import (ContinuousBatcher,
+                                                   SamplingParams)
+    from incubator_mxnet_tpu_torch.serving.sampling import \
+        derive_candidate_seed
+
+    def serve(prompt, budget, sp):
+        bat = ContinuousBatcher(eng)
+        try:
+            r = bat.submit_async(prompt, budget, sampling=sp)
+            if hasattr(r, "results"):
+                r.results(300)
+            else:
+                r.result(300)
+            return r, bat.stats()
+        finally:
+            bat.close()
+
+    t0 = time.perf_counter()
+    r, st = serve([1], 24, SamplingParams(temperature=0.9, seed=5,
+                                          json_mode=True))
+    out = r.result(1)
+    check(parses_as_json(out), f"features: JSON mode gave {out}")
+    check(st["decode_burst_dispatches"] == 0,
+          "features: a JSON-mode request was served by a burst")
+    print(f"features: JSON mode: {len(out)} tokens "
+          f"{''.join(chr(t) for t in out)!r} in "
+          f"{time.perf_counter() - t0:.2f} s, {st['decode_steps']} per-step "
+          f"decodes, no burst", flush=True)
+
+    prompt = [int(t) for t in np.random.RandomState(SEED).randint(
+        0, eng.vocab_size, 4)]
+    r, _ = serve(prompt, 12, SamplingParams(temperature=0.9, seed=99, n=2))
+    outs = r.results(1)
+    solo = [eng.generate(prompt, 12, sampling=SamplingParams(
+        temperature=0.9, seed=derive_candidate_seed(99, i)))
+        for i in range(2)]
+    check(outs == solo, f"features: n = 2 gave {outs}, solo {solo}")
+    print(f"features: n = 2: children {r.request_ids} equal their solo runs "
+          f"with derived seeds", flush=True)
+
+    sp = SamplingParams(temperature=0.8, seed=11)
+    base = eng.generate(prompt, 16, sampling=sp)
+    i = next(i for i in range(3, 14) if all(
+        tuple(base[j:j + 2]) != tuple(base[i:i + 2]) for j in range(i)))
+    r, st = serve(prompt, 16, SamplingParams(temperature=0.8, seed=11,
+                                             stop=(tuple(base[i:i + 2]),)))
+    check(r.result(1) == base[:i + 2] and st["stop_trimmed_tokens"] > 0
+          and st["decode_burst_dispatches"] > 0,
+          f"features: stop gave {r.result(1)}, want {base[:i + 2]}, stats "
+          f"{st}")
+    print(f"features: stop {tuple(base[i:i + 2])}: {i + 2} of 16 tokens kept, "
+          f"{st['stop_trimmed_tokens']} trimmed from a burst", flush=True)
+
+    r, st = serve(prompt, 12, SamplingParams(logprobs=5))
+    toks, recs = r.result(1), r.logprobs_out
+    check(len(recs) == len(toks) == 12 and all(
+        rec["token_ids"][0] == t for rec, t in zip(recs, toks)),
+        f"features: logprob records {recs} for tokens {toks}")
+    with torch.no_grad():
+        lg = net(torch.tensor([prompt + toks[:-1]], device=net.device))
+        want = torch.log_softmax(lg[0, len(prompt) - 1:].float(), -1)
+    err = max(abs(v - float(want[j, t])) for j, rec in enumerate(recs)
+              for t, v in zip(rec["token_ids"], rec["logprobs"]))
+    check(err <= LOGPROB_TOL, f"features: logprobs differ by {err}")
+    print(f"features: logprobs: {len(recs)} records of 5, the greedy token "
+          f"on top, within {err:.3e} of the full-prefix forward (tol "
+          f"{LOGPROB_TOL})", flush=True)
 
 
 # ------------------------------------------------------------ phase 6
@@ -1096,7 +1481,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels; skip the path")
+    ap.add_argument("--windows", action="store_true",
+                    help="only measure the serving windows (the full run "
+                         "does this in a child process)")
     args = ap.parse_args()
+    faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only "
                          "on a GPU")
@@ -1105,12 +1494,16 @@ def main():
     fa = importlib.import_module(
         "incubator_mxnet_tpu_torch.kernels.flash_attention")
 
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.windows:
+        drive_windows(card)
+        return                               # a measurement, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -1139,10 +1532,12 @@ def main():
     # K5 on the dense spec run, K6 and K7 on the training path
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
-        counts, dense_counts, net, prompts, budgets, plain = drive_path(fa)
+        counts, dense_counts, net, eng, prompts, budgets, plain = \
+            drive_path(fa)
         spec, dense_spec = drive_spec_path(fa, net, prompts, budgets, plain)
-        del net
+        del net, eng
         torch.cuda.empty_cache()
+        windows_in_child()
         train = drive_training(fa, card)
         check_cell_grads(fa, dev)
         launches = {"flash_fwd": counts["flash_fwd"],

@@ -43,6 +43,7 @@ masked the fp32 lse is -1e30 itself, so that row's P is 1 per key (not
 is not ported: the backward raises under it."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -53,7 +54,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
            "paged_decode_attention", "verify_decode_attention",
            "paged_verify_decode_attention", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "captured_launches", "add_launches"]
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -69,6 +70,32 @@ launch_counts = {name: 0 for name in _build.KERNELS}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """For a block that captures kernel calls into a CUDA graph: yields a
+    dict that, at the block's end, holds the launches each kernel wrapper
+    made inside it, and takes them back out of ``launch_counts`` (a
+    captured call runs nothing).  Pass the dict to :func:`add_launches`
+    at each replay of the graph."""
+    before = dict(launch_counts)
+    tally: dict = {}
+    try:
+        yield tally
+    finally:
+        for name, n in before.items():
+            if launch_counts[name] != n:
+                tally[name] = launch_counts[name] - n
+            launch_counts[name] = n
+
+
+def add_launches(tally) -> None:
+    """Count one replay of a captured graph: ``tally`` (from
+    :func:`captured_launches`) maps kernel names to the launches the
+    graph holds."""
+    for name, n in tally.items():
+        launch_counts[name] += n
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,15 @@ tokens when the boundary sees steady state (nothing queued, nothing
 cancelled), or, when the engine has a draft attached, with one
 speculative step of 1 to ``spec_k + 1`` tokens per slot.  Tokens stream
 back per request as they are produced, so a late request emits its first
-token while earlier ones are still decoding."""
+token while earlier ones are still decoding.
+
+The request features ride on the same engine programs: per-token top-N
+logprobs (read from the program outputs after each step), stop
+sequences (trimmed at the emit boundary, a burst's over-generated tail
+included), ``n > 1`` candidates (one child request per slot with derived
+seeds) and JSON mode (a :class:`~.sampling.JsonMaskMachine` whose mask
+becomes the slot's logit-bias row before every step; a constrained slot
+keeps the whole batch on the per-step decode path)."""
 from __future__ import annotations
 
 import os
@@ -25,7 +33,8 @@ from typing import List, Optional
 import numpy as _np
 
 from ..base import MXNetError, getenv_int
-from .sampling import SamplingParams
+from .sampling import (JsonMaskMachine, SamplingParams,
+                       derive_candidate_seed, stop_trim)
 
 __all__ = ["ContinuousBatcher", "QueueFullError", "Cancelled",
            "RequestAborted"]
@@ -46,7 +55,9 @@ class RequestAborted(MXNetError):
 class _GenRequest:
     """One generation request: a prompt, a token budget, and a stream of
     emitted tokens.  Tokens arrive on ``_q`` and accumulate in
-    ``tokens_out``; ``event`` fires once, at finish."""
+    ``tokens_out``; ``event`` fires once, at finish.  ``logprobs_out[i]``
+    is the top-N logprobs record of ``tokens_out[i]`` when the request
+    asked for logprobs, appended before the token is queued."""
 
     def __init__(self, tokens, budget, eos_id=None, request_id=None,
                  sampling=None):
@@ -56,6 +67,10 @@ class _GenRequest:
         self.eos_id = eos_id
         self.sampling = sampling
         self.seed = sampling.seed if sampling is not None else None
+        self.logprobs_n = int(sampling.logprobs) if sampling else 0
+        self.logprobs_out: List[dict] = []
+        self.stops = tuple(sampling.stop) if sampling else ()
+        self._machine: Optional[JsonMaskMachine] = None
         self.request_id = request_id or uuid.uuid4().hex[:16]
         self.event = threading.Event()
         self.error = None
@@ -127,6 +142,44 @@ class _GenRequest:
                 self.cancel()
 
 
+class _MultiGenRequest:
+    """An ``n > 1`` fan-out: one handle over ``n`` child requests, each
+    decoding in its own slot under a derived seed (candidate 0 keeps the
+    request seed).  ``result()`` returns candidate 0's tokens,
+    ``results()`` all of them."""
+
+    def __init__(self, children, request_id: str):
+        self.children = list(children)
+        self.request_id = request_id
+
+    @property
+    def seed(self):
+        return self.children[0].seed
+
+    @property
+    def request_ids(self):
+        return [r.request_id for r in self.children]
+
+    def cancel(self) -> None:
+        for r in self.children:
+            r.cancel()
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        return self.results(timeout)[0]
+
+    def results(self, timeout: Optional[float] = None) -> List[List[int]]:
+        """Block for every candidate; their token lists in candidate
+        order.  The first child error re-raises and cancels the rest."""
+        out = []
+        try:
+            for r in self.children:
+                out.append(r.result(timeout))
+        except Exception:
+            self.cancel()
+            raise
+        return out
+
+
 class ContinuousBatcher:
     """Continuous-batching front-end over one generation engine.
 
@@ -138,6 +191,7 @@ class ContinuousBatcher:
                  name: Optional[str] = None):
         self.engine = engine
         self.name = str(name or engine.name)
+        self._token_strs = None
         if queue_size is None:
             queue_size = getenv_int("MXNET_SERVE_QUEUE", 128)
         self.queue_size = max(1, int(queue_size))
@@ -161,12 +215,25 @@ class ContinuousBatcher:
         self._spec_emitted = 0
         self._spec_drafted = 0
         self._spec_accepted = 0
+        # stop sequences: requests finished by one, tokens a burst
+        # generated past one
+        self._stop_hits = 0
+        self._stop_trimmed = 0
         self._thread = threading.Thread(
             target=self._worker, name=f"mxtorch-serve-{self.name}",
             daemon=True)
         self._thread.start()
 
     # -- submit ---------------------------------------------------------
+    def _token_strings(self):
+        """Token id -> string for JSON mode's machine: byte-level
+        (``chr(id)``), as the JAX batcher's default, made at the first
+        constrained request."""
+        if self._token_strs is None:
+            self._token_strs = [chr(i)
+                                for i in range(int(self.engine.vocab_size))]
+        return self._token_strs
+
     def submit_async(self, tokens, max_new_tokens: int = 32,
                      request_id: Optional[str] = None,
                      eos_id: Optional[int] = None,
@@ -175,9 +242,47 @@ class ContinuousBatcher:
         ``stream()`` yields tokens as they are produced and whose
         ``result()`` blocks for the full list.  Raises
         :class:`QueueFullError` under backpressure and ``ValueError`` for
-        an unservable prompt, budget or sampling parameter.  A sampled
+        an unservable prompt, budget or sampling parameter.
+
+        ``sampling`` (None: greedy) is validated here and its
+        ``logprobs`` clamped to the engine's ``logprobs_topn``; a sampled
         request without a seed gets one, stored on the handle, so the
-        response is replayable."""
+        response is replayable.  ``sampling.n > 1`` fans out into ``n``
+        child requests ``"{id}.{i}"`` over distinct slots with derived
+        seeds, admitted all or none, behind one :class:`_MultiGenRequest`
+        handle."""
+        if request_id is None:
+            request_id = uuid.uuid4().hex[:16]
+        if sampling is not None:
+            sampling = sampling.validate(max_n=int(self.engine.max_slots))
+            cap = int(self.engine.logprobs_topn)
+            if sampling.logprobs > cap:
+                sampling = replace(sampling, logprobs=cap)
+            if sampling.sampled and sampling.seed is None:
+                sampling = replace(
+                    sampling,
+                    seed=int.from_bytes(os.urandom(8), "big") >> 1)
+        if sampling is None or sampling.n == 1:
+            return self._submit_one(tokens, max_new_tokens, request_id,
+                                    eos_id, sampling)
+        base = sampling.seed
+        children: List[_GenRequest] = []
+        try:
+            for i in range(sampling.n):
+                child = replace(sampling, n=1,
+                                seed=derive_candidate_seed(base, i)
+                                if base is not None else None)
+                children.append(self._submit_one(
+                    tokens, max_new_tokens, f"{request_id}.{i}", eos_id,
+                    child))
+        except Exception:
+            for c in children:          # no half-admitted fan-outs
+                c.cancel()
+            raise
+        return _MultiGenRequest(children, request_id)
+
+    def _submit_one(self, tokens, max_new_tokens, request_id, eos_id,
+                    sampling) -> _GenRequest:
         toks = _np.asarray(tokens, _np.int32).reshape(-1)
         n = int(toks.shape[0])
         max_len = int(self.engine.max_len)
@@ -190,19 +295,10 @@ class ContinuousBatcher:
         budget = min(int(max_new_tokens), max_len - n)
         if budget < 1:
             raise ValueError(f"{self.name}: max_new_tokens must be >= 1")
-        if sampling is not None:
-            sampling = sampling.validate(max_n=int(self.engine.max_slots))
-            if sampling.stop or sampling.n > 1 or sampling.json_mode \
-                    or sampling.logprobs:
-                raise ValueError(
-                    f"{self.name}: stop sequences, n > 1, json_mode and "
-                    "logprobs are not served by this batcher")
-            if sampling.sampled and sampling.seed is None:
-                sampling = replace(
-                    sampling,
-                    seed=int.from_bytes(os.urandom(8), "big") >> 1)
         req = _GenRequest(toks, budget, eos_id=eos_id,
                           request_id=request_id, sampling=sampling)
+        if sampling is not None and sampling.json_mode:
+            req._machine = JsonMaskMachine(self._token_strings())
         with self._cv:
             if self._closed:
                 raise MXNetError(f"batcher {self.name!r} is closed")
@@ -284,9 +380,12 @@ class ContinuousBatcher:
         live = self._live()
         if not live:
             return
-        if self.engine.draft is not None:
+        # a constrained slot's mask changes at every emit: a burst or the
+        # (spec_k + 1)-wide verify would sample past a stale mask
+        dyn = any(r._machine is not None for _, r in live)
+        if not dyn and self.engine.draft is not None:
             self._spec_once(live)
-        elif self._burst_ready(live):
+        elif not dyn and self._burst_ready(live):
             self._decode_burst_once(live)
         else:
             self._decode_once(live)
@@ -295,7 +394,12 @@ class ContinuousBatcher:
         """Admit one request mid-flight: its prefill runs between decode
         steps and emits the first token."""
         try:
+            # the sampling state (and JSON mode's first mask) goes into
+            # the slot before the prefill samples its first token
             self.engine.set_slot_sampling(slot, req.sampling)
+            if req._machine is not None:
+                self.engine.update_slot_bias(
+                    slot, req._machine.mask(budget=req.budget))
             first = self.engine.prefill(req.tokens, slot,
                                         reserve_tokens=req.n + req.budget)
         except Exception as e:
@@ -305,7 +409,11 @@ class ContinuousBatcher:
                     self._slots[slot] = None
             req._finish(e)
             return
+        lp = self.engine.last_prefill_logprobs()
+        if lp is not None:
+            self._push_logprobs(req, lp[0], lp[1])
         self._emit(req, [first])
+        self._advance_machine(slot, req, first)
         if self._finished(req):
             self._free_slot(slot, req, "finished")
 
@@ -326,8 +434,13 @@ class ContinuousBatcher:
             return
         self._dpt_dispatches += 1
         self._dpt_tokens += 1.0
+        lp = self.engine.last_logprobs()             # (S, N) pair or None
         for s, r in live:
-            self._emit(r, [int(nxt[s])])
+            if lp is not None:
+                self._push_logprobs(r, lp[0][s], lp[1][s])
+            tok = int(nxt[s])
+            self._emit(r, [tok])
+            self._advance_machine(s, r, tok)
             if self._finished(r):
                 self._free_slot(s, r, "finished")
 
@@ -366,14 +479,28 @@ class ContinuousBatcher:
             self._decode_failed(live, e)
             return
         self._burst_dispatches += 1
+        lp = self.engine.last_logprobs()             # (k, S, N) pair or None
         total = 0
         for s, r in live:
             n = int(emitted[s])
             if n < 1:
                 continue
-            self._emit(r, [int(t) for t in toks[:n, s]])
+            new = [int(t) for t in toks[:n, s]]
+            stopped = False
+            if r.stops:
+                # keep through the stop sequence; the burst's tokens past
+                # it never reach the stream
+                kept, stopped = stop_trim(r.tokens_out, new, r.stops)
+                if stopped:
+                    self._stop_hits += 1
+                    self._stop_trimmed += n - kept
+                    new, n = new[:kept], kept
+            if lp is not None:
+                for j in range(n):
+                    self._push_logprobs(r, lp[0][j, s], lp[1][j, s])
+            self._emit(r, new)
             total += n
-            if self._finished(r):
+            if stopped or self._finished(r):
                 self._free_slot(s, r, "finished")
         self._dpt_dispatches += 1
         self._dpt_tokens += total / max(1, len(live))
@@ -399,10 +526,13 @@ class ContinuousBatcher:
             return
         # free slots ride along at position 0: only live slots count, and
         # a budget or eos cut inside the step caps the accepted count
+        lp = self.engine.last_verify_logprobs()   # (S, Q, N) pair or None
         step_emitted = 0
         for s, r in live:
             n_emit = 0
             for j in range(int(accepted[s]) + 1):
+                if lp is not None:
+                    self._push_logprobs(r, lp[0][s, j], lp[1][s, j])
                 self._emit(r, [int(out[s, j])])
                 n_emit += 1
                 if self._finished(r):
@@ -424,12 +554,39 @@ class ContinuousBatcher:
         req._emit(toks)
         self._tokens_emitted += len(toks)
 
-    @staticmethod
-    def _finished(req: _GenRequest) -> bool:
+    def _push_logprobs(self, req: _GenRequest, vals, ids) -> None:
+        """Append one per-token top-N record (sliced to the request's
+        clamp) for the token about to be emitted."""
+        n = req.logprobs_n
+        if n < 1:
+            return
+        req.logprobs_out.append({"token_ids": [int(i) for i in ids[:n]],
+                                 "logprobs": [float(v) for v in vals[:n]]})
+
+    def _advance_machine(self, slot: int, req: _GenRequest, tok: int):
+        """JSON mode's emit boundary: feed the emitted token to the
+        request's machine and install the next step's mask."""
+        m = req._machine
+        if m is None:
+            return
+        m.advance(int(tok))
+        if not m.done:
+            self.engine.update_slot_bias(
+                slot, m.mask(budget=req.budget - len(req.tokens_out)))
+
+    def _finished(self, req: _GenRequest) -> bool:
         if len(req.tokens_out) >= req.budget:
             return True
-        return req.eos_id is not None \
-            and req.tokens_out[-1] == int(req.eos_id)
+        if req.eos_id is not None and req.tokens_out[-1] == int(req.eos_id):
+            return True
+        if req._machine is not None and req._machine.done:
+            return True
+        out = req.tokens_out
+        for stop in req.stops:
+            if len(out) >= len(stop) and tuple(out[-len(stop):]) == stop:
+                self._stop_hits += 1
+                return True
+        return False
 
     def _free_slot(self, slot: int, req: _GenRequest, reason: str):
         with self._cv:
@@ -510,6 +667,9 @@ class ContinuousBatcher:
                 "peak_slots_in_use": self._peak_slots,
                 "prefill_buckets": list(self.engine.prefill_buckets),
                 "kv_cache_bytes": int(self.engine.cache_bytes),
+                "logprobs_topn": int(self.engine.logprobs_topn),
+                "stop_hits": self._stop_hits,
+                "stop_trimmed_tokens": self._stop_trimmed,
                 "dispatches_per_token":
                     self._dpt_dispatches / max(self._dpt_tokens, 1e-9)
                     if self._dpt_dispatches else None,

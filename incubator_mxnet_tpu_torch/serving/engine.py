@@ -1,16 +1,28 @@
 """Autoregressive generation over a preallocated KV cache (counterpart of
 ``incubator_mxnet_tpu/serving/engine.py``'s :class:`GenerationEngine`).
 
-The JAX engine is a closed set of jitted programs that take the cache
-donated and return the updated copy.  PyTorch runs eagerly, so there is
-no program set here: each entry point is plain tensor code, and the
-donated cache becomes an in-place update of the pool tensors
-(``index_put_`` / slice assignment).  The kernels are the port's own:
-prefill self-attention goes through :func:`..models.bert._sdpa` (kernel
-K1 on the card), decode through :func:`paged_decode_attention` (K2) or,
-in the dense layout, :func:`decode_attention` (K3), and the
-speculative-decode verify through :func:`paged_verify_decode_attention`
-(K4) or :func:`verify_decode_attention` (K5).
+The JAX engine serves from a closed set of compiled programs: one prefill
+per prompt-length bucket (and one suffix prefill per bucket with the
+prefix cache), one decode, one decode burst and, with a draft attached,
+one verify.  The port keeps that set.  Each program is a fixed-shape body
+of plain tensor code that reads its operands from static buffers the
+engine allocates once and refills in place (step inputs, block tables,
+per-slot sampling state), writes the KV cache in place (``index_put_``)
+where JAX donates it, and leaves its outputs in tensors the engine reads
+back after the call.  :meth:`GenerationEngine.warmup` binds every body;
+on the card it captures each into a ``torch.cuda.CUDAGraph`` (all of an
+engine's graphs share one memory pool), and every later call is one
+replay.  On the card there is no eager path: a program that was never
+captured, or a capture that fails, raises :class:`MXNetError`.  On the
+CPU the same bodies run over the same static buffers, uncaptured.
+
+The kernels are the port's own: prefill self-attention goes through
+:func:`..models.bert._sdpa` (kernel K1 on the card), decode through
+:func:`paged_decode_attention` (K2) or, in the dense layout,
+:func:`decode_attention` (K3), and the speculative-decode verify through
+:func:`paged_verify_decode_attention` (K4) or
+:func:`verify_decode_attention` (K5).  A replay adds each program's
+kernel launches, tallied at capture, to ``launch_counts``.
 
 Layouts (fp32, as in the JAX engine):
 
@@ -23,21 +35,25 @@ Layouts (fp32, as in the JAX engine):
   for paged.
 
 JAX clamps out-of-range gathers and ``dynamic_update_slice`` starts where
-torch raises; the engine reproduces the clamps it relies on explicitly
-(the null-block redirect of :meth:`_scatter_strips`, the position clamp
-of the prefix-hit prefill, the table-column clamp of decode, the dropped
-or null-block verify writes past ``max_len``) and checks the host inputs
-it is given."""
+torch raises; the bodies reproduce the clamps the engine relies on
+explicitly (the null-block redirect of writes past a slot's table, the
+position clamp of the prefix-hit prefill, the table-column clamp of
+decode, the verify writes past ``max_len``) and the host checks the
+inputs it is given before copying them in."""
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as _np
 import torch
 
 from ..base import MXNetError, getenv_bool, getenv_int
-from ..kernels.flash_attention import (NEG, decode_attention,
+from ..kernels.flash_attention import (NEG, add_launches,
+                                       captured_launches, decode_attention,
                                        paged_decode_attention,
                                        paged_verify_decode_attention,
                                        verify_decode_attention)
@@ -63,6 +79,48 @@ def derive_prefill_buckets(max_len: int, smallest: int = 8):
     return tuple(out)
 
 
+def _host_buffer(shape, dtype, device) -> torch.Tensor:
+    """A zeroed host tensor, page-locked when ``device`` is a card so that
+    copies from it are true DMA transfers."""
+    return torch.zeros(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+class _Program:
+    """One fixed-shape body of the engine.  Its int64 operands live in one
+    flat host buffer and one flat device buffer of the same layout (one
+    copy per call); ``body(engine, args, *static)`` reads the device
+    views ``args`` and returns a tuple of output tensors (None where it
+    computes nothing).
+    On the card, ``graph`` is the captured body, ``out`` its static
+    outputs and ``tally`` the kernel launches one replay makes."""
+
+    def __init__(self, name: str, spec: Sequence[Tuple[str, tuple]],
+                 body: Callable, static: tuple, device):
+        self.name = name
+        # an unbound engine method and its static arguments: a program
+        # holds no reference to its engine, so an engine dropped by its
+        # caller is freed at once, graphs included, never by a cyclic
+        # collection that could land inside another engine's capture
+        self.body, self.static = body, static
+        total = sum(math.prod(shape) for _, shape in spec)
+        self.host = _host_buffer(total, torch.int64, device)
+        self.dev = torch.zeros(total, dtype=torch.int64, device=device)
+        self.host_np: Dict[str, _np.ndarray] = {}
+        self.args: Dict[str, torch.Tensor] = {}
+        off = 0
+        for arg, shape in spec:
+            n = math.prod(shape)
+            self.host_np[arg] = self.host[off:off + n].view(shape).numpy()
+            self.args[arg] = self.dev[off:off + n].view(shape)
+            off += n
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[tuple] = None
+        self.tally: Dict[str, int] = {}
+        self.host_out: Optional[tuple] = None
+        self.replays = 0
+
+
 class GenerationEngine:
     """A GPT-style model served from ``max_slots`` slots over one KV
     cache.
@@ -77,6 +135,7 @@ class GenerationEngine:
       ``spec_step(...)`` lets the draft propose ``spec_k`` tokens per slot
       and scores all ``spec_k + 1`` positions in one :meth:`verify`.
 
+    Each of these is one program of the closed set (:meth:`warmup`).
     Free slots ride along in decode (their writes land in the null block,
     or in their own dense row at position 0).  The cache is single-writer:
     only one thread (the continuous batcher's worker) dispatches.
@@ -164,18 +223,42 @@ class GenerationEngine:
             int(logprobs_topn if logprobs_topn is not None
                 else getenv_int("MXNET_SAMPLING_LOGPROBS_TOPN", 5)),
             self.vocab_size))
-        # per-slot sampling state on the host, mirrored to the device
-        # lazily (invalidated on every slot update)
-        self._samp_temp = _np.zeros(self.max_slots, _np.float32)
-        self._samp_topk = _np.zeros(self.max_slots, _np.int64)
-        self._samp_topp = _np.ones(self.max_slots, _np.float32)
-        self._samp_bias = _np.zeros((self.max_slots, self.vocab_size),
-                                    _np.float32)
-        self._samp_keys = _np.zeros((self.max_slots, 2), _np.int64)
-        self._samp_logprobs = _np.zeros(self.max_slots, bool)
-        self._samp_dev = None
+        S, V, dev = self.max_slots, self.vocab_size, self.device
+        # per-slot sampling state: host mirrors (page-locked on a card)
+        # and the static device buffers every program reads; a changed
+        # slot is copied in before the next program runs
+        self._samp_host = (_host_buffer(S, torch.float32, dev),
+                           _host_buffer(S, torch.int64, dev),
+                           _host_buffer(S, torch.float32, dev),
+                           _host_buffer((S, V), torch.float32, dev),
+                           _host_buffer((S, 2), torch.int64, dev))
+        self._samp_host[2].fill_(1.0)
+        (self._samp_temp, self._samp_topk, self._samp_topp, self._samp_bias,
+         self._samp_keys) = (t.numpy() for t in self._samp_host)
+        self._samp_dev = tuple(torch.zeros_like(t, device=dev)
+                               for t in self._samp_host)
+        self._samp_dirty = set(range(S))
+        # block tables: one static (S, MB) int32 buffer and its host mirror
+        MB = max(1, self.max_blocks_per_slot)
+        self._tables_host = _host_buffer((S, MB), torch.int32, dev)
+        self._tables = self._tables_host.numpy()
+        self._tables_dev = torch.zeros((S, MB), dtype=torch.int32,
+                                       device=dev)
+        self._tables_dirty = True
+        # each slot's index: the rows the decode and verify bodies gather
+        # and scatter by (a verify repeats slot s over its Q rows)
+        self._slot_ids = torch.arange(S, device=dev)
         self._last_logprobs = None
+        self._last_prefill_logprobs = None
         self._last_verify_logprobs = None
+        # the program set: key -> _Program, bound at first use; captured
+        # graphs share one memory pool per engine
+        self._programs: Dict[tuple, _Program] = {}
+        self._eager = False
+        self._warmup_done = False
+        self._graph_pool = None
+        self._capture_seconds = 0.0
+        self._pool_bytes = 0
         # speculative decoding: a draft engine attached by attach_draft
         # proposes spec_k tokens per slot for one verify to score
         self.draft: Optional["GenerationEngine"] = None
@@ -203,67 +286,55 @@ class GenerationEngine:
                     row[int(t)] = float(b)
         self._samp_bias[s] = row
         self._samp_keys[s] = root_key(p.seed or 0)
-        self._samp_logprobs[s] = int(p.logprobs) > 0
-        self._samp_dev = None
+        self._samp_dirty.add(s)
         if self.draft is not None:
             self.draft.set_slot_sampling(s, params)
 
     def update_slot_bias(self, slot: int, row) -> None:
-        """Replace ``slot``'s logit-bias row for the next dispatch
-        (cascades to an attached draft)."""
+        """Replace ``slot``'s logit-bias row for the next program
+        (the JSON mode's mask; cascades to an attached draft)."""
         s = int(slot)
         self._samp_bias[s] = _np.asarray(row, _np.float32).reshape(
             self.vocab_size)
-        self._samp_dev = None
+        self._samp_dirty.add(s)
         if self.draft is not None:
             self.draft.update_slot_bias(s, row)
 
     def last_logprobs(self):
         """Host ``(values, token ids)`` of the most recent decode, (S, N),
-        or burst, (k, S, N); None when ``logprobs_topn`` is 0 or no slot
-        of that dispatch asked for logprobs (``SamplingParams.logprobs``),
-        so a dispatch nobody reads from computes none.  The copy to the
-        host is made here, on first read."""
-        lp = self._last_logprobs
-        if lp is not None and isinstance(lp[0], torch.Tensor):
-            lp = self._last_logprobs = tuple(a.cpu().numpy() for a in lp)
-        return lp
+        or burst, (k, S, N), for every slot; None when ``logprobs_topn``
+        is 0 (every program then computes none)."""
+        return self._last_logprobs
+
+    def last_prefill_logprobs(self):
+        """Host ``(values, token ids)``, each (N,), of the most recent
+        prefill's first sampled token; None when ``logprobs_topn`` is
+        0."""
+        return self._last_prefill_logprobs
 
     def last_verify_logprobs(self):
         """Host ``(values, token ids)`` of the most recent :meth:`verify`,
-        each (S, Q, N); None when no slot of it asked for logprobs."""
-        lp = self._last_verify_logprobs
-        if lp is not None and isinstance(lp[0], torch.Tensor):
-            lp = self._last_verify_logprobs = tuple(a.cpu().numpy()
-                                                    for a in lp)
-        return lp
+        each (S, Q, N); None when ``logprobs_topn`` is 0."""
+        return self._last_verify_logprobs
 
-    def _samp_tensors(self):
-        if self._samp_dev is None:
-            dev = self.device
-            self._samp_dev = tuple(
-                torch.from_numpy(a).to(dev)
-                for a in (self._samp_temp, self._samp_topk, self._samp_topp,
-                          self._samp_bias, self._samp_keys))
-        return self._samp_dev
-
-    def _sample(self, lg, key_idx, slots=None):
-        """Next token for each row of ``lg`` (R, V), the rows being
-        ``slots`` (default: all slots; a slot may repeat); ``key_idx``
-        (R,) int64 the positions the sampled tokens will occupy.  Returns
-        (tokens (R,) int64, logprobs pair or None), both on the device."""
-        temps, topks, topps, biases, roots = self._samp_tensors()
-        want = self._samp_logprobs
-        if slots is not None:
-            sel = torch.as_tensor(slots, device=lg.device)
-            temps, topks, topps = temps[sel], topks[sel], topps[sel]
-            biases, roots = biases[sel], roots[sel]
-            want = want[list(slots)]
+    def _sample(self, lg, key_idx, rows=None):
+        """Next token for each row of ``lg`` (R, V), the rows being the
+        slots ``rows`` ((R,) int64 on the device; default: all slots);
+        ``key_idx`` (R,) int64 the positions the sampled tokens will
+        occupy.  Returns ``(tokens (R,) int64, logprob values (R, N),
+        logprob ids (R, N))``, the last two None when ``logprobs_topn``
+        is 0.  Reads the static sampling buffers only."""
+        temps, topks, topps, biases, roots = self._samp_dev
+        if rows is not None:
+            temps, topks, topps = (t.index_select(0, rows)
+                                   for t in (temps, topks, topps))
+            biases, roots = biases.index_select(0, rows), \
+                roots.index_select(0, rows)
         nxt = sample_tokens(lg, temps, topks, topps, biases,
                             step_keys(roots, key_idx))
-        lp = topn_logprobs(lg, biases, self.logprobs_topn) \
-            if self.logprobs_topn and want.any() else None
-        return nxt, lp
+        if not self.logprobs_topn:
+            return nxt, None, None
+        return (nxt,) + topn_logprobs(lg, biases, self.logprobs_topn)
 
     # -- cache lifecycle -------------------------------------------------
     def reset(self):
@@ -273,7 +344,7 @@ class GenerationEngine:
         attached draft."""
         if self.draft is not None:
             self.draft.reset()
-        self._samp_dev = None
+        self._samp_dirty.update(range(self.max_slots))
         if self.paged:
             shape = (self.num_blocks, self.num_heads, self.block_size,
                      self.head_dim)
@@ -287,14 +358,13 @@ class GenerationEngine:
             self._cache = tuple(
                 torch.zeros(shape, dtype=torch.float32, device=self.device)
                 for _ in range(2 * self.num_layers))
+        self._tables[:] = 0
+        self._tables_dirty = True
         if self.paged:
             self.pool.reset()
             self.pool.block_bytes = self.cache_bytes // self.num_blocks
             self._slot_blocks: List[List[int]] = [
                 [] for _ in range(self.max_slots)]
-            self._tables = _np.zeros(
-                (self.max_slots, self.max_blocks_per_slot), _np.int32)
-            self._tables_dev = None
 
     @property
     def cache_bytes(self) -> int:
@@ -306,26 +376,166 @@ class GenerationEngine:
                 return b
         return None
 
-    def _tables_tensor(self) -> torch.Tensor:
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables).to(
-                self.device)
-        return self._tables_dev
+    def _set_table(self, slot: int, blocks) -> None:
+        """Write ``slot``'s host table row (padded with the null block);
+        it reaches the device buffer before the next program."""
+        self._tables[slot] = 0
+        self._tables[slot, :len(blocks)] = blocks
+        self._tables_dirty = True
 
-    def _ids(self, a) -> torch.Tensor:
-        return torch.as_tensor(_np.asarray(a, _np.int64),
-                               device=self.device)
+    # -- the program set ---------------------------------------------------
+    def _program(self, key: tuple) -> _Program:
+        """The program ``key``, bound (its static buffers allocated) at
+        first use."""
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        kind, S = key[0], self.max_slots
+        cls = type(self)
+        if kind in ("prefill", "prefill_hit"):
+            b = key[1]
+            spec = [("tokens", (1, b)), ("n", (1,)), ("slot", (1,))]
+            if kind == "prefill_hit":
+                spec.append(("ctx", (1,)))
+            body = cls._prefill_miss_body if kind == "prefill" \
+                else cls._prefill_hit_body
+            name = f"{kind}[{b}]"
+        elif kind == "decode":
+            spec = [("tokens", (S,)), ("positions", (S,))]
+            body, name = cls._decode_body, "decode"
+        elif kind == "decode_burst":
+            spec = [("tokens", (S,)), ("positions", (S,)), ("budgets", (S,)),
+                    ("eos", (S,)), ("active", (S,))]
+            body, name = cls._burst_body, f"decode_burst[{key[1]}]"
+        elif kind == "verify":
+            spec = [("tokens", (S, key[1])), ("positions", (S,))]
+            body, name = cls._verify_body, f"verify[{key[1]}]"
+        else:
+            raise MXNetError(f"{self.name}: no program {key!r}")
+        prog = _Program(name, spec, body, key[1:], self.device)
+        self._programs[key] = prog
+        return prog
+
+    def _stage_state(self) -> None:
+        """Copy changed block tables and sampling rows into the static
+        device buffers (host range checks came before).  The copies are
+        asynchronous on a card: a host mirror changes only between two
+        calls, and every call ends synchronised."""
+        nb = self.device.type == "cuda"
+        if self._tables_dirty:
+            self._tables_dev.copy_(self._tables_host, non_blocking=nb)
+            self._tables_dirty = False
+        if self._samp_dirty:
+            for i in (0, 1, 2, 4):          # temperature, top-k, top-p, key
+                self._samp_dev[i].copy_(self._samp_host[i], non_blocking=nb)
+            bias_h, bias_d = self._samp_host[3], self._samp_dev[3]
+            for s in sorted(self._samp_dirty):
+                bias_d[s].copy_(bias_h[s], non_blocking=nb)
+            self._samp_dirty.clear()
+
+    @torch.no_grad()
+    def _run(self, key: tuple, **inputs):
+        """Run program ``key`` on ``inputs`` (host arrays, already
+        checked): refill its static operands in place, replay its graph
+        (card) or run its body (CPU, or the card under :meth:`_eager_bodies`),
+        and return its outputs as host arrays (None where it computes
+        nothing).  Every output is read back before any other program of
+        this engine runs, which keeps the shared graph pool safe."""
+        prog = self._program(key)
+        for arg, val in inputs.items():
+            prog.host_np[arg][...] = val
+        self._stage_state()
+        cuda = self.device.type == "cuda"
+        prog.dev.copy_(prog.host, non_blocking=cuda)
+        if cuda and not self._eager:
+            if prog.graph is None:
+                if not self._warming:
+                    raise MXNetError(
+                        f"{self.name}: program {prog.name} was never "
+                        "captured; call warmup() before serving (the card "
+                        "has no eager path)")
+                self._capture(prog)
+            prog.graph.replay()
+            add_launches(prog.tally)
+            outs = prog.out
+        else:
+            outs = prog.body(self, prog.args, *prog.static)
+        prog.replays += 1
+        if not cuda:
+            return tuple(None if o is None else o.numpy().copy()
+                         for o in outs)
+        if prog.host_out is None:
+            prog.host_out = tuple(
+                None if o is None else _host_buffer(o.shape, o.dtype,
+                                                    self.device)
+                for o in outs)
+        for h, o in zip(prog.host_out, outs):
+            if o is not None:
+                h.copy_(o, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return tuple(None if h is None else h.numpy().copy()
+                     for h in prog.host_out)
+
+    def _capture(self, prog: _Program) -> None:
+        """Warm ``prog``'s body on a side stream, then capture it into a
+        CUDA graph in this engine's pool.  The launches made while
+        capturing are the replay's tally, not launches."""
+        t0 = time.perf_counter()
+        run = (self, prog.args) + prog.static
+        collecting = gc.isenabled()
+        try:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                prog.body(*run)
+            cur.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            # a graph freed while a capture is open invalidates the
+            # capture: no cyclic collection may run during it
+            gc.disable()
+            # with the cache emptied, the memory reserved during the
+            # capture is the segments the graph pool takes
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with captured_launches() as tally:
+                # thread-local: another engine replaying on another
+                # thread does not invalidate this capture
+                with torch.cuda.graph(graph, pool=self._graph_pool,
+                                      capture_error_mode="thread_local"):
+                    out = prog.body(*run)
+            self._pool_bytes += torch.cuda.memory_reserved(self.device) \
+                - reserved
+        except Exception as e:
+            raise MXNetError(f"{self.name}: capture of program {prog.name} "
+                             f"failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
+        prog.graph, prog.out, prog.tally = graph, out, dict(tally)
+        self._capture_seconds += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def _eager_bodies(self):
+        """Run the bodies uncaptured on the card inside this block (this
+        engine and its draft): the reference the graphs are held to."""
+        engines = [self] + ([self.draft] if self.draft is not None else [])
+        for e in engines:
+            e._eager = True
+        try:
+            yield
+        finally:
+            for e in engines:
+                e._eager = False
 
     # -- prefill ---------------------------------------------------------
-    def _first_token(self, last, first_pos: int, slot: int) -> int:
-        """Sample the first generated token from the prompt's last logits
-        ``last`` (V,), keyed at ``first_pos``."""
-        nxt, _ = self._sample(last[None], self._ids([first_pos]), [slot])
-        return int(nxt[0])
-
-    def _prime(self, tokens: torch.Tensor, n: int):
+    def _prime(self, tokens: torch.Tensor, n: torch.Tensor):
         """Full-prefix forward over ``tokens`` (1, Tb): the last valid
-        row's logits (V,) and every layer's K/V as (H, Tb, D)."""
+        row's logits (1, V) (``n`` (1,) the valid length) and every
+        layer's K/V as (H, Tb, D)."""
         H, D = self.num_heads, self.head_dim
         Tb = tokens.shape[1]
         x = self.block._embed_at(tokens)
@@ -334,29 +544,87 @@ class GenerationEngine:
             x, k, v = cell.prime(x)
             ks.append(k.reshape(Tb, H, D).transpose(0, 1))
             vs.append(v.reshape(Tb, H, D).transpose(0, 1))
-        last = self.block._project(self.block.ln_f(x[:, n - 1:n]))[0, 0]
+        last = self.block._project(self.block.ln_f(
+            x[0].index_select(0, n - 1)))
         return last, ks, vs
 
-    def _scatter_strips(self, pool, strips, row, j0: int):
-        """Write ``strips`` (H, W, D) — logical positions ``[j0 * bs, j0 *
-        bs + W)`` of a slot — into the blocks its table ``row`` names,
-        in place.  Block indices past the table redirect to the null
-        block 0 (JAX clamps them into a harmless sink); a last strip
-        narrower than ``block_size`` fills only the front of its block."""
-        bs = self.block_size
-        H, W, D = strips.shape
+    def _write_positions(self, pool, kv, table, pos) -> None:
+        """Write ``kv`` (W, H, D) — the K or V of logical positions ``pos``
+        (W,) int64 of a slot — into the blocks its ``table`` (MB,) names,
+        in place.  A position past the table goes to the null block 0
+        (JAX clamps such writes into a harmless sink)."""
         MB = self.max_blocks_per_slot
-        idx = [int(row[j0 + j]) if j0 + j < MB else 0
-               for j in range(-(-W // bs))]
-        full = W // bs
-        if full:
-            blocks = torch.as_tensor(idx[:full], device=pool.device)
-            pool[blocks] = strips[:, :full * bs].reshape(
-                H, full, bs, D).transpose(0, 1)
-        if W % bs:
-            pool[idx[-1], :, :W % bs] = strips[:, full * bs:]
+        col = pos // self.block_size
+        blk = torch.where(col < MB, table[col.clamp(max=MB - 1)].long(),
+                          torch.zeros_like(col))
+        pool[blk, :, pos % self.block_size] = kv
 
-    @torch.no_grad()
+    def _prefill_miss_body(self, a, bucket: int):
+        """The prefix-miss prefill of one bucket: the prompt ``tokens``
+        (1, bucket), valid length ``n``, into ``slot``."""
+        L = self.num_layers
+        last, ks, vs = self._prime(a["tokens"], a["n"])
+        slot = a["slot"]
+        if self.paged:
+            table = self._tables_dev.index_select(0, slot)[0]
+            pos = torch.arange(bucket, device=self.device)
+            for l in range(L):
+                self._write_positions(self._cache[l],
+                                      ks[l].transpose(0, 1), table, pos)
+                self._write_positions(self._cache[L + l],
+                                      vs[l].transpose(0, 1), table, pos)
+        else:
+            # JAX donates the cache to a dynamic_update_slice at (slot,
+            # 0, 0, 0); here the slot's rows are overwritten in place
+            for l in range(L):
+                self._cache[l][slot, :, :bucket] = ks[l][None]
+                self._cache[L + l][slot, :, :bucket] = vs[l][None]
+        return self._sample(last, a["n"], slot)
+
+    def _prefill_hit_body(self, a, Tb: int):
+        """Prefix-cache hit: ``ctx`` leading positions (a multiple of
+        ``block_size``) already hold valid K/V in shared blocks.  Run only
+        the suffix ``tokens`` (1, Tb) (valid length ``n``), append its K/V
+        at positions ``[ctx, ctx + Tb)`` and attend through the slot's
+        block table.  The attention here is plain torch, as the JAX
+        engine's einsum (it is outside any Pallas kernel there)."""
+        L, H, D = self.num_layers, self.num_heads, self.head_dim
+        T = self.max_blocks_per_slot * self.block_size
+        C = H * D
+        scale = 1.0 / math.sqrt(D)
+        dev = self.device
+        ctx, sn, slot = a["ctx"], a["n"], a["slot"]
+        q_pos = ctx + torch.arange(Tb, device=dev)
+        # padded rows may run past max_len: JAX clamps the embedding
+        # gather, torch would raise
+        pos = torch.clamp(q_pos, max=self.max_len - 1)[None]
+        h = self.block.drop(self.block.embed(a["tokens"])
+                            + self.block.pos_embed(pos))
+        live = torch.arange(T, device=dev)[None, :] <= q_pos[:, None]
+        table = self._tables_dev.index_select(0, slot)[0]
+        idx = table.long()
+        for l, cell in enumerate(self._cells):
+            at = cell.attention
+            hn = cell.ln1(h)
+            q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
+            qh = q.reshape(Tb, H, D).transpose(0, 1)[None]
+            ck, cv = self._cache[l], self._cache[L + l]
+            self._write_positions(ck, kn.reshape(Tb, H, D), table, q_pos)
+            self._write_positions(cv, vn.reshape(Tb, H, D), table, q_pos)
+            kf = ck[idx].transpose(0, 1).reshape(1, H, T, D)
+            vf = cv[idx].transpose(0, 1).reshape(1, H, T, D)
+            s = torch.einsum("bhqd,bhkd->bhqk", qh, kf) * scale
+            s = torch.where(live[None, None], s, torch.full_like(s, NEG))
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            attn = torch.einsum("bhqk,bhkd->bhqd",
+                                p / p.sum(dim=-1, keepdim=True), vf)
+            h = h + at.dropout(at.proj(
+                attn.transpose(1, 2).reshape(1, Tb, C)))
+            h = h + cell.ffn(cell.ln2(h))
+        last = self.block._project(self.block.ln_f(
+            h[0].index_select(0, sn - 1)))
+        return self._sample(last, ctx + sn, slot)
+
     def prefill(self, tokens, slot: int,
                 reserve_tokens: Optional[int] = None) -> int:
         """Admit a prompt into ``slot``: pad it to its bucket, run it, and
@@ -385,9 +653,7 @@ class GenerationEngine:
             raise MXNetError(
                 f"{self.name}: prompt length {n} leaves no room to "
                 f"generate (max_len {self.max_len})")
-        if int(toks.min()) < 0 or int(toks.max()) >= self.vocab_size:
-            raise MXNetError(f"{self.name}: token ids outside the vocab "
-                             f"[0, {self.vocab_size})")
+        self._check_tokens(toks)
         if self.draft is None:
             return self._prefill_own(toks, n, slot, reserve_tokens)
         self.draft._warming = self._warming
@@ -402,17 +668,7 @@ class GenerationEngine:
     def _prefill_own(self, toks, n: int, slot: int, reserve_tokens) -> int:
         """:meth:`prefill` of this engine alone, on checked inputs."""
         if not self.paged:
-            bucket = self.prefill_bucket_for(n)
-            padded = _np.zeros((1, bucket), _np.int64)
-            padded[0, :n] = toks
-            last, ks, vs = self._prime(self._ids(padded), n)
-            for l in range(self.num_layers):
-                # JAX donates the cache to a dynamic_update_slice at
-                # (slot, 0, 0, 0); here the slot's rows are overwritten
-                # in place
-                self._cache[l][slot, :, :bucket] = ks[l]
-                self._cache[self.num_layers + l][slot, :, :bucket] = vs[l]
-            return self._first_token(last, n, slot)
+            return self._prefill_miss(toks, n, slot)
         if self._slot_blocks[slot]:
             self._release_blocks(slot)
         reserve = int(reserve_tokens or self.max_len) \
@@ -421,14 +677,11 @@ class GenerationEngine:
         table, m = self.pool.allocate(toks, n, reserve,
                                       share=not self._warming)
         self._slot_blocks[slot] = table
-        row = _np.zeros(self.max_blocks_per_slot, _np.int32)
-        row[:len(table)] = table
-        self._tables[slot] = row
-        self._tables_dev = None
+        self._set_table(slot, table)
         try:
             if m == 0:
-                return self._prefill_miss(toks, n, row, slot)
-            return self._prefill_hit(toks[m:], m, row, slot)
+                return self._prefill_miss(toks, n, slot)
+            return self._prefill_hit(toks[m:], m, slot)
         except Exception:
             # the fresh blocks never got their K/V, but allocate()
             # already registered the full ones in the prefix cache:
@@ -438,66 +691,31 @@ class GenerationEngine:
             self.release_slot(slot)
             raise
 
-    def _prefill_miss(self, toks, n: int, row, slot: int) -> int:
-        """Prefix-cache miss: the dense prefill body with the slot's K/V
-        scattered into the blocks of its table ``row``."""
+    def _prefill_first(self, outs) -> int:
+        first, lpv, lpi = outs
+        self._last_prefill_logprobs = None if lpv is None \
+            else (lpv[0], lpi[0])
+        return int(first[0])
+
+    def _prefill_miss(self, toks, n: int, slot: int) -> int:
+        """Prefix-cache miss (and every dense prefill): the prompt's
+        bucket program, its K/V written into the slot's blocks or dense
+        row."""
         bucket = self.prefill_bucket_for(n)
         padded = _np.zeros((1, bucket), _np.int64)
         padded[0, :n] = toks
-        last, ks, vs = self._prime(self._ids(padded), n)
-        L = self.num_layers
-        for l in range(L):
-            self._scatter_strips(self._cache[l], ks[l], row, 0)
-            self._scatter_strips(self._cache[L + l], vs[l], row, 0)
-        return self._first_token(last, n, slot)
+        return self._prefill_first(self._run(
+            ("prefill", bucket), tokens=padded, n=n, slot=slot))
 
-    def _prefill_hit(self, suffix, ctx: int, row, slot: int) -> int:
-        """Prefix-cache hit: ``ctx`` leading positions (a multiple of
-        ``block_size``) already hold valid K/V in shared blocks.  Run only
-        the suffix (zero-padded to its bucket), append its K/V at
-        positions ``[ctx, ctx + Tb)`` and attend through the block table.
-        The attention here is plain torch, as the JAX engine's einsum
-        (it is outside any Pallas kernel there)."""
-        L, H, D = self.num_layers, self.num_heads, self.head_dim
-        bs = self.block_size
+    def _prefill_hit(self, suffix, ctx: int, slot: int) -> int:
+        """Prefix-cache hit: the suffix's bucket program at context
+        ``ctx``."""
         sn = int(suffix.shape[0])
         Tb = self.prefill_bucket_for(sn)
-        T = self.max_blocks_per_slot * bs
-        C = H * D
-        scale = 1.0 / math.sqrt(D)
         padded = _np.zeros((1, Tb), _np.int64)
         padded[0, :sn] = suffix
-        dev = self.device
-        q_pos = ctx + torch.arange(Tb, device=dev)
-        # padded rows may run past max_len: JAX clamps the embedding
-        # gather, torch would raise
-        pos = torch.clamp(q_pos, max=self.max_len - 1)[None]
-        h = self.block.drop(self.block.embed(self._ids(padded))
-                            + self.block.pos_embed(pos))
-        live = torch.arange(T, device=dev)[None, :] <= q_pos[:, None]
-        table = torch.as_tensor(row, dtype=torch.int64, device=dev)
-        for l, cell in enumerate(self._cells):
-            at = cell.attention
-            hn = cell.ln1(h)
-            q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
-            qh = q.reshape(Tb, H, D).transpose(0, 1)[None]
-            ck, cv = self._cache[l], self._cache[L + l]
-            self._scatter_strips(ck, kn.reshape(Tb, H, D).transpose(0, 1),
-                                 row, ctx // bs)
-            self._scatter_strips(cv, vn.reshape(Tb, H, D).transpose(0, 1),
-                                 row, ctx // bs)
-            kf = ck[table].transpose(0, 1).reshape(1, H, T, D)
-            vf = cv[table].transpose(0, 1).reshape(1, H, T, D)
-            s = torch.einsum("bhqd,bhkd->bhqk", qh, kf) * scale
-            s = torch.where(live[None, None], s, torch.full_like(s, NEG))
-            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-            attn = torch.einsum("bhqk,bhkd->bhqd",
-                                p / p.sum(dim=-1, keepdim=True), vf)
-            h = h + at.dropout(at.proj(
-                attn.transpose(1, 2).reshape(1, Tb, C)))
-            h = h + cell.ffn(cell.ln2(h))
-        last = self.block._project(self.block.ln_f(h[:, sn - 1:sn]))[0, 0]
-        return self._first_token(last, ctx + sn, slot)
+        return self._prefill_first(self._run(
+            ("prefill_hit", Tb), tokens=padded, n=sn, slot=slot, ctx=ctx))
 
     # -- decode ----------------------------------------------------------
     def _layers(self, lt, emb_pos, write, attend):
@@ -533,7 +751,7 @@ class GenerationEngine:
         ck, cv = self._cache[:L], self._cache[L:]
         pos32 = pos.to(torch.int32)
         if self.paged:
-            tables = self._tables_tensor()
+            tables = self._tables_dev
 
             def write(l, k, v):
                 ck[l][blk, :, off] = k[:, 0]
@@ -543,7 +761,7 @@ class GenerationEngine:
                 return paged_decode_attention(q[:, 0], ck[l], cv[l], tables,
                                               pos32)[:, None]
         else:
-            rows = torch.arange(lt.shape[0], device=lt.device)
+            rows = self._slot_ids
 
             def write(l, k, v):
                 ck[l][rows, :, pos] = k[:, 0]
@@ -558,8 +776,7 @@ class GenerationEngine:
         clamped into the table, as the JAX gather clamps it."""
         col = torch.clamp(pos // self.block_size,
                           max=self.max_blocks_per_slot - 1)
-        rows = torch.arange(pos.shape[0], device=pos.device)
-        return self._tables_tensor()[rows, col].long()
+        return self._tables_dev[self._slot_ids, col].long()
 
     def _host_positions(self, positions):
         pos = _np.asarray(positions, _np.int64).reshape(self.max_slots)
@@ -568,21 +785,60 @@ class GenerationEngine:
                              f"{self.max_len - 1}], got {pos.tolist()}")
         return pos
 
-    @torch.no_grad()
-    def decode(self, last_tokens, positions):
-        """Advance EVERY slot one position: ``last_tokens`` (S,) (free
-        slots: 0) at write heads ``positions`` (S,) (free slots: 0).
-        Returns the next token per slot as a host int32 array."""
-        lt = self._ids(_np.asarray(last_tokens).reshape(self.max_slots))
-        pos = self._ids(self._host_positions(positions))
+    def _check_tokens(self, toks) -> None:
+        if toks.size and (int(toks.min()) < 0
+                          or int(toks.max()) >= self.vocab_size):
+            raise MXNetError(f"{self.name}: token ids outside the vocab "
+                             f"[0, {self.vocab_size})")
+
+    def _decode_body(self, a):
+        lt, pos = a["tokens"], a["positions"]
         blk = off = None
         if self.paged:
             blk, off = self._block_of(pos), pos % self.block_size
         lg = self._step_logits(lt, pos, blk, off)
-        nxt, self._last_logprobs = self._sample(lg, pos + 1)
-        return nxt.cpu().numpy().astype(_np.int32)
+        # keyed at pos + 1, the position the token will occupy
+        return self._sample(lg, pos + 1)
 
-    @torch.no_grad()
+    def decode(self, last_tokens, positions):
+        """Advance EVERY slot one position: ``last_tokens`` (S,) (free
+        slots: 0) at write heads ``positions`` (S,) (free slots: 0).
+        Returns the next token per slot as a host int32 array."""
+        lt = _np.asarray(last_tokens, _np.int64).reshape(self.max_slots)
+        self._check_tokens(lt)
+        pos = self._host_positions(positions)
+        nxt, lpv, lpi = self._run(("decode",), tokens=lt, positions=pos)
+        self._last_logprobs = None if lpv is None else (lpv, lpi)
+        return nxt.astype(_np.int32)
+
+    def _burst_body(self, a, k: int):
+        lt, pos = a["tokens"], a["positions"]
+        bud, eos = a["budgets"], a["eos"]
+        done = a["active"] == 0
+        emitted = torch.zeros_like(pos)
+        toks, vals, ids = [], [], []
+        for _ in range(k):
+            blk = off = None
+            if self.paged:
+                blk = torch.where(done, torch.zeros_like(pos),
+                                  self._block_of(pos))
+                off = pos % self.block_size
+            lg = self._step_logits(lt, pos, blk, off)
+            # keyed at pos + 1, the position this token will occupy
+            nxt, lpv, lpi = self._sample(lg, pos + 1)
+            emit = ~done
+            emitted = emitted + emit.long()
+            done = done | (emit & ((nxt == eos) | (emitted >= bud)))
+            lt = torch.where(done, lt, nxt)
+            pos = torch.where(done, pos, pos + 1)
+            toks.append(nxt)
+            vals.append(lpv)
+            ids.append(lpi)
+        if not self.logprobs_topn:
+            return torch.stack(toks), emitted, None, None
+        return torch.stack(toks), emitted, torch.stack(vals), \
+            torch.stack(ids)
+
     def decode_burst(self, last_tokens, positions, budgets, eos_ids,
                      active):
         """Advance every slot up to ``scan_steps`` positions with the
@@ -610,34 +866,13 @@ class GenerationEngine:
                 f"{self.name}: a burst would write past max_len "
                 f"{self.max_len} (positions {pos_h.tolist()}, budgets "
                 f"{bud_h.tolist()})")
-        lt = self._ids(_np.asarray(last_tokens).reshape(S))
-        pos = self._ids(pos_h)
-        bud = self._ids(bud_h)
-        eos = self._ids(_np.asarray(eos_ids).reshape(S))
-        done = torch.as_tensor(~act_h, device=self.device)
-        emitted = torch.zeros(S, dtype=torch.int64, device=self.device)
-        toks, lps = [], []
-        for _ in range(k):
-            blk = off = None
-            if self.paged:
-                blk = torch.where(done, torch.zeros_like(pos),
-                                  self._block_of(pos))
-                off = pos % self.block_size
-            lg = self._step_logits(lt, pos, blk, off)
-            # keyed at pos + 1, the position this token will occupy
-            nxt, lp = self._sample(lg, pos + 1)
-            emit = ~done
-            emitted = emitted + emit.long()
-            done = done | (emit & ((nxt == eos) | (emitted >= bud)))
-            lt = torch.where(done, lt, nxt)
-            pos = torch.where(done, pos, pos + 1)
-            toks.append(nxt)
-            if lp is not None:
-                lps.append(lp)
-        self._last_logprobs = None if not lps else (
-            torch.stack([v for v, _ in lps]), torch.stack([i for _, i in lps]))
-        return (torch.stack(toks).cpu().numpy().astype(_np.int32),
-                emitted.cpu().numpy().astype(_np.int32))
+        lt = _np.asarray(last_tokens, _np.int64).reshape(S)
+        self._check_tokens(lt)
+        toks, emitted, lpv, lpi = self._run(
+            ("decode_burst", k), tokens=lt, positions=pos_h, budgets=bud_h,
+            eos=_np.asarray(eos_ids, _np.int64).reshape(S), active=act_h)
+        self._last_logprobs = None if lpv is None else (lpv, lpi)
+        return toks.astype(_np.int32), emitted.astype(_np.int32)
 
     # -- speculative decoding --------------------------------------------
     def attach_draft(self, draft: "GenerationEngine",
@@ -677,36 +912,20 @@ class GenerationEngine:
         if draft.scan_steps != 0:
             draft.scan_steps = k
 
-    @torch.no_grad()
-    def verify(self, tokens, positions):
-        """Score Q positions for EVERY slot at once: ``tokens`` (S, Q) —
-        column 0 each slot's last accepted token, columns 1..Q-1 the
-        draft's proposals — at base write heads ``positions`` (S,).
-
-        Writes the Q positions' K/V per slot and layer — dense writes past
-        ``max_len`` are dropped, paged writes past the slot's reservation
-        or ``max_len`` go to the null block, so an overrun row near the
-        budget edge never lands on a live entry — embeds row j at position
-        ``min(positions[s] + j, max_len - 1)``, and attends through K4 or
-        K5.  Returns a host int32 (S, Q) array: ``out[s, j]`` is the token
-        sampled after consuming ``tokens[s, :j + 1]``, keyed at position
-        ``positions[s] + j + 1`` exactly as :meth:`decode` keys it there.
-        With Q == 1 this is :meth:`decode`."""
-        S, L = self.max_slots, self.num_layers
-        H, D = self.num_heads, self.head_dim
-        toks = _np.asarray(tokens, _np.int64).reshape(S, -1)
-        Q = toks.shape[1]
-        pos_h = self._host_positions(positions)
-        pos_q_h = pos_h[:, None] + _np.arange(Q)[None, :]           # (S, Q)
-        pos_q = self._ids(pos_q_h)
-        pos32 = self._ids(pos_h).to(torch.int32)
+    def _verify_body(self, a, Q: int):
+        S = self.max_slots
+        L = self.num_layers
+        dev = self.device
+        toks, pos = a["tokens"], a["positions"]
+        pos_q = pos[:, None] + torch.arange(Q, device=dev)[None, :]  # (S, Q)
+        pos32 = pos.to(torch.int32)
+        rows = self._slot_ids[:, None].expand(S, Q)
         ck, cv = self._cache[:L], self._cache[L:]
         if self.paged:
-            tables = self._tables_tensor()
+            tables = self._tables_dev
             MB = self.max_blocks_per_slot
             col = pos_q // self.block_size
             ok = (col < MB) & (pos_q < self.max_len)
-            rows = torch.arange(S, device=self.device)[:, None]
             blk = torch.where(ok, tables[rows, col.clamp(max=MB - 1)].long(),
                               torch.zeros_like(col))
             off = pos_q % self.block_size
@@ -723,28 +942,56 @@ class GenerationEngine:
                     q.transpose(1, 2).contiguous(), ck[l], cv[l], tables,
                     pos32).transpose(1, 2)
         else:
-            keep = _np.flatnonzero(pos_q_h.reshape(-1) < self.max_len)
-            src = self._ids(keep)
-            ri, pi = self._ids(keep // Q), self._ids(pos_q_h.reshape(-1)[keep])
+            # a fixed-shape write: row j goes to positions[s] + j where
+            # that lies below max_len; a row past it writes row
+            # (max_len - 1 - positions[s])'s K/V again at max_len - 1, so
+            # duplicate indices carry identical values and the live write
+            # there wins whatever the order
+            src = torch.minimum(torch.arange(Q, device=dev)[None, :],
+                                (self.max_len - 1 - pos)[:, None])
+            dst = pos[:, None] + src
 
             def write(l, k, v):
-                ck[l][ri, :, pi] = k.reshape(S * Q, H, D)[src]
-                cv[l][ri, :, pi] = v.reshape(S * Q, H, D)[src]
+                ck[l][rows, :, dst] = k[rows, src]
+                cv[l][rows, :, dst] = v[rows, src]
 
             def attend(l, q):
                 return verify_decode_attention(
                     q.transpose(1, 2).contiguous(), ck[l], cv[l],
                     pos32).transpose(1, 2)
-        lg = self._layers(self._ids(toks),
-                          torch.clamp(pos_q, max=self.max_len - 1),
+        lg = self._layers(toks, torch.clamp(pos_q, max=self.max_len - 1),
                           write, attend)
         # each slot's sampling parameters repeated over its Q rows
-        nxt, lp = self._sample(lg.reshape(S * Q, -1),
-                               (pos_q + 1).reshape(-1),
-                               _np.repeat(_np.arange(S), Q))
-        self._last_verify_logprobs = None if lp is None else tuple(
-            a.reshape(S, Q, -1) for a in lp)
-        return nxt.reshape(S, Q).cpu().numpy().astype(_np.int32)
+        nxt, lpv, lpi = self._sample(lg.reshape(S * Q, -1),
+                                     (pos_q + 1).reshape(-1),
+                                     rows.reshape(-1))
+        if lpv is None:
+            return nxt.reshape(S, Q), None, None
+        return (nxt.reshape(S, Q), lpv.reshape(S, Q, -1),
+                lpi.reshape(S, Q, -1))
+
+    def verify(self, tokens, positions):
+        """Score Q positions for EVERY slot at once: ``tokens`` (S, Q) —
+        column 0 each slot's last accepted token, columns 1..Q-1 the
+        draft's proposals — at base write heads ``positions`` (S,).
+
+        Writes the Q positions' K/V per slot and layer — dense writes past
+        ``max_len`` are dropped, paged writes past the slot's reservation
+        or ``max_len`` go to the null block, so an overrun row near the
+        budget edge never lands on a live entry — embeds row j at position
+        ``min(positions[s] + j, max_len - 1)``, and attends through K4 or
+        K5.  Returns a host int32 (S, Q) array: ``out[s, j]`` is the token
+        sampled after consuming ``tokens[s, :j + 1]``, keyed at position
+        ``positions[s] + j + 1`` exactly as :meth:`decode` keys it there.
+        With Q == 1 this is :meth:`decode`."""
+        S = self.max_slots
+        toks = _np.asarray(tokens, _np.int64).reshape(S, -1)
+        self._check_tokens(toks)
+        pos = self._host_positions(positions)
+        out, lpv, lpi = self._run(("verify", toks.shape[1]), tokens=toks,
+                                  positions=pos)
+        self._last_verify_logprobs = None if lpv is None else (lpv, lpi)
+        return out.astype(_np.int32)
 
     def spec_step(self, last_tokens, positions):
         """One speculative step for EVERY slot: the draft proposes
@@ -766,7 +1013,8 @@ class GenerationEngine:
         rolled back by not advancing past them: their stale K/V is masked
         and overwritten by the next dispatch, and in paged mode
         :meth:`~.kvcache.BlockPool.rewind` keeps that overwrite out of
-        any shared block."""
+        any shared block.  Acceptance and rollback run on the host,
+        between the draft's program and the verify's."""
         if self.draft is None:
             raise MXNetError(f"{self.name}: no draft attached "
                              "(attach_draft first)")
@@ -810,7 +1058,8 @@ class GenerationEngine:
         """Paged rollback after a verify: for every slot that rejected
         draft tokens, run the pool's copy-on-write guard over the dirty
         tail of both engines' tables, so the next dispatch's overwrites
-        cannot touch a shared block."""
+        cannot touch a shared block.  A changed table reaches the static
+        buffer before either engine's next program."""
         for s in range(self.max_slots):
             if int(accepted[s]) >= self.spec_k:
                 continue
@@ -822,10 +1071,7 @@ class GenerationEngine:
                 new = eng.pool.rewind(blocks, keep)
                 if new != blocks:
                     eng._slot_blocks[s] = new
-                    row = _np.zeros(eng.max_blocks_per_slot, _np.int32)
-                    row[:len(new)] = new
-                    eng._tables[s] = row
-                    eng._tables_dev = None
+                    eng._set_table(s, new)
 
     # -- paged-pool bookkeeping (no-ops in dense mode) --------------------
     def release_slot(self, slot: int) -> None:
@@ -844,8 +1090,7 @@ class GenerationEngine:
         if blocks:
             self.pool.release(blocks)
         self._slot_blocks[int(slot)] = []
-        self._tables[int(slot)] = 0
-        self._tables_dev = None
+        self._set_table(int(slot), [])
 
     def can_admit(self, tokens, reserve_tokens: int,
                   reserved_blocks: int = 0) -> bool:
@@ -898,54 +1143,115 @@ class GenerationEngine:
                  "reserved_tokens": len(b) * self.block_size}
                 for s, b in enumerate(self._slot_blocks) if b]
 
-    # -- warmup / reference path -----------------------------------------
+    # -- the closed program set ------------------------------------------
+    @property
+    def expected_programs(self) -> int:
+        """Size of the closed program set (the JAX engine's formula): one
+        prefill per bucket (plus one suffix prefill per bucket when the
+        prefix cache can hit), ONE decode, ONE decode burst when
+        ``scan_steps >= 1`` (budgets, eos ids and the done mask are
+        operands) and, with a draft attached, ONE verify of ``spec_k + 1``
+        rows."""
+        per_bucket = 2 if self.prefix_cache_enabled else 1
+        return per_bucket * len(self.prefill_buckets) + 1 \
+            + (1 if self.scan_steps >= 1 else 0) \
+            + (1 if self.draft is not None else 0)
+
+    def compiled_programs(self) -> int:
+        """Programs of this engine ready to run: captured graphs on the
+        card, bound bodies on the CPU."""
+        if self.device.type == "cuda":
+            return sum(p.graph is not None for p in self._programs.values())
+        return len(self._programs)
+
+    @property
+    def warm(self) -> bool:
+        if self._warmup_done:
+            return True
+        return self.compiled_programs() >= self.expected_programs
+
+    def program_inventory(self) -> dict:
+        """The closed-set accounting (expected against compiled programs)
+        with each program's call count and per-slot KV occupancy, under
+        the JAX engine's keys.  Recurses into an attached draft."""
+        inv = {
+            "model": self.name,
+            "expected_programs": self.expected_programs,
+            "compiled_programs": self.compiled_programs(),
+            "warm": self.warm,
+            "paged": self.paged,
+            "scan_steps": self.scan_steps,
+            "spec_k": self.spec_k if self.draft is not None else 0,
+            "programs": {p.name: {"dispatches": p.replays,
+                                  "captured": p.graph is not None}
+                         for p in self._programs.values()},
+            "slots": self.slot_occupancy(),
+        }
+        if self.draft is not None:
+            inv["draft"] = self.draft.program_inventory()
+        return inv
+
+    def graph_stats(self) -> dict:
+        """Capture cost on the card: programs expected and captured, the
+        seconds spent warming and capturing them, and the bytes the
+        engine's shared graph pool reserved (0 on the CPU)."""
+        return {"expected": self.expected_programs,
+                "captured": sum(p.graph is not None
+                                for p in self._programs.values()),
+                "capture_seconds": self._capture_seconds,
+                "pool_bytes": self._pool_bytes}
+
     def warmup(self) -> int:
-        """Run every entry point once — each prefill bucket (miss, and
-        with the prefix cache the suffix variant, whose writes land in
-        the null block), decode, the burst and, with a draft attached,
-        verify — so kernels are built and the allocator is warm, then
-        reset the cache and warm the draft.  Returns the number of this
-        engine's dispatches warmed."""
-        n = 0
+        """Bind the whole closed program set — every prefill bucket (miss
+        and, with the prefix cache, the suffix variant, whose writes land
+        in the null block), decode, the burst and, with a draft attached,
+        verify — by running each once; on the card each is warmed on a
+        side stream and captured.  Then reset the cache (warmup traffic
+        must not look like live slots or poison the prefix cache) and warm
+        the draft.  Raises on accounting drift: a program count other than
+        ``expected_programs`` means the set is not closed.  Returns
+        ``expected_programs``."""
+        S = self.max_slots
         self._warming = True
         try:
             for b in self.prefill_buckets:
                 self.prefill(_np.zeros(max(1, min(b, self.max_len - 1)),
                                        _np.int32), 0)
                 self.release_slot(0)
-                n += 1
             if self.paged and self.prefix_cache_enabled:
-                row = _np.zeros(self.max_blocks_per_slot, _np.int32)
+                # slot 0's table row is all null blocks after its release
                 for b in self.prefill_buckets:
-                    with torch.no_grad():
-                        self._prefill_hit(
-                            _np.zeros(max(1, min(b, self.max_len - 1)),
-                                      _np.int64), 0, row, 0)
-                    n += 1
-            zeros = _np.zeros(self.max_slots, _np.int32)
+                    self._prefill_hit(
+                        _np.zeros(max(1, min(b, self.max_len - 1)),
+                                  _np.int64), 0, 0)
+            zeros = _np.zeros(S, _np.int32)
             self.decode(zeros, zeros)
-            n += 1
             if self.scan_steps >= 1:
-                self.decode_burst(zeros, zeros,
-                                  _np.ones(self.max_slots, _np.int32),
-                                  _np.full(self.max_slots, -1, _np.int32),
-                                  _np.ones(self.max_slots, bool))
-                n += 1
+                # budgets of 1 exercise the in-program done path
+                self.decode_burst(zeros, zeros, _np.ones(S, _np.int32),
+                                  _np.full(S, -1, _np.int32),
+                                  _np.ones(S, bool))
             if self.draft is not None:
-                self.verify(_np.zeros((self.max_slots, self.spec_k + 1),
-                                      _np.int32), zeros)
-                n += 1
+                self.verify(_np.zeros((S, self.spec_k + 1), _np.int32),
+                            zeros)
         finally:
             self._warming = False
         self.reset()
         if self.draft is not None:
             self.draft.warmup()
-        return n
+        compiled = self.compiled_programs()
+        if compiled != self.expected_programs:
+            raise MXNetError(
+                f"{self.name}: program accounting drift after warmup — "
+                f"compiled {compiled} programs, expected "
+                f"{self.expected_programs} (closed program set violated)")
+        self._warmup_done = True
+        return self.expected_programs
 
     def generate(self, tokens, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None,
                  speculative: Optional[bool] = None, sampling=None):
-        """Solo generation through the serving entry points (slot 0):
+        """Solo generation through the serving programs (slot 0):
         prefill, then one :meth:`decode` per token — or, with a draft
         attached, one :meth:`spec_step` per 1 to ``spec_k + 1`` tokens
         (the default then; ``speculative=False`` forces plain decode).

@@ -232,8 +232,11 @@ def test_seeded_sampling_matches_jax_engine(nets, jax_engine):
 
 
 def test_logprobs_only_when_a_slot_asks(nets, jax_engine):
-    """A decode whose slots asked for no logprobs computes none; one that
-    did gives the JAX engine's top-5 (values within 1e-5, same ids)."""
+    """Every decode computes the top-N logprobs when the engine's
+    ``logprobs_topn`` is above 0, whether or not a slot asked (the JAX
+    programs bake them by ``logprobs_topn``): the JAX engine's top-5
+    (values within 1e-5, same ids).  An engine with ``logprobs_topn`` 0
+    computes none."""
     _, tnet = nets
     eng = _engine(tnet, max_slots=2)
     pos = np.array([len(PROMPT), 0], np.int32)
@@ -248,13 +251,16 @@ def test_logprobs_only_when_a_slot_asks(nets, jax_engine):
         assert eng.prefill(PROMPT, 0) == first
         eng.decode(np.array([first, 0], np.int32), pos)
         got = eng.last_logprobs()
-        if not asked:
-            assert got is None
-            continue
         assert got[0].shape == (2, eng.logprobs_topn)
         np.testing.assert_allclose(got[0][0], np.asarray(want[0])[0],
                                    rtol=1e-5, atol=1e-5)
         assert got[1][0].tolist() == np.asarray(want[1])[0].tolist()
+    off = _engine(tnet, max_slots=2, logprobs_topn=0)
+    off.set_slot_sampling(0, SamplingParams(logprobs=3))
+    assert off.prefill(PROMPT, 0) == first
+    off.decode(np.array([first, 0], np.int32), pos)
+    assert off.last_logprobs() is None
+    assert off.last_prefill_logprobs() is None
 
 
 def test_engine_checks_its_inputs(nets):

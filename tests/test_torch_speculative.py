@@ -231,7 +231,9 @@ def test_spec_generate_equals_plain_and_jax(nets, jax_spec, paged, draft):
 @pytest.mark.parametrize("paged", [True, False])
 def test_verify_and_its_logprobs_match_jax(nets, jax_spec, paged):
     """One verify after a prefill: the JAX engine's tokens, and its top-5
-    logprobs (values within 1e-5, same ids) only when the slot asked."""
+    logprobs (values within 1e-5, same ids) whether or not the slot asked
+    (the verify program computes them whenever ``logprobs_topn`` > 0, as
+    the JAX program does); none from a target with ``logprobs_topn`` 0."""
     prompt = PROMPTS[2]
     jax_spec.set_slot_sampling(0, None)      # an earlier test sampled
     first = jax_spec.prefill(prompt, 0)
@@ -249,13 +251,14 @@ def test_verify_and_its_logprobs_match_jax(nets, jax_spec, paged):
         got = eng.verify(toks, pos)
         assert got.shape == (2, 5) and got[0].tolist() == want[0].tolist()
         lp = eng.last_verify_logprobs()
-        if not asked:
-            assert lp is None
-            continue
         assert lp[0].shape == lp[1].shape == (2, 5, eng.logprobs_topn)
         np.testing.assert_allclose(lp[0][0], np.asarray(want_lp[0])[0],
                                    **TOL)
         assert lp[1][0].tolist() == np.asarray(want_lp[1])[0].tolist()
+    off = _pair(nets, paged, logprobs_topn=0)
+    assert off.prefill(prompt, 0) == first
+    assert off.verify(toks, pos)[0].tolist() == want[0].tolist()
+    assert off.last_verify_logprobs() is None
 
 
 # --------------------------------------------------- (d) seeded sampling
@@ -419,7 +422,7 @@ def test_draft_cascades_and_admission_headroom(nets):
         eng.prefill(PROMPTS[0], 0)
     assert eng.pool.blocks_in_use == drf.pool.blocks_in_use == 0
     eng.reset()
-    assert drf._samp_dev is None and not any(drf._slot_blocks)
+    assert not drf._tables.any() and not any(drf._slot_blocks)
 
 
 # --------------------------------------------------- (h) BlockPool.rewind

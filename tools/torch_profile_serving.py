@@ -6,11 +6,13 @@ Run from the repository root on a machine with one CUDA card::
     python3 tools/torch_profile_serving.py [--seed 0] [--repeats 5]
 
 Builds the model, engine and prompts through ``chip_smoke.py``'s
-``build_served`` and ``served_requests``, so both scripts measure one
-set-up: ``gpt2_124m`` at full width (random ``Normal(0.02)`` weights from
-``--seed``) behind the default paged ``GenerationEngine`` (8 slots,
-max_len 1024, bursts of 8).  It fills all 8 slots with the smoke's
-prompts of 5 to 700 tokens and measures four windows:
+``build_served`` and ``served_requests``, and measures the windows of
+``chip_smoke.serving_windows`` with its ``profile_window``, so both
+scripts measure one set-up: ``gpt2_124m`` at full width (random
+``Normal(0.02)`` weights from ``--seed``) behind the default paged
+``GenerationEngine`` (8 slots, max_len 1024, bursts of 8), its closed
+program set captured as CUDA graphs at warmup, with all 8 slots holding
+the smoke's prompts of 5 to 700 tokens:
 
 * ``burst``: one ``decode_burst`` of 8 steps over the 8 live slots;
 * ``decode``: one per-step ``decode`` over the 8 live slots;
@@ -25,14 +27,13 @@ prompts of 5 to 700 tokens and measures four windows:
 For each window it prints the host-clock wall time (median of
 ``--repeats`` unprofiled runs, each ending synchronised), then one
 ``torch.profiler`` run of the same window: the summed device time of
-every kernel, the device's idle share (1 - kernel time / unprofiled
-wall), the kernels that take the most device time, and the host-side
-operators that take the most CPU time.  Every line carries the card's
-name and power limit."""
+every kernel and copy, the host API calls that launch work on the card,
+the device's idle share (1 - device time / unprofiled wall), the kernels
+that take the most device time, and the host-side operators that take
+the most CPU time.  Every line carries the card's name and power limit."""
 import argparse
 import importlib
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +42,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (LENGTHS, build_draft, build_served,  # noqa: E402
-                        card_line, served_requests)
+                        card_line, profile_window, program_line,
+                        served_requests, serving_windows)
 
 
 def kernel_times(prof):
@@ -57,32 +59,16 @@ def kernel_times(prof):
 
 
 def measure(name, setup, window, repeats, card):
-    """Median unprofiled wall ms of ``window`` (``setup`` runs untimed
-    before each), then one profiled run; print the breakdown.  Returns
-    (wall ms, the profiled run's {kernel: (device us, launches)})."""
-    walls = []
-    for _ in range(repeats):
-        setup()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        window()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
-    wall = float(np.median(walls))
-    setup()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        window()
-        torch.cuda.synchronize()
+    """``profile_window`` of ``window``; print its numbers and the
+    profiled run's breakdown."""
+    r, prof = profile_window(setup, window, repeats)
+    print(f"{name}: wall {r['wall_ms']:.3f} ms (median of {repeats}: "
+          f"{', '.join(f'{w:.3f}' for w in r['walls'])}); device "
+          f"{r['device_ms']:.3f} ms in {r['device_ops']} kernels and copies; "
+          f"{r['host_launches']} host launches; idle share "
+          f"{r['idle_share']:.3f} [{card}]", flush=True)
     kt = kernel_times(prof)
-    busy = sum(t for t, _ in kt.values()) / 1e3
-    launches = sum(n for _, n in kt.values())
-    print(f"{name}: wall {wall:.3f} ms (median of {repeats}: "
-          f"{', '.join(f'{w:.3f}' for w in walls)}); device kernels "
-          f"{busy:.3f} ms in {launches} launches; idle share "
-          f"{1.0 - busy / wall:.3f} [{card}]", flush=True)
+    busy = max(r["device_ms"], 1e-9)
     if not kt:
         print(f"{name}: the profiler recorded no device time", flush=True)
     for kname, (t, n) in sorted(kt.items(), key=lambda kv: -kv[1][0])[:8]:
@@ -96,7 +82,7 @@ def measure(name, setup, window, repeats, card):
     for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"{name}:   {e.self_cpu_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key}", flush=True)
-    return wall, kt
+    return r
 
 
 def main():
@@ -116,80 +102,20 @@ def main():
 
     net, eng = build_served(args.seed)
     prompts, _ = served_requests(net._vocab_size, args.seed)
-    rng = np.random.RandomState(args.seed)
-    V = net._vocab_size
-    S, k = eng.max_slots, eng.scan_steps
-    state = {}
-
-    def fill():
-        """All 8 slots live, each just past its prompt."""
-        eng.reset()
-        last = np.zeros(S, np.int32)
-        for s, p in enumerate(prompts):
-            last[s] = eng.prefill(p, s, reserve_tokens=len(p) + 64)
-        state["last"] = last
-        state["pos"] = np.array(LENGTHS, np.int32)
-
-    def burst():
-        eng.decode_burst(state["last"], state["pos"], np.full(S, 64),
-                         np.full(S, -1), np.ones(S, bool))
-
-    def decode():
-        eng.decode(state["last"], state["pos"])
-
-    def prefill(n):
-        p = rng.randint(0, V, n)
-
-        def setup():
-            eng.reset()
-
-        def window():
-            eng.prefill(p, 0, reserve_tokens=n + 1)
-        return setup, window
-
-    live = int(np.sum(np.array(LENGTHS) + 1))
-    print(f"slots: prompts {LENGTHS} ({live} live positions), bursts of "
-          f"{k}", flush=True)
-    fa.reset_launch_counts()
-    measure("burst", fill, burst, args.repeats, card)
-    measure("decode", fill, decode, args.repeats, card)
-    measure("prefill-1024", *prefill(1000), args.repeats, card)
-    measure("prefill-64", *prefill(60), args.repeats, card)
-
     from incubator_mxnet_tpu_torch.serving import GenerationEngine
     spec = GenerationEngine(net, name="spec")
     spec.attach_draft(GenerationEngine(build_draft(net), name="draft6"))
     spec.warmup()
-    sk = spec.spec_k
-
-    def fill_spec():
-        """All 8 slots of the target and its draft live, each just past
-        its prompt, and the draft's 4 proposals for the verify window."""
-        spec.reset()
-        last = np.zeros(S, np.int32)
-        for s, p in enumerate(prompts):
-            last[s] = spec.prefill(p, s, reserve_tokens=len(p) + 64)
-        state["last"] = last
-        state["pos"] = np.array(LENGTHS, np.int32)
-        toks, _ = spec.draft.decode_burst(last, state["pos"],
-                                          np.full(S, sk + 1), np.full(S, -1),
-                                          np.ones(S, bool))
-        state["rows"] = np.concatenate([last[:, None], toks.T], axis=1)
-
-    def spec_step():
-        spec.spec_step(state["last"], state["pos"])
-
-    def spec_draft():
-        spec.draft.decode_burst(state["last"], state["pos"],
-                                np.full(S, sk + 1), np.full(S, -1),
-                                np.ones(S, bool))
-
-    def verify():
-        spec.verify(state["rows"], state["pos"])
-
-    measure("spec-step", fill_spec, spec_step, args.repeats, card)
-    measure("spec-draft", fill_spec, spec_draft, args.repeats, card)
-    measure("verify", fill_spec, verify, args.repeats, card)
+    for what, e in (("plain", eng), ("spec target", spec),
+                    ("spec draft", spec.draft)):
+        program_line(what, e, card)
+    live = int(np.sum(np.array(LENGTHS) + 1))
+    print(f"slots: prompts {LENGTHS} ({live} live positions), bursts of "
+          f"{eng.scan_steps}", flush=True)
+    fa.reset_launch_counts()
+    serving_windows(eng, spec, prompts,
+                    lambda name, setup, window: measure(
+                        name, setup, window, args.repeats, card))
     print(f"launches: {dict(fa.launch_counts)}", flush=True)
 
 
