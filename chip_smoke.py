@@ -6,6 +6,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build and check the kernels only
     python3 chip_smoke.py --windows  # measure the serving windows only
+    python3 chip_smoke.py --serve REF.json  # the HTTP phase only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -73,6 +74,24 @@ Phases, each of which raises (exit code 1) on any failure:
    (burst, decode, prefill of 1024 and 64 tokens, spec step, the draft's
    burst, verify): wall, device time, host launches and idle share
    ("windows:" lines, ``profile_window``);
+   then, in another child process (``--serve``, ``faulthandler`` on), the
+   HTTP path ("serve:" lines): ``mxtpu-serve-torch`` started as a further
+   child on a free local port, serving two ``gpt2_124m`` models from
+   configs (``Normal(0.02)`` weights from seed 0, the path's weights):
+   ``plain`` (paged) and ``spec`` (with a 6-layer draft, ``spec_k`` 4),
+   captured in the background while ``/readyz`` answers 503; the path's 8
+   requests sent by 8 concurrent SSE clients to ``plain`` (tokens equal
+   the path's under the near-tie rule; time to first token and the gap
+   between tokens, p50 and p99, and tokens/s, measured at the client;
+   K1 and K2 must launch and K4 not, read from the server's
+   ``mxtpu_kernel_launches`` before and after), then as 8 sync requests
+   to ``spec`` (tokens equal the plain path's; K4 must launch); then
+   ``/programs`` (every engine captured == expected), ``/memory``
+   (owners ``kv:plain``, ``params:plain``), ``/metrics`` (the generation
+   series), ``/v1/models`` (no slot held), a flood past ``--queue``
+   (some 429s with ``Retry-After``), and SIGTERM with a stream in flight
+   (``/readyz`` 503 draining, the stream finishes, exit 0 with "drained,
+   exiting", the port closed);
 6. training path: BERT-large (``bert_large``: 24 layers of 1024 units,
    16 heads of 64, FFN 4096, vocab 30522) at full width and depth with
    random ``Normal(0.02)`` weights from the seed, ``BERTForPretrain`` +
@@ -94,6 +113,8 @@ import faulthandler
 import importlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -217,6 +238,14 @@ def device_ms(fn, arg_sets, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * len(arg_sets))
+
+
+def pct(values, q):
+    """The ``q``-th percentile of ``values`` by nearest rank (the
+    telemetry histograms' rule)."""
+    data = sorted(values)
+    return data[min(len(data) - 1,
+                    max(0, int(round(q / 100 * (len(data) - 1)))))]
 
 
 def max_err(a, b):
@@ -764,6 +793,8 @@ def drive_path(fa):
     program_line("plain", eng, CARD)
     program_line("plain", dense, CARD)
 
+    from incubator_mxnet_tpu_torch import telemetry
+    telemetry.reset()
     fa.reset_launch_counts()                 # --- the paged main path
     t0 = time.perf_counter()
     bat = ContinuousBatcher(eng)
@@ -779,6 +810,8 @@ def drive_path(fa):
         bat.close()
     torch.cuda.synchronize()
     counts = dict(fa.launch_counts)          # --- end of the paged path
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
+    gap = telemetry.registry.get("mxtpu_generate_token_seconds").stats()
     for kind in log:
         delattr(eng, kind)
     fa.reset_launch_counts()                 # --- the dense path
@@ -792,6 +825,11 @@ def drive_path(fa):
           f"{n_tok / wall:.1f} tokens/s; {stats['decode_steps']} steps, "
           f"{stats['decode_burst_dispatches']} bursts, prefix hits "
           f"{eng.pool.hits - hits0}", flush=True)
+    print(f"path: time to first token p50 {pct(ttft, 50):.2f} ms, p99 "
+          f"{pct(ttft, 99):.2f} ms (batcher clock, submit to emit); "
+          f"per-token gap p50 {gap['p50'] * 1e3:.3f} ms, p99 "
+          f"{gap['p99'] * 1e3:.3f} ms (mxtpu_generate_token_seconds: a "
+          f"burst's gap spread over its tokens) [{CARD}]", flush=True)
     by_bucket = {}
     for dt, (bucket, hit, _) in log["prefill"]:
         by_bucket.setdefault((bucket, hit), []).append(dt * 1e3)
@@ -1244,6 +1282,391 @@ def windows_in_child():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 7
+SERVE_QUEUE = 8         # the server's --queue; the flood below exceeds it
+SERVE_FLOOD = 40        # concurrent requests of the 429 check
+SERVE_DRAIN_TOKENS = 400  # the stream in flight across the SIGTERM
+
+
+def gpt2_config(**extra):
+    """``gpt2_124m``'s architecture as a ``--gen-model`` config, with
+    ``extra`` keys over it."""
+    cfg = dict(vocab_size=50257, units=768, hidden_size=3072,
+               num_layers=12, num_heads=12, max_length=1024)
+    cfg.update(extra)
+    return cfg
+
+
+def http_json(base, path, body=None, headers=None, timeout=300):
+    """GET (``body`` None) or POST JSON; returns ``(status, headers,
+    parsed body or text)``."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, hdrs, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, dict(e.headers), e.read()
+    text = raw.decode()
+    try:
+        return code, hdrs, json.loads(text)
+    except ValueError:
+        return code, hdrs, text
+
+
+def sse_client(base, model, prompt, budget, out):
+    """One streaming ``:generate``: the send time, each token event's
+    arrival time (host clock of this process) and the ``done`` payload
+    into ``out``."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"{base}/v1/models/{model}:generate",
+        data=json.dumps({"tokens": prompt, "max_new_tokens": budget,
+                         "stream": True}).encode())
+    out["t_send"] = time.perf_counter()
+    out["arrivals"], out["tokens"], out["events"] = [], [], []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out["status"] = resp.status
+        event = None
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                out["events"].append(event)
+                if event == "token":
+                    out["arrivals"].append(time.perf_counter())
+                    out["tokens"].append(data["token"])
+                elif event == "done":
+                    out["done"] = data
+    out["t_done"] = time.perf_counter()
+
+
+def launches(base):
+    """``mxtpu_kernel_launches`` by kernel, read from the server's
+    ``/metrics``."""
+    _, _, text = http_json(base, "/metrics")
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("mxtpu_kernel_launches{"):
+            name = line.split('kernel="', 1)[1].split('"', 1)[0]
+            out[name] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def metric_quantiles(base, name):
+    """The p50 and p99 of summary ``name`` on the server's ``/metrics``."""
+    _, _, text = http_json(base, "/metrics")
+    q = {}
+    for line in text.splitlines():
+        for key, tag in (("p50", 'quantile="0.5"'), ("p99",
+                                                      'quantile="0.99"')):
+            if line.startswith(f"{name}{{{tag}}}"):
+                q[key] = float(line.rsplit(" ", 1)[1])
+    return q
+
+
+def drive_serve(card, ref_path):
+    """The HTTP path: ``mxtpu-serve-torch`` started as a user starts it
+    (a child process, two ``gpt2_124m`` models: ``plain`` and ``spec``
+    with a 6-layer draft), fed the path phase's 8 requests by 8
+    concurrent SSE clients and then as 8 sync requests to ``spec``, its
+    endpoints read, its queue flooded past ``--queue``, and SIGTERM'd
+    with a stream in flight.  Prints the ``serve:`` lines."""
+    import socket
+    import tempfile
+    import threading
+    with open(ref_path) as f:
+        ref = json.load(f)
+    prompts, budgets, plain = ref["prompts"], ref["budgets"], ref["plain"]
+    net = []
+
+    def oracle():
+        if not net:     # built only when a token differs
+            from incubator_mxnet_tpu_torch import initializer as init
+            from incubator_mxnet_tpu_torch.models.gpt import gpt2_124m
+            n = gpt2_124m(dropout=0.0)
+            n.initialize(init.Normal(0.02), seed=SEED)
+            net.append(n)
+        return net[0]
+
+    def near_tie(prompt, want, got, what):
+        if got == want:
+            return None
+        return same_or_near_tie(oracle(), prompt, want, got, what)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    cfg, draft_cfg = Path(tmp) / "gpt2.json", Path(tmp) / "gpt2_6l.json"
+    cfg.write_text(json.dumps(gpt2_config()))
+    draft_cfg.write_text(json.dumps(gpt2_config(num_layers=6, spec_k=4)))
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "incubator_mxnet_tpu_torch._cli", "--gen-model", f"plain={cfg}",
+           "--gen-model", f"spec={cfg}", "--gen-draft", f"spec={draft_cfg}",
+           "--port", "0", "--host", "127.0.0.1", "--queue",
+           str(SERVE_QUEUE)]
+    print(f"serve: {' '.join(cmd[3:])}", flush=True)
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    log = []
+    reader = threading.Thread(target=lambda: log.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+    try:
+        port = None
+        while port is None:
+            check(proc.poll() is None and time.perf_counter() - t_start
+                  < 300, "serve: the server did not start:\n"
+                  + "".join(log)[-3000:])
+            for line in list(log):
+                if "listening on http://127.0.0.1:" in line:
+                    port = int(line.split("127.0.0.1:")[1].split()[0])
+            time.sleep(0.05)
+        base = f"http://127.0.0.1:{port}"
+        t_bound = time.perf_counter() - t_start
+        unready = 0
+        while True:
+            code = http_json(base, "/readyz")[0]
+            if code == 200:
+                break
+            unready += 1
+            check(proc.poll() is None and time.perf_counter() - t_start
+                  < 600, f"serve: never ready ({code}):\n"
+                  + "".join(log)[-3000:])
+            time.sleep(0.2)
+        warm = time.perf_counter() - t_start
+        for line in log:
+            if "loaded generation model" in line or "attached" in line:
+                print(f"serve: server: {line.strip()}", flush=True)
+        print(f"serve: port bound after {t_bound:.1f} s, /readyz 200 after "
+              f"{warm:.1f} s ({unready} polls answered 503 while the "
+              f"programs were captured in the background) [{card}]",
+              flush=True)
+
+        # -- plain: 8 concurrent SSE clients
+        before = launches(base)
+        res = [{} for _ in prompts]
+        threads = [threading.Thread(target=sse_client,
+                                    args=(base, "plain", p, b, r))
+                   for p, b, r in zip(prompts, budgets, res)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        plain_launch = {k: v - before.get(k, 0)
+                        for k, v in launches(base).items()}
+        check(all(r.get("status") == 200 and r["events"][-1] == "done"
+                  for r in res), f"serve: a stream failed: {res}")
+        ttft = [(r["arrivals"][0] - r["t_send"]) * 1e3 for r in res]
+        gaps = [(b - a) * 1e3 for r in res
+                for a, b in zip(r["arrivals"], r["arrivals"][1:])]
+        n_tok = sum(len(r["tokens"]) for r in res)
+        server_gap = metric_quantiles(base, "mxtpu_generate_token_seconds")
+        print(f"serve: plain: 8 concurrent SSE clients, budgets {budgets}: "
+              f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+              f"tokens/s; time to first token p50 {pct(ttft, 50):.2f} ms, "
+              f"p99 {pct(ttft, 99):.2f} ms; gap between tokens p50 "
+              f"{pct(gaps, 50):.3f} ms, p99 {pct(gaps, 99):.3f} ms (at the "
+              f"client); server's mxtpu_generate_token_seconds p50 "
+              f"{server_gap['p50'] * 1e3:.3f} ms, p99 "
+              f"{server_gap['p99'] * 1e3:.3f} ms [{card}]", flush=True)
+        print(f"serve: plain: kernel launches {plain_launch}", flush=True)
+        for name, want in (("flash_fwd", True), ("paged_decode", True),
+                           ("paged_verify", False)):
+            check((plain_launch.get(name, 0) > 0) == want,
+                  f"serve: plain: kernel {name} launched "
+                  f"{plain_launch.get(name, 0)} times")
+        split = 0
+        for i, (p, want, r) in enumerate(zip(prompts, plain, res)):
+            check(r["done"]["tokens"] == r["tokens"],
+                  f"serve: request {i}: done payload != streamed tokens")
+            split += near_tie(p, want, r["tokens"],
+                              f"serve: plain request {i}") is not None
+        print(f"serve: plain: {8 - split} of 8 streams equal the path "
+              f"phase's tokens; {split} first differ at a near-tie",
+              flush=True)
+
+        # -- spec: the same 8 prompts as sync requests
+        before = launches(base)
+        sync = [None] * len(prompts)
+
+        def post(i):
+            sync[i] = http_json(base, "/v1/models/spec:generate",
+                                {"tokens": prompts[i],
+                                 "max_new_tokens": budgets[i]},
+                                headers={"x-request-id": f"spec-{i}"})
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        spec_launch = {k: v - before.get(k, 0)
+                       for k, v in launches(base).items()}
+        check(all(a is not None and a[0] == 200 for a in sync),
+              f"serve: a spec request failed: {sync}")
+        acc = sum(a[2]["accepted_tokens"] for a in sync)
+        drafted = sum(a[2]["draft_tokens"] for a in sync)
+        n_tok = sum(a[2]["count"] for a in sync)
+        print(f"serve: spec: 8 concurrent sync requests: {n_tok} tokens in "
+              f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+              f"accepted_tokens {acc} of draft_tokens {drafted}; kernel "
+              f"launches {spec_launch} [{card}]", flush=True)
+        check(all(a[2]["request_id"] == f"spec-{i}"
+                  and a[1]["X-Request-Id"] == f"spec-{i}"
+                  for i, a in enumerate(sync)), "serve: request ids lost")
+        for name in ("flash_fwd", "paged_decode", "paged_verify"):
+            check(spec_launch.get(name, 0) > 0, f"serve: spec: kernel "
+                  f"{name} launched {spec_launch.get(name, 0)} times")
+        split = 0
+        for i, (p, want, a) in enumerate(zip(prompts, plain, sync)):
+            split += near_tie(p, want, a[2]["tokens"],
+                              f"serve: spec request {i}") is not None
+        print(f"serve: spec: {8 - split} of 8 responses equal the plain "
+              f"tokens; {split} first differ at a near-tie", flush=True)
+
+        # -- endpoints
+        _, _, progs = http_json(base, "/programs")
+        for name, inv in progs["engines"].items():
+            check(inv["compiled_programs"] == inv["expected_programs"],
+                  f"serve: /programs: {name} {inv}")
+        check({"plain", "spec", "spec-draft"} <= set(progs["engines"]),
+              f"serve: /programs engines {sorted(progs['engines'])}")
+        print("serve: /programs: " + ", ".join(
+            f"{n} {inv['compiled_programs']} of {inv['expected_programs']}"
+            for n, inv in sorted(progs["engines"].items())), flush=True)
+        _, _, mem = http_json(base, "/memory")
+        for owner in ("kv:plain", "params:plain"):
+            check(mem["owners"].get(owner, 0) > 0,
+                  f"serve: /memory: owner {owner} {mem['owners']}")
+        print(f"serve: /memory: owners {mem['owners']}; devices "
+              f"{mem['devices']} [{card}]", flush=True)
+        _, _, text = http_json(base, "/metrics")
+        for series in ("mxtpu_generate_tokens",
+                       "mxtpu_generate_token_seconds",
+                       "mxtpu_dispatches_per_token"):
+            check(f"\n{series}" in text, f"serve: /metrics lacks {series}")
+        _, _, models = http_json(base, "/v1/models")
+        for name, st in models["models"].items():
+            check(st["slots_in_use"] == 0, f"serve: {name} still holds "
+                  f"{st['slots_in_use']} slots")
+        print("serve: /metrics carries the generation series; /v1/models: "
+              + ", ".join(f"{n} slots_in_use {st['slots_in_use']}, "
+                          f"dispatches_per_token "
+                          f"{st['dispatches_per_token']:.3f}"
+                          for n, st in sorted(models["models"].items())),
+              flush=True)
+
+        # -- backpressure: a flood past --queue
+        flood = [None] * SERVE_FLOOD
+
+        def flood_one(i):
+            flood[i] = http_json(base, "/v1/models/plain:generate",
+                                 {"tokens": [1, 2, 3, 4],
+                                  "max_new_tokens": 64})
+        threads = [threading.Thread(target=flood_one, args=(i,))
+                   for i in range(SERVE_FLOOD)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        shed = [a for a in flood if a is not None and a[0] == 429]
+        served = [a for a in flood if a is not None and a[0] == 200]
+        check(shed and all(int(a[1]["Retry-After"]) >= 1 for a in shed)
+              and len(shed) + len(served) == SERVE_FLOOD,
+              f"serve: flood: {[a and a[0] for a in flood]}")
+        print(f"serve: flood of {SERVE_FLOOD} concurrent requests past "
+              f"--queue {SERVE_QUEUE}: {len(served)} served, {len(shed)} "
+              f"answered 429 with Retry-After "
+              f"{shed[0][1]['Retry-After']}", flush=True)
+        check(http_json(base, "/v1/models")[2]["models"]["plain"][
+            "slots_in_use"] == 0, "serve: slots held after the flood")
+
+        # -- shutdown: SIGTERM with a stream in flight
+        stream = {}
+        t = threading.Thread(target=sse_client, args=(
+            base, "plain", [5, 6, 7], SERVE_DRAIN_TOKENS, stream))
+        t.start()
+        while not stream.get("arrivals"):
+            check(t.is_alive(), f"serve: the drain stream failed {stream}")
+            time.sleep(0.005)
+        proc.send_signal(15)                    # SIGTERM
+        draining = 0
+        while t.is_alive():
+            try:
+                code, _, body = http_json(base, "/readyz", timeout=5)
+            except OSError:
+                break                           # the port has closed
+            if code == 503 and body.get("status") == "draining":
+                draining += 1
+            time.sleep(0.01)
+        t.join(timeout=300)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        check(len(stream.get("tokens", ())) == SERVE_DRAIN_TOKENS
+              and stream["events"][-1] == "done",
+              f"serve: the in-flight stream was cut: "
+              f"{len(stream.get('tokens', ()))} tokens")
+        check(draining > 0, "serve: /readyz never answered 503 draining")
+        check(rc == 0 and any("drained, exiting" in ln for ln in log),
+              f"serve: the server exited {rc}:\n" + "".join(log)[-3000:])
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()
+            closed = False
+        except OSError:
+            closed = True
+        check(closed, "serve: the port is still open after exit")
+        print(f"serve: SIGTERM with a {SERVE_DRAIN_TOKENS}-token stream in "
+              f"flight: /readyz answered 503 draining {draining} times, the "
+              f"stream finished, exit code {rc}, 'drained, exiting', port "
+              f"closed", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_in_child(prompts, budgets, plain):
+    """Run :func:`drive_serve` in a child interpreter (``--serve``, with
+    ``faulthandler`` on, as ``--windows`` runs), handing it the path
+    phase's requests and tokens through a file, and print the child's
+    ``serve:`` lines.  Fails unless the child exits 0 and reports the
+    drain."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump({"prompts": prompts, "budgets": budgets,
+                   "plain": plain}, f)
+    try:
+        proc = subprocess.run([sys.executable, "-X", "faulthandler",
+                               str(Path(__file__).resolve()), "--serve",
+                               f.name], capture_output=True, text=True,
+                              timeout=900)
+    finally:
+        os.unlink(f.name)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("serve: ", "path: "))]
+    for ln in lines:
+        print(ln, flush=True)
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("serve: SIGTERM"),
+          f"serve: the child exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print(f"serve: the HTTP phase ran in a child process in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def parses_as_json(tokens):
     """``tokens`` read as bytes form a complete JSON document by the JSON
     mode's grammar, and parse; the grammar's number rule is permissive
@@ -1484,6 +1907,10 @@ def main():
     ap.add_argument("--windows", action="store_true",
                     help="only measure the serving windows (the full run "
                          "does this in a child process)")
+    ap.add_argument("--serve", metavar="REF.json",
+                    help="only run the HTTP phase against the path phase's "
+                         "requests and tokens in REF.json (the full run "
+                         "does this in a child process)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -1504,6 +1931,9 @@ def main():
     if args.windows:
         drive_windows(card)
         return                               # a measurement, no result
+    if args.serve:
+        drive_serve(card, args.serve)
+        return                               # a phase, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -1538,6 +1968,7 @@ def main():
         del net, eng
         torch.cuda.empty_cache()
         windows_in_child()
+        serve_in_child(prompts, budgets, plain)
         train = drive_training(fa, card)
         check_cell_grads(fa, dev)
         launches = {"flash_fwd": counts["flash_fwd"],

@@ -8,7 +8,10 @@ CUDA kernels for Hopper (``kernels/csrc``).  Entry points run on
 explicit CPU they raise :class:`MXNetError`.
 
 Ported so far: generation serving of the GPT models (``models``,
-``serving``), speculative decoding, and one BERT pretraining step
+``serving``) behind an HTTP front (``serving.server``, the
+``mxtpu-serve-torch`` command in ``_cli``) with its telemetry, fault,
+lifecycle, SLO and health planes, speculative decoding, and one BERT
+pretraining step
 (``models.bert``, ``gluon.loss``, ``optimizer``, ``parallel``), with the
 seven attention kernels they run (``kernels.flash_attention``)."""
 from .base import MXNetError

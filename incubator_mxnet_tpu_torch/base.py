@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["MXNetError", "getenv", "getenv_int", "getenv_bool"]
+__all__ = ["MXNetError", "getenv", "getenv_int", "getenv_float",
+           "getenv_bool"]
 
 
 class MXNetError(RuntimeError):
@@ -31,6 +32,16 @@ def getenv_int(name: str, default: int = 0) -> int:
         return int(v)
     except ValueError:
         raise MXNetError(f"env var {name} must be an int, got {v!r}")
+
+
+def getenv_float(name: str, default: float = 0.0) -> float:
+    v = getenv(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        raise MXNetError(f"env var {name} must be a number, got {v!r}")
 
 
 def getenv_bool(name: str, default: bool = False) -> bool:

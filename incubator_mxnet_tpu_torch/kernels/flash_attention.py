@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import torch
 
@@ -67,35 +68,51 @@ _FWD_TILE = 64          # query rows (K1, K6) or keys (K7) per block
 launch_counts = {name: 0 for name in _build.KERNELS}
 
 
+# the counters are shared by every thread (a server replays several
+# engines' graphs on several threads); a capture's launches go to the
+# capturing thread's own tally instead
+_counts_lock = threading.Lock()
+_capturing = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _counts_lock:
+        launch_counts[name] += 1
 
 
 @contextlib.contextmanager
 def captured_launches():
     """For a block that captures kernel calls into a CUDA graph: yields a
     dict that, at the block's end, holds the launches each kernel wrapper
-    made inside it, and takes them back out of ``launch_counts`` (a
-    captured call runs nothing).  Pass the dict to :func:`add_launches`
-    at each replay of the graph."""
-    before = dict(launch_counts)
+    made inside it on this thread, none of which reach ``launch_counts``
+    (a captured call runs nothing).  Pass the dict to
+    :func:`add_launches` at each replay of the graph."""
+    prev = getattr(_capturing, "tally", None)
     tally: dict = {}
+    _capturing.tally = tally
     try:
         yield tally
     finally:
-        for name, n in before.items():
-            if launch_counts[name] != n:
-                tally[name] = launch_counts[name] - n
-            launch_counts[name] = n
+        _capturing.tally = prev
 
 
 def add_launches(tally) -> None:
     """Count one replay of a captured graph: ``tally`` (from
     :func:`captured_launches`) maps kernel names to the launches the
     graph holds."""
-    for name, n in tally.items():
-        launch_counts[name] += n
+    with _counts_lock:
+        for name, n in tally.items():
+            launch_counts[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +304,7 @@ def _launch(name, *args):
     if rc != 0:
         raise MXNetError(f"{name} kernel launch failed: "
                          f"{lib.mx_error_string(rc).decode()} (code {rc})")
-    launch_counts[name] += 1
+    _count(name)
 
 
 def _head_dim_ok(name, D):

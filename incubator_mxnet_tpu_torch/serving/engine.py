@@ -43,15 +43,21 @@ inputs it is given before copying them in."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import math
+import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as _np
 import torch
 
 from ..base import MXNetError, getenv_bool, getenv_int
+from .. import health as _health
+from .. import telemetry as _telemetry
+from .. import telemetry_device as _tdev
 from ..kernels.flash_attention import (NEG, add_launches,
                                        captured_launches, decode_attention,
                                        paged_decode_attention,
@@ -62,6 +68,17 @@ from .sampling import (SamplingParams, root_key, sample_tokens, step_keys,
                        topn_logprobs)
 
 __all__ = ["GenerationEngine", "derive_prefill_buckets"]
+
+#: one capture at a time in the process: a capture turns the cyclic GC
+#: off and empties the allocator's cache, and two engines warming on two
+#: threads (the server's background warmups) must not interleave that
+_CAPTURE_LOCK = threading.Lock()
+
+#: program kind -> its dispatch-ledger site ("serving:<model>:<site>"),
+#: the JAX engine's jit names
+_LEDGER_SITES = {"prefill": "prefill", "prefill_hit": "prefill_ext",
+                 "decode": "decode", "decode_burst": "decode_burst",
+                 "verify": "verify"}
 
 
 def derive_prefill_buckets(max_len: int, smallest: int = 8):
@@ -86,6 +103,62 @@ def _host_buffer(shape, dtype, device) -> torch.Tensor:
                        pin_memory=torch.device(device).type == "cuda")
 
 
+def _locked(fn):
+    """Run an engine method under the engine's dispatch lock."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+    return call
+
+
+def _register_device_observers(engine) -> None:
+    """Enroll ``engine`` in the device-observability plane: its program
+    inventory (``GET /programs``), its parameters and its KV cache as
+    memory owners (``params:<name>``, ``kv:<name>``) and its dispatch
+    ledger sites with their counts of ready programs.  All weak: a
+    registration never keeps a dropped engine's tensors or graphs alive
+    (a dropped engine reports empty or zero until a successor of the
+    same name replaces it)."""
+    wref = weakref.ref(engine)
+
+    def inventory():
+        eng = wref()
+        return eng.program_inventory() if eng is not None else {}
+
+    def param_bytes():
+        eng = wref()
+        if eng is None:
+            return 0
+        return sum(p.numel() * p.element_size()
+                   for p in eng.block.parameters())
+
+    def kv_bytes():
+        eng = wref()
+        return eng.cache_bytes if eng is not None else 0
+
+    def ready(kind):
+        def count():
+            eng = wref()
+            if eng is None:
+                return 0
+            cuda = eng.device.type == "cuda"
+            return sum(1 for key, p in list(eng._programs.items())
+                       if key[0] == kind and (p.graph is not None
+                                              or not cuda))
+        return count
+
+    _tdev.register_inventory(engine.name, inventory)
+    _tdev.register_owner("params:" + engine.name, param_bytes)
+    _tdev.register_owner("kv:" + engine.name, kv_bytes)
+    engine._ledger = {}
+    for kind, site in _LEDGER_SITES.items():
+        if kind == "prefill_hit" and not engine.paged:
+            continue
+        engine._ledger[kind] = _telemetry.ledger_site(
+            f"serving:{engine.name}:{site}", ready(kind))
+
+
 class _Program:
     """One fixed-shape body of the engine.  Its int64 operands live in one
     flat host buffer and one flat device buffer of the same layout (one
@@ -95,8 +168,10 @@ class _Program:
     On the card, ``graph`` is the captured body, ``out`` its static
     outputs and ``tally`` the kernel launches one replay makes."""
 
-    def __init__(self, name: str, spec: Sequence[Tuple[str, tuple]],
-                 body: Callable, static: tuple, device):
+    def __init__(self, kind: str, name: str,
+                 spec: Sequence[Tuple[str, tuple]], body: Callable,
+                 static: tuple, device):
+        self.kind = kind
         self.name = name
         # an unbound engine method and its static arguments: a program
         # holds no reference to its engine, so an engine dropped by its
@@ -137,10 +212,21 @@ class GenerationEngine:
 
     Each of these is one program of the closed set (:meth:`warmup`).
     Free slots ride along in decode (their writes land in the null block,
-    or in their own dense row at position 0).  The cache is single-writer:
-    only one thread (the continuous batcher's worker) dispatches.
-    Constructor arguments and their environment variables are the JAX
-    engine's."""
+    or in their own dense row at position 0).  Every public method that
+    stages, replays or reads back a program, or changes the host state a
+    program reads (sampling rows, block tables, the cache itself), runs
+    under the engine's dispatch lock: the programs share one graph pool
+    and one set of static buffers, so a second thread (a worker restarted
+    by the watchdog, a warmup on a background thread) waits until the
+    first one's program has been read back.  Constructor arguments and
+    their environment variables are the JAX engine's.
+
+    With ``MXNET_HEALTH_PLANE`` on at construction, the decode and burst
+    bodies also compute the health plane's per-slot logit stats
+    (:meth:`last_decode_health`); the tokens do not change.  Every
+    program call lands in the telemetry dispatch ledger under
+    ``serving:<name>:<site>`` (host seconds around staging, replay and
+    read-back), and a prefill opens a ``serve.prefill`` span."""
 
     def __init__(self, block, *, name: Optional[str] = None,
                  max_slots: Optional[int] = None,
@@ -162,6 +248,11 @@ class GenerationEngine:
         self.block = block
         self.name = str(name or "gpt")
         self.device = block.embed.weight.device
+        self._lock = threading.RLock()
+        # the health plane is baked into the bodies at construction, as
+        # the JAX engine bakes it into its jit outputs
+        self._health_on = _health.enabled()
+        self._last_decode_health = None
         self.max_slots = int(max_slots
                              or getenv_int("MXNET_GEN_MAX_SLOTS", 8))
         if self.max_slots < 1:
@@ -265,8 +356,10 @@ class GenerationEngine:
         self.spec_k = 0
         self._cache: Tuple[torch.Tensor, ...] = ()
         self.reset()
+        _register_device_observers(self)
 
     # -- sampling plane --------------------------------------------------
+    @_locked
     def set_slot_sampling(self, slot: int, params=None) -> None:
         """Install a request's :class:`~.sampling.SamplingParams` into
         ``slot`` before its prefill (None: greedy).  Cascades to an
@@ -290,6 +383,7 @@ class GenerationEngine:
         if self.draft is not None:
             self.draft.set_slot_sampling(s, params)
 
+    @_locked
     def update_slot_bias(self, slot: int, row) -> None:
         """Replace ``slot``'s logit-bias row for the next program
         (the JSON mode's mask; cascades to an attached draft)."""
@@ -317,6 +411,19 @@ class GenerationEngine:
         each (S, Q, N); None when ``logprobs_topn`` is 0."""
         return self._last_verify_logprobs
 
+    def last_decode_health(self):
+        """Host ``(logit_max (S,), entropy (S,), finite (S,))`` of the most
+        recent decode (a burst's folded over its steps: max, mean, all)
+        when the health plane is on, else None."""
+        return self._last_decode_health
+
+    def _health(self, lg):
+        """The health plane's stats of logits ``lg`` (S, V), or three
+        Nones while the plane is off."""
+        if not self._health_on:
+            return None, None, None
+        return _health.decode_health(lg)
+
     def _sample(self, lg, key_idx, rows=None):
         """Next token for each row of ``lg`` (R, V), the rows being the
         slots ``rows`` ((R,) int64 on the device; default: all slots);
@@ -337,6 +444,7 @@ class GenerationEngine:
         return (nxt,) + topn_logprobs(lg, biases, self.logprobs_topn)
 
     # -- cache lifecycle -------------------------------------------------
+    @_locked
     def reset(self):
         """Zero the cache: all slots free.  Paged mode also rewipes the
         block pool, every block table and the prefix cache — cached K/V
@@ -369,6 +477,16 @@ class GenerationEngine:
     @property
     def cache_bytes(self) -> int:
         return sum(c.numel() * c.element_size() for c in self._cache)
+
+    # the batcher's stats speak the reference's one-shot engine too: the
+    # slot count is the batch cap, the prefill buckets the shape buckets
+    @property
+    def max_batch_size(self) -> int:
+        return self.max_slots
+
+    @property
+    def buckets(self):
+        return self.prefill_buckets
 
     def prefill_bucket_for(self, n: int) -> Optional[int]:
         for b in self.prefill_buckets:
@@ -412,7 +530,7 @@ class GenerationEngine:
             body, name = cls._verify_body, f"verify[{key[1]}]"
         else:
             raise MXNetError(f"{self.name}: no program {key!r}")
-        prog = _Program(name, spec, body, key[1:], self.device)
+        prog = _Program(kind, name, spec, body, key[1:], self.device)
         self._programs[key] = prog
         return prog
 
@@ -433,6 +551,7 @@ class GenerationEngine:
                 bias_d[s].copy_(bias_h[s], non_blocking=nb)
             self._samp_dirty.clear()
 
+    @_locked
     @torch.no_grad()
     def _run(self, key: tuple, **inputs):
         """Run program ``key`` on ``inputs`` (host arrays, already
@@ -440,7 +559,23 @@ class GenerationEngine:
         (card) or run its body (CPU, or the card under :meth:`_eager_bodies`),
         and return its outputs as host arrays (None where it computes
         nothing).  Every output is read back before any other program of
-        this engine runs, which keeps the shared graph pool safe."""
+        this engine runs (the dispatch lock), which keeps the shared graph
+        pool safe.  Outside warmup the call lands in the dispatch ledger;
+        an out-of-memory error is reported (``telemetry_device``) and
+        re-raised."""
+        t0 = time.perf_counter()
+        try:
+            outs = self._dispatch(key, inputs)
+        except Exception as e:
+            if _tdev.is_oom(e):
+                _tdev.report_oom("serving." + self.name, e, model=self.name)
+            raise
+        if not self._warming:
+            self._ledger[key[0]].record(time.perf_counter() - t0)
+        return outs
+
+    def _dispatch(self, key: tuple, inputs):
+        """:meth:`_run`'s staging, replay and read-back."""
         prog = self._program(key)
         for arg, val in inputs.items():
             prog.host_np[arg][...] = val
@@ -480,6 +615,10 @@ class GenerationEngine:
         """Warm ``prog``'s body on a side stream, then capture it into a
         CUDA graph in this engine's pool.  The launches made while
         capturing are the replay's tally, not launches."""
+        with _CAPTURE_LOCK:
+            self._capture_locked(prog)
+
+    def _capture_locked(self, prog: _Program) -> None:
         t0 = time.perf_counter()
         run = (self, prog.args) + prog.static
         collecting = gc.isenabled()
@@ -516,7 +655,9 @@ class GenerationEngine:
             if collecting:
                 gc.enable()
         prog.graph, prog.out, prog.tally = graph, out, dict(tally)
-        self._capture_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self._capture_seconds += dt
+        self._ledger[prog.kind].record_compile(dt)
 
     @contextlib.contextmanager
     def _eager_bodies(self):
@@ -625,6 +766,7 @@ class GenerationEngine:
             h[0].index_select(0, sn - 1)))
         return self._sample(last, ctx + sn, slot)
 
+    @_locked
     def prefill(self, tokens, slot: int,
                 reserve_tokens: Optional[int] = None) -> int:
         """Admit a prompt into ``slot``: pad it to its bucket, run it, and
@@ -704,8 +846,11 @@ class GenerationEngine:
         bucket = self.prefill_bucket_for(n)
         padded = _np.zeros((1, bucket), _np.int64)
         padded[0, :n] = toks
-        return self._prefill_first(self._run(
-            ("prefill", bucket), tokens=padded, n=n, slot=slot))
+        with _telemetry.trace_span("serve.prefill", cat="serving",
+                                   model=self.name, slot=slot, tokens=n,
+                                   bucket=bucket):
+            return self._prefill_first(self._run(
+                ("prefill", bucket), tokens=padded, n=n, slot=slot))
 
     def _prefill_hit(self, suffix, ctx: int, slot: int) -> int:
         """Prefix-cache hit: the suffix's bucket program at context
@@ -714,8 +859,13 @@ class GenerationEngine:
         Tb = self.prefill_bucket_for(sn)
         padded = _np.zeros((1, Tb), _np.int64)
         padded[0, :sn] = suffix
-        return self._prefill_first(self._run(
-            ("prefill_hit", Tb), tokens=padded, n=sn, slot=slot, ctx=ctx))
+        with _telemetry.trace_span("serve.prefill", cat="serving",
+                                   model=self.name, slot=slot,
+                                   tokens=ctx + sn, bucket=Tb,
+                                   prefix_hit_tokens=ctx):
+            return self._prefill_first(self._run(
+                ("prefill_hit", Tb), tokens=padded, n=sn, slot=slot,
+                ctx=ctx))
 
     # -- decode ----------------------------------------------------------
     def _layers(self, lt, emb_pos, write, attend):
@@ -798,8 +948,9 @@ class GenerationEngine:
             blk, off = self._block_of(pos), pos % self.block_size
         lg = self._step_logits(lt, pos, blk, off)
         # keyed at pos + 1, the position the token will occupy
-        return self._sample(lg, pos + 1)
+        return self._sample(lg, pos + 1) + self._health(lg)
 
+    @_locked
     def decode(self, last_tokens, positions):
         """Advance EVERY slot one position: ``last_tokens`` (S,) (free
         slots: 0) at write heads ``positions`` (S,) (free slots: 0).
@@ -807,8 +958,11 @@ class GenerationEngine:
         lt = _np.asarray(last_tokens, _np.int64).reshape(self.max_slots)
         self._check_tokens(lt)
         pos = self._host_positions(positions)
-        nxt, lpv, lpi = self._run(("decode",), tokens=lt, positions=pos)
+        nxt, lpv, lpi, *health = self._run(("decode",), tokens=lt,
+                                           positions=pos)
         self._last_logprobs = None if lpv is None else (lpv, lpi)
+        self._last_decode_health = None if health[0] is None \
+            else tuple(health)
         return nxt.astype(_np.int32)
 
     def _burst_body(self, a, k: int):
@@ -816,7 +970,7 @@ class GenerationEngine:
         bud, eos = a["budgets"], a["eos"]
         done = a["active"] == 0
         emitted = torch.zeros_like(pos)
-        toks, vals, ids = [], [], []
+        toks, vals, ids, hs = [], [], [], []
         for _ in range(k):
             blk = off = None
             if self.paged:
@@ -834,11 +988,19 @@ class GenerationEngine:
             toks.append(nxt)
             vals.append(lpv)
             ids.append(lpi)
-        if not self.logprobs_topn:
-            return torch.stack(toks), emitted, None, None
-        return torch.stack(toks), emitted, torch.stack(vals), \
-            torch.stack(ids)
+            hs.append(self._health(lg))
+        out = (torch.stack(toks), emitted)
+        out += (None, None) if not self.logprobs_topn \
+            else (torch.stack(vals), torch.stack(ids))
+        if not self._health_on:
+            return out + (None, None, None)
+        # a frozen slot's later steps repeat its last live step's logits:
+        # max and all are exact over the live steps, the mean leans
+        # toward the frozen value (the JAX engine's fold)
+        hmax, hent, hfin = (torch.stack(h) for h in zip(*hs))
+        return out + (hmax.amax(0), hent.mean(0), hfin.all(0))
 
+    @_locked
     def decode_burst(self, last_tokens, positions, budgets, eos_ids,
                      active):
         """Advance every slot up to ``scan_steps`` positions with the
@@ -868,10 +1030,12 @@ class GenerationEngine:
                 f"{bud_h.tolist()})")
         lt = _np.asarray(last_tokens, _np.int64).reshape(S)
         self._check_tokens(lt)
-        toks, emitted, lpv, lpi = self._run(
+        toks, emitted, lpv, lpi, *health = self._run(
             ("decode_burst", k), tokens=lt, positions=pos_h, budgets=bud_h,
             eos=_np.asarray(eos_ids, _np.int64).reshape(S), active=act_h)
         self._last_logprobs = None if lpv is None else (lpv, lpi)
+        self._last_decode_health = None if health[0] is None \
+            else tuple(health)
         return toks.astype(_np.int32), emitted.astype(_np.int32)
 
     # -- speculative decoding --------------------------------------------
@@ -970,6 +1134,7 @@ class GenerationEngine:
         return (nxt.reshape(S, Q), lpv.reshape(S, Q, -1),
                 lpi.reshape(S, Q, -1))
 
+    @_locked
     def verify(self, tokens, positions):
         """Score Q positions for EVERY slot at once: ``tokens`` (S, Q) —
         column 0 each slot's last accepted token, columns 1..Q-1 the
@@ -993,6 +1158,7 @@ class GenerationEngine:
         self._last_verify_logprobs = None if lpv is None else (lpv, lpi)
         return out.astype(_np.int32)
 
+    @_locked
     def spec_step(self, last_tokens, positions):
         """One speculative step for EVERY slot: the draft proposes
         ``spec_k`` tokens per slot (one burst, or ``spec_k`` decodes when
@@ -1074,6 +1240,7 @@ class GenerationEngine:
                     eng._set_table(s, new)
 
     # -- paged-pool bookkeeping (no-ops in dense mode) --------------------
+    @_locked
     def release_slot(self, slot: int) -> None:
         """Return ``slot``'s blocks to the pool (decref: shared prefix
         blocks stay live for their other readers and the prefix cache).
@@ -1160,9 +1327,10 @@ class GenerationEngine:
     def compiled_programs(self) -> int:
         """Programs of this engine ready to run: captured graphs on the
         card, bound bodies on the CPU."""
+        progs = list(self._programs.values())
         if self.device.type == "cuda":
-            return sum(p.graph is not None for p in self._programs.values())
-        return len(self._programs)
+            return sum(p.graph is not None for p in progs)
+        return len(progs)
 
     @property
     def warm(self) -> bool:
@@ -1184,7 +1352,7 @@ class GenerationEngine:
             "spec_k": self.spec_k if self.draft is not None else 0,
             "programs": {p.name: {"dispatches": p.replays,
                                   "captured": p.graph is not None}
-                         for p in self._programs.values()},
+                         for p in list(self._programs.values())},
             "slots": self.slot_occupancy(),
         }
         if self.draft is not None:
@@ -1201,6 +1369,7 @@ class GenerationEngine:
                 "capture_seconds": self._capture_seconds,
                 "pool_bytes": self._pool_bytes}
 
+    @_locked
     def warmup(self) -> int:
         """Bind the whole closed program set — every prefill bucket (miss
         and, with the prefix cache, the suffix variant, whose writes land
@@ -1248,6 +1417,7 @@ class GenerationEngine:
         self._warmup_done = True
         return self.expected_programs
 
+    @_locked
     def generate(self, tokens, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None,
                  speculative: Optional[bool] = None, sampling=None):

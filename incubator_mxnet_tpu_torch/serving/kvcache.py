@@ -1,6 +1,5 @@
 """Paged KV-cache block pool with prefix sharing (a copy of
-``incubator_mxnet_tpu/serving/kvcache.py``; the telemetry gauges are
-replaced by the plain counters that :meth:`BlockPool.stats` reports).
+``incubator_mxnet_tpu/serving/kvcache.py``, its gauges included).
 
 The :class:`BlockPool` is the host-side allocator behind the paged
 ``GenerationEngine``: device KV storage is carved into fixed-size blocks
@@ -44,7 +43,7 @@ prefill rows use.
 Eviction: a cached block whose refcount drops to 0 is *not* returned to
 the free list — it stays in the prefix cache, instantly reusable by the
 next request with the same prefix, and is only reclaimed (LRU) when the
-free list runs dry. ``BlockPool.evictions`` counts reclaims.
+free list runs dry. ``mxtpu_prefix_cache_evictions`` counts reclaims.
 
 All methods take an internal lock; the pool is shared between the
 batcher worker thread and HTTP admission checks.
@@ -57,6 +56,7 @@ from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
+from . import metrics as _m
 
 __all__ = ["BlockPool", "blocks_for", "NULL_BLOCK"]
 
@@ -88,7 +88,8 @@ class BlockPool:
         self.prefix_cache = bool(prefix_cache)
         self._model = model
         # device bytes behind one block (set by the owning engine once
-        # its cache tensors exist)
+        # its cache arrays exist) — lets stats() speak bytes, the unit
+        # the device-memory plane attributes in (telemetry_device)
         self.block_bytes = 0
         self._lock = threading.RLock()
         self.hits = 0            # blocks reused from the prefix cache
@@ -108,6 +109,7 @@ class BlockPool:
             self._by_hash: Dict[bytes, int] = {}
             # cached blocks with refcount 0, in LRU order (oldest first)
             self._idle: "OrderedDict[int, None]" = OrderedDict()
+            self._update_gauges()
 
     @property
     def free_blocks(self) -> int:
@@ -130,6 +132,12 @@ class BlockPool:
     def refcount(self, block: int) -> int:
         with self._lock:
             return self._ref[block]
+
+    def _update_gauges(self) -> None:
+        _m.KV_BLOCKS_TOTAL.set(self.num_blocks - 1, model=self._model)
+        _m.KV_BLOCKS_IN_USE.set(
+            (self.num_blocks - 1) - len(self._free) - len(self._idle),
+            model=self._model)
 
     # -- prefix hashing ---------------------------------------------------
     def chain_hashes(self, tokens: Sequence[int], limit: int) -> List[bytes]:
@@ -242,6 +250,8 @@ class BlockPool:
                         self._hash[table[i]] = hashes[i]
             if shared:
                 self.hits += len(shared)
+                _m.PREFIX_CACHE_HITS.inc(len(shared), model=self._model)
+            self._update_gauges()
             return table, len(shared) * self.block_size
 
     def release(self, table: Sequence[int]) -> None:
@@ -261,6 +271,7 @@ class BlockPool:
                         self._idle.move_to_end(b)
                     else:
                         self._free.append(b)
+            self._update_gauges()
 
     def invalidate(self, blocks: Sequence[int]) -> None:
         """Unregister ``blocks`` from the prefix cache without touching
@@ -295,6 +306,7 @@ class BlockPool:
             new = self._pop_free()
             self._ref[new] = 1
             self.cow_copies += 1
+            self._update_gauges()
             return new
 
     def rewind(self, table: Sequence[int], keep_tokens: int) -> List[int]:
@@ -337,6 +349,7 @@ class BlockPool:
                 touched = True
             if touched:
                 self.rewinds += 1
+                self._update_gauges()
             return out
 
     # -- internals --------------------------------------------------------
@@ -352,6 +365,7 @@ class BlockPool:
             b, _ = self._idle.popitem(last=False)  # LRU: oldest idle first
             self._evict_hash(b)
             self.evictions += 1
+            _m.PREFIX_CACHE_EVICTIONS.inc(model=self._model)
             return b
         raise MXNetError("kv pool exhausted")
 

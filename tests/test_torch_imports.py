@@ -53,7 +53,10 @@ def probe():
 def test_port_imports_neither_jax_nor_the_jax_package(probe):
     for mod in ("serving.engine", "kernels.flash_attention", "models.bert",
                 "gluon.loss", "optimizer.cores", "parallel.optim",
-                "parallel.mesh", "parallel.spmd"):
+                "parallel.mesh", "parallel.spmd", "telemetry",
+                "telemetry_ring", "telemetry_device", "telemetry_http",
+                "http_util", "fault", "health", "_cli", "serving.server",
+                "serving.lifecycle", "serving.slo", "serving.metrics"):
         assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
