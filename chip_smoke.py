@@ -37,7 +37,12 @@ Phases, each of which raises (exit code 1) on any failure:
    per call, host work included, is printed beside it; the plain versions
    are timed eagerly. Also print the kernel names the profiler gives
    SDPA's forward and the library backward, and K2's and K4/K5's split
-   counts and scratch bytes;
+   counts and scratch bytes.  K8 multi_tensor_adam (the whole-tree Adam
+   update) must equal its plain version (the per-leaf loop) bit for bit
+   over BERT-large's 399 leaf shapes, with every gradient stage off and
+   on; it is timed against its bound (28 bytes per parameter) and
+   against ``torch.optim.Adam(fused=True, capturable=True)`` over the
+   same leaves;
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -97,10 +102,16 @@ Phases, each of which raises (exit code 1) on any failure:
    random ``Normal(0.02)`` weights from the seed, ``BERTForPretrain`` +
    ``BERTPretrainLoss`` + Adam (lr 1e-4) through ``SPMDTrainer`` on a
    ``{"data": 1}`` mesh, fp32, on one fixed batch (B = 32, T = 128) drawn
-   as ``bench.py`` draws it: 2 warm-up steps, then 5 timed steps in their
-   own launch-count window, which must launch K1, K6 and K7 exactly 24
-   times per step and no serving kernel; every loss finite and the loss
-   after the steps below the first.  Then one full-width
+   as ``bench.py`` draws it.  The step is one CUDA graph: 3 steps through
+   it (the first eager on a side stream, then captured, then replays)
+   must equal 3 steps of a second trainer over a copy of the same
+   weights that runs the step body eagerly, bit for bit in every loss
+   and parameter.  Then 5 timed graph steps in their own launch-count
+   window, which must launch K1, K6 and K7 exactly 24 times per step, K8
+   once per step and no serving kernel, and one profiled step (host
+   launches at most 8: the batch copies, the graph launch, the loss
+   copy; idle share); every loss finite and the loss after the steps
+   below the first.  Then one full-width
    ``TransformerEncoderCell`` (B = 32, T = 128, ragged valid lengths)
    must give the same input and parameter gradients through the kernels
    as through the plain attention on the card, within ``CELL_TOL`` of
@@ -109,6 +120,7 @@ Phases, each of which raises (exit code 1) on any failure:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
 import argparse
+import copy
 import faulthandler
 import importlib
 import json
@@ -135,7 +147,7 @@ LOGPROB_TOL = 1e-3      # served logprobs vs the full-prefix forward: K1/K2
                         # against cuBLAS attention, in fp32
 GRAPH_STEPS = 16        # scripted steps of the graph-against-eager check
 TRAIN_B, TRAIN_T = 32, 128
-TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_CHECK, TRAIN_STEPS = 3, 5   # graph-vs-eager steps, timed steps
 BERT_HEADS, BERT_LAYERS, BERT_VOCAB = 16, 24, 30522
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) peak and
 # the dense TF32 tensor-core peak
@@ -683,6 +695,88 @@ def check_k6_k7(fa, dev, rng):
          "replaces": TPU_KERNELS + "227", "max_abs_err": e7, "ms": k7,
          "plain_ms": plain, "bound_ms": bnd7, "bound_by": by7,
          "library_ms": lib_bwd, "eager_ms": k7_eager, "shape": shape}]
+
+
+def bert_large_shapes():
+    """The 399 leaf shapes of BERT-large with the pretraining heads."""
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    net = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
+                                   vocab_size=BERT_VOCAB)
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def check_k8(fa, dev):
+    """K8 multi_tensor_adam against its plain version (the per-leaf
+    ``cores.prep_grad`` + ``cores.adam`` loop) over BERT-large's 399 leaf
+    shapes, bit for bit, with every gradient stage off (the training
+    path's) and on; then its time on the card against the bound (28 bytes
+    per parameter) and against ``torch.optim.Adam(fused=True)`` over the
+    same leaves (a yardstick only: its bias correction and wd differ)."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    from incubator_mxnet_tpu_torch.parallel import optim as fopt
+    shapes = bert_large_shapes()
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def leaves(scale):
+        return [torch.randn(s, device=dev, generator=gen) * scale
+                for s in shapes]
+
+    w, g, m = leaves(0.02), leaves(1e-3), leaves(1e-4)
+    v = [x * x for x in leaves(1e-3)]
+    lr_t = fopt.bias_corrected_lr(1e-4, 0.9, 0.999, torch.tensor(
+        3, dtype=torch.int32, device=dev))
+    err = 0.0
+    for stages in ((1.0, None, 0.0), (0.25, 0.004, 0.02)):
+        got = [[x.clone() for x in xs] for xs in (w, m, v)]
+        want = [[x.clone() for x in xs] for xs in (w, m, v)]
+        fused.adam_update(got[0], g, got[1], got[2], lr_t, 0.9, 0.999, 1e-8,
+                          *stages)
+        fused._plain_adam_update(want[0], g, want[1], want[2], lr_t, 0.9,
+                                 0.999, 1e-8, *stages)
+        torch.cuda.synchronize()
+        for what, a, b in zip("wmv", got, want):
+            for i, (x, y) in enumerate(zip(a, b)):
+                err = max(err, max_err(x, y))
+                check(torch.equal(x, y), f"K8 {what} of leaf {i} "
+                      f"{tuple(x.shape)} differs from the plain version "
+                      f"(stages {stages})")
+        del got, want
+    print(f"K8 multi_tensor_adam over {len(shapes)} leaves ({n} "
+          f"parameters): bit for bit the plain version, stages off and on "
+          f"(max_abs_err {err})", flush=True)
+
+    def k8():
+        fused.adam_update(w, g, m, v, lr_t, 0.9, 0.999, 1e-8)
+
+    k8_ms, k8_eager = device_ms(k8, [()], 20), time_ms(k8, [()], 20)
+    plain = time_ms(lambda: fused._plain_adam_update(
+        w, g, m, v, lr_t, 0.9, 0.999, 1e-8, 1.0, None, 0.0), [()], 3)
+    ps = [torch.nn.Parameter(x.clone()) for x in w]
+    for p, x in zip(ps, g):
+        p.grad = x
+    lib = torch.optim.Adam(ps, lr=1e-4, fused=True, capturable=True)
+    lib_ms = device_ms(lib.step, [()], 20)
+    del ps, lib
+    torch.cuda.empty_cache()
+    bnd, by = bound_ms(28 * n, 12 * n)
+    print(f"time: K8 multi_tensor_adam, {len(shapes)} leaves, {n} "
+          f"parameters: {k8_ms:.4f} ms on the card ({k8_eager:.4f} ms per "
+          f"eager call), bound {bnd:.4f} ms by {by} (28 bytes per "
+          f"parameter at 3.35 TB/s), plain {plain:.4f} ms, "
+          f"torch.optim.Adam(fused=True, capturable=True) {lib_ms:.4f} ms "
+          f"[{CARD}]", flush=True)
+    return {"name": "multi_tensor_adam",
+            "source": SOURCES + "multi_tensor_adam.cu",
+            "replaces": "incubator_mxnet_tpu/parallel/optim.py:124",
+            "max_abs_err": err, "ms": k8_ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "eager_ms": k8_eager,
+            "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
+                     "parameters"}
 
 
 # ------------------------------------------------------------ phase 4
@@ -1776,10 +1870,12 @@ def bert_batch(V, B, T, seed=SEED):
     return ids, types, labels
 
 
-def drive_training(fa, card):
-    """BERT-large pretraining steps through ``SPMDTrainer``: 2 warm-up
-    steps, then ``TRAIN_STEPS`` timed steps in their own launch-count
-    window.  Returns the window's counts."""
+def drive_training(fa, card, k8_row):
+    """BERT-large pretraining steps through ``SPMDTrainer``: 3 steps
+    through the eager step body and 3 through the CUDA graph from the
+    same seed-0 weights, held equal bit for bit; then ``TRAIN_STEPS``
+    timed graph steps in their own launch-count window, and one profiled
+    step (host launches, idle share).  Returns the window's counts."""
     from incubator_mxnet_tpu_torch import initializer as init
     from incubator_mxnet_tpu_torch.models import bert as bert_mod
     from incubator_mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
@@ -1788,30 +1884,68 @@ def drive_training(fa, card):
     net = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
                                    vocab_size=V)
     net.initialize(init.Normal(0.02), seed=SEED)
-    trainer = SPMDTrainer(net, bert_mod.BERTPretrainLoss(V), "adam",
-                          {"learning_rate": 1e-4},
-                          mesh=make_mesh({"data": 1}))
+    ref_net = copy.deepcopy(net)
+
+    def trainer_of(n):
+        return SPMDTrainer(n, bert_mod.BERTPretrainLoss(V), "adam",
+                           {"learning_rate": 1e-4},
+                           mesh=make_mesh({"data": 1}))
+
+    ref = trainer_of(ref_net)
+    trainer = trainer_of(net)
     n_params = sum(p.numel() for p in net.parameters())
     torch.cuda.synchronize()
     print(f"train: bert_large + pretrain heads on {net.device}, "
-          f"{n_params} parameters, Normal(0.02) seed {SEED}, built in "
+          f"{n_params} parameters in {len(trainer.params)} leaves, "
+          f"Normal(0.02) seed {SEED}, built in "
           f"{time.perf_counter() - t0:.1f} s; B={B} T={T} fp32, Adam lr "
           f"1e-4, mesh {trainer.mesh}", flush=True)
     ids, types, labels = bert_batch(V, B, T)
-    losses = [trainer.step(ids, types, labels) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    batch = (ids, types, labels)
+
+    # the eager step body against the graph, from the same weights
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    with ref._eager_steps():
+        eager = [ref.step(*batch)]
+        start.record()
+        eager += [ref.step(*batch) for _ in range(TRAIN_CHECK - 1)]
+        end.record()
+    end.synchronize()
+    eager_ms = start.elapsed_time(end) / (TRAIN_CHECK - 1)
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses += [trainer.step(*batch) for _ in range(TRAIN_CHECK - 1)]
+    torch.cuda.synchronize()
+    check([float(x) for x in losses] == [float(x) for x in eager],
+          f"graph losses {[float(x) for x in losses]} != eager "
+          f"{[float(x) for x in eager]}")
+    for (name, a), b in zip(ref.params.items(), trainer.params.values()):
+        check(torch.equal(a, b), f"graph step: parameter {name} differs "
+              f"from the eager body's after {TRAIN_CHECK} steps")
+    print(f"train: {TRAIN_CHECK} steps through the graph equal "
+          f"{TRAIN_CHECK} through the eager body bit for bit (losses and "
+          f"all {len(trainer.params)} parameters); first step (eager, on a "
+          f"side stream) + capture {first_s:.2f} s, graph pool "
+          f"{trainer.graph_pool_bytes() / 2 ** 20:.1f} MiB; eager body "
+          f"{eager_ms:.2f} ms per step [{card}]", flush=True)
+    del ref, ref_net, eager
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()                 # --- the training path
     start.record()
     for _ in range(TRAIN_STEPS):
-        losses.append(trainer.step(ids, types, labels))
+        losses.append(trainer.step(*batch))
     end.record()
     end.synchronize()
     counts = dict(fa.launch_counts)          # --- end of the training path
     ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    prof, _ = profile_window(lambda: None, lambda: trainer.step(*batch))
     with torch.no_grad():
         dev = net.device
         after = float(bert_mod.BERTPretrainLoss(V)(
@@ -1820,21 +1954,35 @@ def drive_training(fa, card):
             torch.from_numpy(labels).to(dev)))
     losses = [float(x) for x in losses]
     print(f"train: losses {[round(x, 5) for x in losses]}; after the "
-          f"{len(losses)} steps {after:.5f}", flush=True)
+          f"{len(losses) + 4} steps {after:.5f}", flush=True)
     print(f"train: {ms:.2f} ms per step, {B * 1e3 / ms:.2f} samples/s over "
-          f"{TRAIN_STEPS} steps (B={B} T={T}, CUDA events), peak "
-          f"{peak:.2f} GiB allocated [{card}]", flush=True)
+          f"{TRAIN_STEPS} graph steps (B={B} T={T}, CUDA events); "
+          f"one profiled step: wall {prof['wall_ms']:.2f} ms (median of "
+          f"3), device {prof['device_ms']:.2f} ms in "
+          f"{prof['device_ops']} kernels and copies, "
+          f"{prof['host_launches']} host launches, idle share "
+          f"{prof['idle_share']:.3f}; peak {peak:.2f} GiB allocated, "
+          f"{reserved:.2f} GiB reserved, graph pool "
+          f"{trainer.graph_pool_bytes() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    print(f"train: K8 multi_tensor_adam {k8_row['ms']:.4f} ms per update "
+          f"against its bound {k8_row['bound_ms']:.4f} ms and "
+          f"torch.optim.Adam(fused=True)'s {k8_row['library_ms']:.4f} ms; "
+          f"the per-leaf plain update {k8_row['plain_ms']:.4f} ms [{card}]",
+          flush=True)
     print(f"train: launches in the {TRAIN_STEPS}-step window {counts}",
           flush=True)
     check(all(math.isfinite(x) for x in losses + [after]),
           "a non-finite loss")
     check(after < losses[0], f"loss did not fall: {losses[0]} -> {after}")
-    want = BERT_LAYERS * TRAIN_STEPS
+    per_step = {"flash_fwd": BERT_LAYERS, "flash_bwd_dq": BERT_LAYERS,
+                "flash_bwd_dkv": BERT_LAYERS, "multi_tensor_adam": 1}
     for name, n in counts.items():
-        expect = want if name in ("flash_fwd", "flash_bwd_dq",
-                                  "flash_bwd_dkv") else 0
+        expect = per_step.get(name, 0) * TRAIN_STEPS
         check(n == expect, f"training path: kernel {name} launched {n} "
               f"times, expected {expect}")
+    check(prof["host_launches"] <= 8, f"a graph step made "
+          f"{prof['host_launches']} host launches")
     del trainer, net
     torch.cuda.empty_cache()
     return counts
@@ -1950,6 +2098,8 @@ def main():
     e_lse, bwd_rows = check_k6_k7(fa, dev, rng)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e_lse)
     rows += bwd_rows
+    k8_row = check_k8(fa, dev)
+    rows.append(k8_row)
     for r in rows:
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms on the "
               f"card ({r['eager_ms']:.4f} ms per eager call, host "
@@ -1959,7 +2109,7 @@ def main():
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
     # main path, K3 on the dense engine's run, K4 on the paged spec path,
-    # K5 on the dense spec run, K6 and K7 on the training path
+    # K5 on the dense spec run, K6, K7 and K8 on the training path
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
         counts, dense_counts, net, eng, prompts, budgets, plain = \
@@ -1969,7 +2119,7 @@ def main():
         torch.cuda.empty_cache()
         windows_in_child()
         serve_in_child(prompts, budgets, plain)
-        train = drive_training(fa, card)
+        train = drive_training(fa, card, k8_row)
         check_cell_grads(fa, dev)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
@@ -1977,7 +2127,8 @@ def main():
                     "paged_verify": spec["paged_verify"],
                     "verify": dense_spec["verify"],
                     "flash_bwd_dq": train["flash_bwd_dq"],
-                    "flash_bwd_dkv": train["flash_bwd_dkv"]}
+                    "flash_bwd_dkv": train["flash_bwd_dkv"],
+                    "multi_tensor_adam": train["multi_tensor_adam"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -124,8 +124,41 @@ class LayerNorm(Block):
                             self._eps)
 
 
+# a table of at most this many rows takes its gradient as one GEMM over
+# a one-hot matrix (the token types: 2 rows)
+_ONE_HOT_ROWS = 64
+
+
+class _SortedEmbedding(torch.autograd.Function):
+    """``weight[ids]`` whose gradient sums the rows of a repeated id in a
+    fixed order: one GEMM over a one-hot matrix for a small table, else
+    ``index_put_`` with ``accumulate``, which sorts the ids on the card.
+    ``F.embedding``'s CUDA backward sums a long run of one id (the token
+    types: every id 0) in an order that changes from call to call, which
+    no bit-for-bit check of a train step survives."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        flat, g = ids.reshape(-1), grad.reshape(-1, grad.shape[-1])
+        if ctx.rows <= _ONE_HOT_ROWS:
+            rows = torch.arange(ctx.rows, device=ids.device)
+            return None, (flat[:, None] == rows).to(g.dtype).t() @ g
+        gw = grad.new_zeros(ctx.rows, g.shape[1])
+        gw.index_put_((flat.long(),), g, accumulate=True)
+        return None, gw
+
+
 class Embedding(Block):
-    """Row lookup into ``weight`` (input_dim, output_dim)."""
+    """Row lookup into ``weight`` (input_dim, output_dim).  On the card
+    its gradient is deterministic (:class:`_SortedEmbedding`); on the CPU
+    it is ``F.embedding``'s, which is."""
 
     _alias = "embedding"
 
@@ -135,6 +168,8 @@ class Embedding(Block):
             torch.zeros(input_dim, output_dim, device=device))
 
     def forward(self, ids):
+        if self.weight.is_cuda:
+            return _SortedEmbedding.apply(ids, self.weight)
         return F.embedding(ids, self.weight)
 
 

@@ -36,7 +36,8 @@ KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_verify": "paged_verify.cu",
            "verify": "verify.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
-           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+           "flash_bwd_dkv": "flash_bwd_dkv.cu",
+           "multi_tensor_adam": "multi_tensor_adam.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel's C entry point ``mx_<name>``: its arguments in order, the
 # last being the stream
@@ -52,6 +53,8 @@ ARGTYPES = {
                      _P],
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P],
+    "multi_tensor_adam": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I,
+                          _P],
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -70,9 +70,13 @@ launch_counts = {name: 0 for name in _build.KERNELS}
 
 # the counters are shared by every thread (a server replays several
 # engines' graphs on several threads); a capture's launches go to the
-# capturing thread's own tally instead
+# capture's own tally instead: the capturing thread's, and, for a captured
+# backward, the autograd engine's device thread whose current stream is
+# the capturing one (captures are serialised process-wide, so at most one
+# tally is open)
 _counts_lock = threading.Lock()
 _capturing = threading.local()
+_open_tally = None
 
 
 def reset_launch_counts() -> None:
@@ -83,6 +87,9 @@ def reset_launch_counts() -> None:
 
 def _count(name: str) -> None:
     tally = getattr(_capturing, "tally", None)
+    if tally is None and _open_tally is not None \
+            and torch.cuda.is_current_stream_capturing():
+        tally = _open_tally
     if tally is not None:
         tally[name] = tally.get(name, 0) + 1
         return
@@ -94,16 +101,18 @@ def _count(name: str) -> None:
 def captured_launches():
     """For a block that captures kernel calls into a CUDA graph: yields a
     dict that, at the block's end, holds the launches each kernel wrapper
-    made inside it on this thread, none of which reach ``launch_counts``
-    (a captured call runs nothing).  Pass the dict to
-    :func:`add_launches` at each replay of the graph."""
-    prev = getattr(_capturing, "tally", None)
+    made inside it (on this thread, or on another thread whose current
+    stream is capturing), none of which reach ``launch_counts`` (a
+    captured call runs nothing).  Pass the dict to :func:`add_launches`
+    at each replay of the graph."""
+    global _open_tally
+    prev, prev_open = getattr(_capturing, "tally", None), _open_tally
     tally: dict = {}
-    _capturing.tally = tally
+    _capturing.tally = _open_tally = tally
     try:
         yield tally
     finally:
-        _capturing.tally = prev
+        _capturing.tally, _open_tally = prev, prev_open
 
 
 def add_launches(tally) -> None:

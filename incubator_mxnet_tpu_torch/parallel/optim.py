@@ -1,7 +1,8 @@
 """Functional optimizers for the train step (counterpart of
 ``incubator_mxnet_tpu/parallel/optim.py``).  ``init(params)`` builds the
 state; ``update(params, grads, state, step)`` applies one step in place,
-``step`` 1-based.  Only Adam is ported; :func:`create` refuses the other
+``step`` 1-based, a 0-d int32 tensor on the device (the JAX update's
+traced step).  Only Adam is ported; :func:`create` refuses the other
 rules."""
 from __future__ import annotations
 
@@ -10,9 +11,9 @@ from typing import Any, NamedTuple
 import torch
 
 from ..base import MXNetError
-from ..optimizer import cores
+from ..optimizer import fused
 
-__all__ = ["FunctionalOptimizer", "adam", "create"]
+__all__ = ["FunctionalOptimizer", "adam", "bias_corrected_lr", "create"]
 
 
 class FunctionalOptimizer(NamedTuple):
@@ -22,31 +23,42 @@ class FunctionalOptimizer(NamedTuple):
     elementwise: bool = True
 
 
-def _prep(g, w, rescale_grad, clip_gradient, wd):
-    """rescale -> clip -> fold wd, each stage decided statically."""
-    return cores.prep_grad(
-        g, rescale_grad if float(rescale_grad) != 1.0 else None,
-        clip_gradient if clip_gradient else None, wd if wd else None, w)
+def bias_corrected_lr(learning_rate, beta1, beta2, step,
+                      lr_schedule=None) -> torch.Tensor:
+    """Adam's lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t) at the 0-d
+    int32 ``step`` tensor, as a 0-d fp32 tensor on its device: computed
+    in fp32 on the device, as the JAX update computes it from the traced
+    step, so a CUDA graph replays it with each step's value.  ``lr`` is
+    ``lr_schedule(step)`` when a schedule is given."""
+    lr = lr_schedule(step) if lr_schedule is not None else learning_rate
+    t = step.to(torch.float32)
+    coef = torch.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
+    return lr * coef
 
 
 def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
-         rescale_grad=1.0, clip_gradient=None):
+         lr_schedule=None, rescale_grad=1.0, clip_gradient=None):
     """Adam as the JAX package's: wd folds into the gradient before the
-    moments, and the bias correction folds into lr, both computed in fp32
-    as the compiled step computes them.  ``lr_schedule`` is not ported."""
+    moments, and the bias correction folds into lr, computed in fp32 on
+    the device from the step tensor.  ``lr_schedule``, when given, is a
+    callable of the 0-d int32 step tensor that returns the learning rate
+    as a 0-d fp32 tensor on its device (JAX's is a callable of the traced
+    step).  The update is :func:`..optimizer.fused.adam_update`: one
+    launch of kernel K8 over every leaf on the card, the per-leaf loop on
+    the CPU."""
 
     def init(params):
         return {"m": [torch.zeros_like(p) for p in params],
                 "v": [torch.zeros_like(p) for p in params]}
 
     def update(params, grads, state, step):
-        t = torch.tensor(float(step), dtype=torch.float32)
-        coef = torch.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
-        lr_t = float(torch.tensor(learning_rate, dtype=torch.float32) * coef)
-        with torch.no_grad():
-            for w, g, m, v in zip(params, grads, state["m"], state["v"]):
-                cores.adam(w, _prep(g, w, rescale_grad, clip_gradient, wd),
-                           m, v, lr_t, beta1, beta2, epsilon)
+        """One step in place; ``step`` the 1-based step count, a 0-d
+        int32 tensor on the parameters' device."""
+        lr_t = bias_corrected_lr(learning_rate, beta1, beta2, step,
+                                 lr_schedule)
+        fused.adam_update(params, grads, state["m"], state["v"], lr_t,
+                          beta1, beta2, epsilon, rescale_grad,
+                          clip_gradient, wd)
         return params, state
     return FunctionalOptimizer(init, update)
 

@@ -1,23 +1,48 @@
 """The train step on one device (counterpart of
 ``incubator_mxnet_tpu/parallel/spmd.py``'s ``SPMDTrainer``, to the
-semantics of its ``_make_loss_of``, ``_build_step`` and ``_step_impl``).
+semantics of its ``_make_loss_of``, ``_make_grad_fn``, ``_build_step``,
+``_step_impl`` and ``_build_key``).
 
 One :meth:`SPMDTrainer.step` is the forward of the net over the batch, the
 loss block over every output of the net and the label, the mean of that
 loss, the backward and the functional optimizer's update of every
-trainable parameter, in place.  It returns the loss as a 0-d tensor on the
-device without waiting for it.  The step count is 1-based.  Pipelining,
-ZeRO-1, gradient accumulation, sharding rules and the health plane are
-not ported: asking for any of them raises :class:`MXNetError`."""
+trainable parameter, in place.  With ``accum_steps = k > 1`` the batch is
+split into k interleaved microbatches (JAX's ``reshape(B // k, k, ...)``
+and leading-axis swap); their gradients are summed, then divided by k,
+and the loss is the mean of the k losses.  The step returns the loss as a
+0-d tensor on the device without waiting for it.  The step count is
+1-based and also lives on the device, where the update reads it.
+
+On the card the JAX step's one program is one CUDA graph per batch key
+(the shapes and dtypes of the batch arrays): the step counter, every
+microbatch's forward and backward and the whole-tree update (one launch
+of kernel K8).  A key's first step runs eagerly on a side stream (the
+real step, and the warm-up the capture needs); the graph is captured
+right after it, which runs nothing, and every later step of the key
+refills the key's static input buffers in place (from pinned host memory)
+and replays the graph.  A failed capture raises :class:`MXNetError`
+naming the key; there is no eager path on the card after a key's first
+step.  All of a trainer's graphs share one memory pool.  The CPU runs the
+same body uncaptured.
+
+Pipelining, ZeRO-1, sharding rules and the health plane are not ported:
+asking for any of them raises :class:`MXNetError`."""
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import time
+import weakref
+from typing import Dict, List, Tuple
 
 import numpy as _np
 import torch
 
+from .. import cuda_graphs as _graphs
+from .. import telemetry as _telemetry
+from .. import telemetry_device as _tdev
 from ..base import MXNetError, getenv_bool
 from ..gluon.nn import mx_named_parameters
+from ..kernels.flash_attention import add_launches
 from . import optim as fopt
 
 __all__ = ["SPMDTrainer"]
@@ -25,12 +50,59 @@ __all__ = ["SPMDTrainer"]
 
 def _not_ported(what):
     raise MXNetError(f"SPMDTrainer: {what} is not ported yet (one device, "
-                     "no sharding, one batch per step)")
+                     "no sharding)")
+
+
+def microbatches(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a`` (B, ...) as k interleaved microbatches (k, B // k, ...):
+    microbatch i holds rows i, i + k, i + 2k, ... (JAX ``mb_split``:
+    ``reshape(B // k, k, ...).swapaxes(0, 1)``)."""
+    return a.reshape(a.shape[0] // k, k, *a.shape[1:]).transpose(
+        0, 1).contiguous()
+
+
+def _as_tensor(arr) -> torch.Tensor:
+    """A batch array (numpy or tensor) as a tensor, without a copy where
+    it can be avoided."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(_np.ascontiguousarray(arr))
+
+
+class _StepProgram:
+    """One batch key's step on the card: its static input buffers (filled
+    in place each step from pinned host buffers), the event after their
+    last refill, and once captured the graph, its loss output and the
+    kernel launches it holds."""
+
+    def __init__(self, key, device):
+        self.key = key
+        self.inputs = [torch.empty(shape, dtype=dtype, device=device)
+                       for shape, dtype in key]
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=True)
+                     for shape, dtype in key]
+        self.copied = torch.cuda.Event()
+        self.graph = None
+        self.error = None       # why the capture failed, if it did
+        self.loss = None
+        self.tally: Dict[str, int] = {}
+        self.replays = 0
+
+    def stage(self, tensors) -> None:
+        # the host buffers are rewritten only once the card has read them
+        self.copied.synchronize()
+        for host, dev, t in zip(self.host, self.inputs, tensors):
+            if t.device.type == "cuda":
+                dev.copy_(t)
+            else:
+                host.copy_(t)
+                dev.copy_(host, non_blocking=True)
+        self.copied.record()
 
 
 class SPMDTrainer:
-    """Compile-free train step of a net, a loss block and a functional
-    optimizer over a one-device mesh::
+    """Train step of a net, a loss block and a functional optimizer over
+    a one-device mesh::
 
         mesh = parallel.make_mesh({"data": 1})
         trainer = SPMDTrainer(net, loss_fn, "adam",
@@ -38,7 +110,8 @@ class SPMDTrainer:
         loss = trainer.step(ids, types, labels)   # no host sync
 
     The net's parameters must live on the mesh's device; the step updates
-    them in place."""
+    them in place.  After the caller replaces the net's parameter tensors,
+    :meth:`reload_params` makes the next step use them."""
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
                  mesh=None, data_axis="data", sharding_rules=None,
@@ -55,8 +128,6 @@ class SPMDTrainer:
             _not_ported("shard_optimizer_state")
         if sharding_rules is not None or extra_input_shardings is not None:
             _not_ported("sharding rules")
-        if accum_steps not in (None, 1):
-            _not_ported("gradient accumulation (accum_steps)")
         if getenv_bool("MXNET_HEALTH_PLANE"):
             _not_ported("the health plane (MXNET_HEALTH_PLANE)")
         if mesh is None:
@@ -64,20 +135,45 @@ class SPMDTrainer:
         if data_axis not in mesh.axis_names:
             raise MXNetError(f"data axis {data_axis!r} not in the mesh's "
                              f"axes {mesh.axis_names}")
+        self._accum = 1 if accum_steps is None else int(accum_steps)
+        if self._accum < 1:
+            raise MXNetError(f"accum_steps={accum_steps} must be >= 1")
         self._net = net
         self._loss = loss_fn
         self._mesh = mesh
         self._data_axis = data_axis
         self._opt = fopt.create(optimizer, **(optimizer_params or {}))
-        named = mx_named_parameters(net)
-        for name, p in named:
-            if p.device != mesh.device:
-                raise MXNetError(f"parameter {name} is on {p.device}, the "
-                                 f"mesh on {mesh.device}")
-        self._trainable = [(n, p) for n, p in named if p.requires_grad]
-        self._opt_state = self._opt.init([p for _, p in self._trainable])
+        self._trainable = self._read_params()
+        self._opt_state = self._opt.init(self._param_list())
         self._step_count = 0
+        # the step count the update reads, incremented inside the step
+        self._step_dev = torch.zeros((), dtype=torch.int32,
+                                     device=mesh.device)
+        self._programs: Dict[tuple, _StepProgram] = {}
+        self._graph_pool = None
+        self._pool_bytes = 0
+        self._eager = False
+        wref = weakref.ref(self)
 
+        def captured():
+            tr = wref()
+            return 0 if tr is None else sum(
+                p.graph is not None for p in tr._programs.values())
+
+        def state_bytes():
+            tr = wref()
+            return 0 if tr is None else tr.optimizer_state_bytes()
+
+        self._ledger = _telemetry.ledger_site("spmd", size_fn=captured)
+        # device-plane attribution: this trainer's live optimizer state,
+        # through a weakref so a discarded trainer's state is not kept
+        _tdev.register_owner("optimizer", state_bytes)
+        _telemetry.gauge(
+            "mxtpu_optimizer_state_bytes",
+            "optimizer-state bytes of the trainer (the whole tree: one "
+            "device)").set(self.optimizer_state_bytes())
+
+    # ------------------------------------------------------------------
     @property
     def mesh(self):
         return self._mesh
@@ -88,19 +184,40 @@ class SPMDTrainer:
         net's own tensors, updated in place by each step)."""
         return {n: p for n, p in self._trainable}
 
+    @property
+    def accum_steps(self) -> int:
+        return self._accum
+
+    def optimizer_state_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for leaves in self._opt_state.values() for t in leaves)
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes the captured steps' shared pool added to the allocator's
+        reserve (activations and workspaces held between steps)."""
+        return self._pool_bytes
+
+    def _read_params(self) -> List[Tuple[str, torch.Tensor]]:
+        named = mx_named_parameters(self._net)
+        for name, p in named:
+            if p.device != self._mesh.device:
+                raise MXNetError(f"parameter {name} is on {p.device}, the "
+                                 f"mesh on {self._mesh.device}")
+        return [(n, p) for n, p in named if p.requires_grad]
+
+    def _param_list(self) -> List[torch.Tensor]:
+        return [p for _, p in self._trainable]
+
     def _place(self, arr):
         """A batch array (numpy or tensor) as a tensor on the device."""
-        if isinstance(arr, torch.Tensor):
-            return arr.to(self._mesh.device)
-        return torch.from_numpy(_np.ascontiguousarray(arr)).to(
-            self._mesh.device)
+        return _as_tensor(arr).to(self._mesh.device)
 
-    def _loss_and_grads(self, *batch):
-        """The step's loss and the gradient of every trainable parameter
-        (in :attr:`params` order), without the update.  The net runs in
-        training mode, as under ``autograd.record``."""
-        *xs, label = (self._place(b) for b in batch)
-        params = [p for _, p in self._trainable]
+    # ------------------------------------------------------------------
+    def _loss_and_grads_of(self, xs, label):
+        """The mean loss of one (micro)batch of device tensors and the
+        gradient of every trainable parameter (in :attr:`params` order).
+        The net runs in training mode, as under ``autograd.record``."""
+        params = self._param_list()
         was_training = self._net.training
         self._net.train()
         try:
@@ -117,15 +234,163 @@ class SPMDTrainer:
                  for p, g in zip(params, grads)]
         return loss.detach(), grads
 
+    def _grad_of(self, inputs):
+        """(loss, grads) of one full batch of device tensors (*xs, label):
+        with ``accum_steps`` k > 1 the sum of the k microbatches' grads
+        divided by k and the mean of their losses, as JAX ``grad_of``;
+        each microbatch's activations are freed before the next runs."""
+        k = self._accum
+        if k == 1:
+            *xs, label = inputs
+            return self._loss_and_grads_of(xs, label)
+        split = [microbatches(a, k) for a in inputs]
+        loss_sum, g_sum = None, None
+        for i in range(k):
+            *xs, label = (a[i] for a in split)
+            loss, grads = self._loss_and_grads_of(xs, label)
+            if g_sum is None:
+                loss_sum, g_sum = loss, grads
+            else:
+                loss_sum = loss_sum + loss
+                for acc, g in zip(g_sum, grads):
+                    acc.add_(g)
+        return loss_sum / k, [g / k for g in g_sum]
+
+    def _loss_and_grads(self, *batch):
+        """The step's loss and gradients for ``batch`` = (*inputs, label),
+        without the update (the reference tests and profiles read)."""
+        return self._grad_of([self._place(b) for b in batch])
+
+    def _body(self, inputs):
+        """The whole step on device tensors: the step counter, the loss
+        and gradients, the update.  What a graph captures."""
+        self._step_dev.add_(1)
+        loss, grads = self._grad_of(inputs)
+        self._opt.update(self._param_list(), grads, self._opt_state,
+                         self._step_dev)
+        return loss
+
+    # ------------------------------------------------------------------
     def step(self, *batch) -> torch.Tensor:
         """One train step over ``batch`` = (*inputs, label); returns the
-        mean loss as a 0-d tensor on the device (no host sync)."""
-        loss, grads = self._loss_and_grads(*batch)
+        mean loss as a 0-d tensor on the device (no host sync) that keeps
+        its value after later steps."""
+        observe = bool(_telemetry.TRAINER.subscribers)
+        t0 = time.perf_counter() if observe else 0.0
+        with _telemetry.trace_span("spmd.step", cat="trainer"):
+            out = self._step_impl(*batch)
+        if observe:
+            _telemetry.TRAINER.publish(phase="step",
+                                       seconds=time.perf_counter() - t0)
+        return out
+
+    def _build_key(self, arrs) -> tuple:
+        return tuple((tuple(a.shape), a.dtype) for a in arrs)
+
+    def _step_impl(self, *batch):
+        if len(batch) < 2:
+            raise MXNetError("SPMDTrainer.step takes (*inputs, label)")
+        t0 = time.perf_counter()
+        cuda = self._mesh.device.type == "cuda"
+        with _telemetry.trace_span("spmd.shard_batch", cat="transfer"):
+            arrs = [_as_tensor(b) for b in batch]
+            k = self._accum
+            if k > 1:
+                for a in arrs:
+                    B = a.shape[0] if a.dim() else 0
+                    if B == 0 or B % k:
+                        raise MXNetError(
+                            f"global batch {B} must divide by accum_steps "
+                            f"{k} x data axis 1 for even microbatch "
+                            "sharding")
+            key = self._build_key(arrs)
+            if cuda:
+                prog = self._programs.get(key)
+                if prog is None:
+                    prog = self._programs[key] = _StepProgram(
+                        key, self._mesh.device)
+                if prog.error is not None and not self._eager:
+                    raise MXNetError(prog.error)
+                prog.stage(arrs)
+            else:
+                inputs = [self._place(a) for a in arrs]
         self._step_count += 1
-        self._opt.update([p for _, p in self._trainable], grads,
-                         self._opt_state, self._step_count)
+        if not cuda:
+            loss = self._body(inputs)
+        elif self._eager:
+            loss = self._body(prog.inputs)
+        elif prog.graph is None:
+            loss = self._first_step(prog)
+        else:
+            prog.graph.replay()
+            add_launches(prog.tally)
+            prog.replays += 1
+            # the graph's loss buffer is overwritten by the next replay
+            loss = prog.loss.clone()
+        self._ledger.record(time.perf_counter() - t0)
+        # the whole step (forward, backward, update) is one program
+        _telemetry.gauge("mxtpu_optimizer_dispatches_per_step").set(1)
         return loss
+
+    def _first_step(self, prog: _StepProgram):
+        """A batch key's first step on the card: the body runs eagerly on a
+        side stream (the real step, and the warm-up of cuBLAS and the
+        allocator the capture needs), then is captured into the key's
+        graph in the trainer's pool.  Capturing runs nothing, so the step
+        is applied once."""
+        dev = self._mesh.device
+        with _graphs.CAPTURE_LOCK:
+            loss = _graphs.on_side_stream(lambda: self._body(prog.inputs),
+                                          dev)
+            t0 = time.perf_counter()
+            try:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                graph, out, tally, grown = _graphs.capture(
+                    lambda: self._body(prog.inputs), dev, self._graph_pool)
+            except Exception as e:
+                # the card has no eager path after a key's first step:
+                # every later step of the key raises the same error
+                prog.error = (f"SPMDTrainer: capture of the step for batch "
+                              f"key {_key_text(prog.key)} failed: {e}")
+                raise MXNetError(prog.error) from e
+        prog.graph, prog.loss, prog.tally = graph, out, tally
+        self._pool_bytes += grown
+        self._ledger.record_compile(time.perf_counter() - t0)
+        return loss
+
+    @contextlib.contextmanager
+    def _eager_steps(self):
+        """Run the step body uncaptured on the card inside this block: the
+        reference the graphs are held to."""
+        self._eager = True
+        try:
+            yield
+        finally:
+            self._eager = False
+
+    # ------------------------------------------------------------------
+    def reload_params(self):
+        """Re-read the net's parameters after the caller replaced its
+        tensors (for example with ``convert.load_jax_params`` on a new
+        net, or ``load_state_dict``) and drop every captured step, which
+        would write to the old addresses.  The optimizer state and the
+        step count are kept, as the JAX trainer keeps them."""
+        trainable = self._read_params()
+        old = [(n, tuple(p.shape)) for n, p in self._trainable]
+        if [(n, tuple(p.shape)) for n, p in trainable] != old:
+            raise MXNetError("reload_params: the net's trainable parameters "
+                             "changed names or shapes")
+        self._trainable = trainable
+        self._programs.clear()
+        self._graph_pool = None
+        self._pool_bytes = 0
 
     def sync_to_block(self):
         """Nothing to copy: the step updates the net's parameters in
         place (kept for the JAX package's API)."""
+
+
+def _key_text(key) -> str:
+    return ", ".join(f"{list(shape)} {str(dtype).replace('torch.', '')}"
+                     for shape, dtype in key)

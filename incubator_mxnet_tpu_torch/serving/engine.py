@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import gc
 import math
 import threading
 import time
@@ -57,9 +56,9 @@ import torch
 from ..base import MXNetError, getenv_bool, getenv_int
 from .. import health as _health
 from .. import telemetry as _telemetry
+from .. import cuda_graphs as _graphs
 from .. import telemetry_device as _tdev
-from ..kernels.flash_attention import (NEG, add_launches,
-                                       captured_launches, decode_attention,
+from ..kernels.flash_attention import (NEG, add_launches, decode_attention,
                                        paged_decode_attention,
                                        paged_verify_decode_attention,
                                        verify_decode_attention)
@@ -69,10 +68,10 @@ from .sampling import (SamplingParams, root_key, sample_tokens, step_keys,
 
 __all__ = ["GenerationEngine", "derive_prefill_buckets"]
 
-#: one capture at a time in the process: a capture turns the cyclic GC
-#: off and empties the allocator's cache, and two engines warming on two
-#: threads (the server's background warmups) must not interleave that
-_CAPTURE_LOCK = threading.Lock()
+#: one capture at a time in the process (``cuda_graphs``' rules): two
+#: engines warming on two threads (the server's background warmups) wait
+#: for each other
+_CAPTURE_LOCK = _graphs.CAPTURE_LOCK
 
 #: program kind -> its dispatch-ledger site ("serving:<model>:<site>"),
 #: the JAX engine's jit names
@@ -621,40 +620,17 @@ class GenerationEngine:
     def _capture_locked(self, prog: _Program) -> None:
         t0 = time.perf_counter()
         run = (self, prog.args) + prog.static
-        collecting = gc.isenabled()
         try:
-            cur = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                prog.body(*run)
-            cur.wait_stream(side)
-            torch.cuda.synchronize(self.device)
+            _graphs.on_side_stream(lambda: prog.body(*run), self.device)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            # a graph freed while a capture is open invalidates the
-            # capture: no cyclic collection may run during it
-            gc.disable()
-            # with the cache emptied, the memory reserved during the
-            # capture is the segments the graph pool takes
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            graph = torch.cuda.CUDAGraph()
-            with captured_launches() as tally:
-                # thread-local: another engine replaying on another
-                # thread does not invalidate this capture
-                with torch.cuda.graph(graph, pool=self._graph_pool,
-                                      capture_error_mode="thread_local"):
-                    out = prog.body(*run)
-            self._pool_bytes += torch.cuda.memory_reserved(self.device) \
-                - reserved
+            graph, out, tally, grown = _graphs.capture(
+                lambda: prog.body(*run), self.device, self._graph_pool)
+            self._pool_bytes += grown
         except Exception as e:
             raise MXNetError(f"{self.name}: capture of program {prog.name} "
                              f"failed: {e}") from e
-        finally:
-            if collecting:
-                gc.enable()
-        prog.graph, prog.out, prog.tally = graph, out, dict(tally)
+        prog.graph, prog.out, prog.tally = graph, out, tally
         dt = time.perf_counter() - t0
         self._capture_seconds += dt
         self._ledger[prog.kind].record_compile(dt)

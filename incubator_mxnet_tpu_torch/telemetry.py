@@ -135,9 +135,12 @@ bus = EventBus()
 #                                       "fallback","watchdog","breaker",
 #                                       "deadline","oom","anomaly",...}
 #   HEALTH(kind=, step=, src=, ...)   — one anomaly of the health plane
+#   TRAINER(phase=, seconds=)         — phase "step": one SPMDTrainer.step,
+#                                       host seconds
 SPAN = bus.topic("span")
 FAULT = bus.topic("fault")
 HEALTH = bus.topic("health")
+TRAINER = bus.topic("trainer")
 
 
 # ---------------------------------------------------------------------------

@@ -345,7 +345,7 @@ def test_remat_gives_the_same_gradients(ref, monkeypatch):
 @pytest.mark.parametrize("kwargs,env", [
     (dict(pipeline_axis="pipe"), None),
     (dict(zero1=True), None),
-    (dict(accum_steps=2), None),
+    (dict(extra_input_shardings={}), None),
     (dict(sharding_rules=[]), None),
     (dict(shard_optimizer_state=True), None),
     ({}, "MXNET_HEALTH_PLANE"),

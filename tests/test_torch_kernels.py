@@ -326,7 +326,7 @@ def test_cuda_decode_kernels_match_plain(D):
     assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 1,
                                  "decode": 1, "paged_verify": 0,
                                  "verify": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0}
+                                 "flash_bwd_dkv": 0, "multi_tensor_adam": 0}
 
 
 # ------------------------------------- K2/K3 split geometry (host helpers)
