@@ -7,6 +7,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --kernels  # build and check the kernels only
     python3 chip_smoke.py --windows  # measure the serving windows only
     python3 chip_smoke.py --serve REF.json  # the HTTP phase only
+    python3 chip_smoke.py --fleet REF.json  # the fleet phase only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -97,6 +98,31 @@ Phases, each of which raises (exit code 1) on any failure:
    (some 429s with ``Retry-After``), and SIGTERM with a stream in flight
    (``/readyz`` 503 draining, the stream finishes, exit 0 with "drained,
    exiting", the port closed);
+   then, in a third child process (``--fleet``, ``faulthandler`` on), the
+   serving fleet ("fleet:" lines): ``mxtpu-supervise-torch --replicas 2
+   --no-autoscale`` started as a user starts it, each replica a
+   ``mxtpu-serve-torch`` of the ``plain`` config on the card behind the
+   supervisor's router; each replica's time to ready with both warming
+   at once, its ``/healthz`` answering meanwhile; ``nvidia-smi`` lists the
+   two replicas and not the supervisor; the path's 8 requests through the
+   router from 8 SSE clients, then as 8 sync requests (tokens equal the
+   path's under the near-tie rule, the two sharing a 64-token prefix on
+   one replica by the router's hop log, every replica serving, the
+   federated ``mxtpu_kernel_launches`` showing K1 and K2 and no K3, K4 or
+   K5; tokens/s, time to first token and gap beside the ``serve:``
+   figures; the router's upstream time and the replicas' batcher time
+   beside the client's); ``mxtpu-stats-torch --fleet --programs/--memory/
+   --health``; ``mxtpu-stats-torch --fleet --profile 2`` with 8 streams
+   looping (every replica's ``trace.json`` names K2, a second capture
+   answers 409, no replica restarts, every stream finishes a request
+   inside the capture and none fails, each equals the path's tokens; the
+   gap inside the capture against outside it, the longest interval with
+   no token to any stream, each replica's ``capture.json``); a SIGKILLed
+   replica with 8
+   sync requests in flight (each ends 200 with the path's tokens, failed
+   over with its ``X-Request-Id``, or in the router's 503; the replica
+   restarts, rejoins, serves again; kill to ready); and SIGTERM (exit 0,
+   the router's port closed, no replica left, none on the card);
 6. training path: BERT-large (``bert_large``: 24 layers of 1024 units,
    16 heads of 64, FFN 4096, vocab 30522) at full width and depth with
    random ``Normal(0.02)`` weights from the seed, ``BERTForPretrain`` +
@@ -1411,15 +1437,16 @@ def http_json(base, path, body=None, headers=None, timeout=300):
         return code, hdrs, text
 
 
-def sse_client(base, model, prompt, budget, out):
-    """One streaming ``:generate``: the send time, each token event's
-    arrival time (host clock of this process) and the ``done`` payload
-    into ``out``."""
+def sse_client(base, model, prompt, budget, out, rid=None):
+    """One streaming ``:generate`` (with ``x-request-id: rid`` when given):
+    the send time, each token event's arrival time (host clock of this
+    process) and the ``done`` payload into ``out``."""
     import urllib.request
     req = urllib.request.Request(
         f"{base}/v1/models/{model}:generate",
         data=json.dumps({"tokens": prompt, "max_new_tokens": budget,
-                         "stream": True}).encode())
+                         "stream": True}).encode(),
+        headers={} if rid is None else {"x-request-id": rid})
     out["t_send"] = time.perf_counter()
     out["arrivals"], out["tokens"], out["events"] = [], [], []
     with urllib.request.urlopen(req, timeout=600) as resp:
@@ -1759,6 +1786,674 @@ def serve_in_child(prompts, budgets, plain):
           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     print(f"serve: the HTTP phase ran in a child process in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return serve_figures(lines)
+
+
+def serve_figures(lines):
+    """The plain SSE round's client figures from the ``serve:`` lines:
+    tokens/s, time to first token and gap between tokens at p50 and p99
+    (ms)."""
+    import re
+    for ln in lines:
+        m = re.search(r"= ([\d.]+) tokens/s; time to first token p50 "
+                      r"([\d.]+) ms, p99 ([\d.]+) ms; gap between tokens "
+                      r"p50 ([\d.]+) ms, p99 ([\d.]+) ms", ln)
+        if ln.startswith("serve: plain: 8 concurrent SSE clients") and m:
+            return dict(zip(("tokens_per_s", "ttft_p50", "ttft_p99",
+                             "gap_p50", "gap_p99"),
+                            map(float, m.groups())))
+    raise AssertionError("serve: no plain SSE figures in the child's lines")
+
+
+# ------------------------------------------------------------ phase 8
+FLEET_REPLICAS = 2
+FLEET_PROFILE_SECONDS = 2.0  # the capture window of the fleet's profile
+FEDERATE_WAIT = 2.6     # > the router's federation interval (2 s) plus a
+#                         health-loop tick: a /metrics read after this
+#                         wait holds snapshots taken after earlier traffic
+#: K2 (paged_decode) as a profiler trace names it: the split kernel of
+#: decode_common.cuh over a paged cache, at gpt2_124m's head dim 64
+K2_TRACE_NAME = "split_kernel<64, mxdec::PagedKV>"
+
+
+def compute_apps():
+    """[(pid, used memory)] of the card's compute processes (one per CUDA
+    context), as ``nvidia-smi --query-compute-apps`` lists them.  In a
+    container whose pid namespace the driver does not see, every pid
+    reads as that of the namespace's init; the rows still count the
+    contexts."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return [(int(pid), mem.strip()) for pid, mem in
+            (line.split(",", 1) for line in out.stdout.splitlines()
+             if line.strip())]
+
+
+def nvidia_files(pid):
+    """The NVIDIA device files (``/dev/nvidia*``) that process ``pid``
+    holds open and those it maps; ``device``: the maps of a device node
+    (``/dev/nvidia<N>``), which a CUDA context makes."""
+    import re
+    fds, maps = set(), set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                fds.add(target)
+        with open(f"/proc/{pid}/maps") as f:
+            maps = {m.group(0) for m in re.finditer(r"/dev/nvidia\S*",
+                                                     f.read())}
+    except OSError:
+        pass
+    return {"fds": sorted(fds), "maps": sorted(maps),
+            "device": sorted(m for m in maps
+                             if re.fullmatch(r"/dev/nvidia\d+", m))}
+
+
+def trace_summary(path, thread_names=None):
+    """What a profile's Chrome trace holds: kernel events, K2's among
+    them, ``cudaGraphLaunch`` runtime events, kernels that carry a CUDA
+    graph id, and the threads whose host operators appear (by name where
+    ``thread_names`` maps their native ids)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = thread_names or {}
+    return {"kernels": len(kernels),
+            "k2": sum(K2_TRACE_NAME in e.get("name", "") for e in kernels),
+            "graph_launches": sum(e.get("name") == "cudaGraphLaunch"
+                                  for e in events
+                                  if e.get("cat") == "cuda_runtime"),
+            "kernels_with_graph_id": sum(
+                any("graph" in k.lower() for k in (e.get("args") or {}))
+                for e in kernels),
+            "cpu_op_threads": sorted({str(names.get(e.get("tid"),
+                                                    e.get("tid")))
+                                      for e in events
+                                      if e.get("cat") == "cpu_op"})}
+
+
+def fleet_launches(base):
+    """The fleet-summed ``mxtpu_kernel_launches`` by kernel from the
+    router's federated ``/metrics``, read after ``FEDERATE_WAIT``."""
+    time.sleep(FEDERATE_WAIT)
+    _, _, text = http_json(base, "/metrics")
+    out = {}
+    for line in text.splitlines():
+        if line.startswith('mxtpu_kernel_launches{kernel="'):
+            name = line.split('kernel="', 1)[1].split('"', 1)[0]
+            out[name] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def metric_sum(base, name):
+    """The sum of every series of counter ``name`` on ``/metrics``."""
+    _, _, text = http_json(base, "/metrics")
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith((name + "{", name + " ")))
+
+
+def hist_totals(base, name):
+    """(sum, count) of histogram ``name`` on ``/metrics``, over its
+    series."""
+    return metric_sum(base, name + "_sum"), metric_sum(base, name + "_count")
+
+
+def mean_delta(a, b):
+    """The mean of the observations a histogram took between its
+    ``hist_totals`` ``a`` and ``b``, in ms."""
+    return (b[0] - a[0]) / max(1.0, b[1] - a[1]) * 1e3
+
+
+def longest_quiet(arrivals, a, b):
+    """The longest interval ending inside [a, b] in which none of the
+    sorted ``arrivals`` fell, in ms (measured from ``a`` at the earliest).
+    """
+    ts = [t for t in arrivals if t < a][-1:] + \
+        [t for t in arrivals if a <= t <= b] + [b]
+    return max((y - max(x, a) for x, y in zip(ts, ts[1:])),
+               default=b - a) * 1e3
+
+
+def replica_pids(logs):
+    """{replica port: pid} from the replicas' logs (``mxtpu-serve-torch``
+    prints its pid when it binds; a restart appends to the same log)."""
+    import re
+    out = {}
+    for lg in Path(logs).glob("replica-*.log"):
+        found = re.findall(r"\(pid (\d+);", lg.read_text(errors="replace"))
+        if found:
+            out[int(lg.stem.split("-", 1)[1])] = int(found[-1])
+    return out
+
+
+def alive(pid):
+    """``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def drive_fleet(card, ref_path):
+    """The serving fleet: ``mxtpu-supervise-torch`` started as a user
+    starts it (2 replicas of ``mxtpu-serve-torch`` serving the plain
+    ``gpt2_124m`` config on the card behind its embedded router),
+    checked through the router, its fleet views, a profile capture under
+    load, a SIGKILLed replica and SIGTERM.  Prints the ``fleet:`` lines."""
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.error
+    with open(ref_path) as f:
+        ref = json.load(f)
+    prompts, budgets, plain = ref["prompts"], ref["budgets"], ref["plain"]
+    one = ref["serve"]
+    root = Path(__file__).resolve().parent
+    net = []
+
+    def oracle():
+        # built only when a token differs, on the CPU: this process keeps
+        # no CUDA context, so the card's contexts are the fleet's
+        if not net:
+            from incubator_mxnet_tpu_torch import initializer as init
+            from incubator_mxnet_tpu_torch.models.gpt import gpt2_124m
+            n = gpt2_124m(dropout=0.0, device="cpu")
+            n.initialize(init.Normal(0.02), seed=SEED)
+            net.append(n)
+        return net[0]
+
+    def near_tie(prompt, want, got, what):
+        if got == want:
+            return None
+        return same_or_near_tie(oracle(), prompt, want, got, what)
+
+    t_phase = time.perf_counter()
+    base_apps = compute_apps()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    logs = tmp / "logs"
+    cfg = tmp / "gpt2.json"
+    cfg.write_text(json.dumps(gpt2_config()))
+    env = dict(os.environ, PYTHONFAULTHANDLER="1",
+               MXNET_PROFILE_DIR=str(tmp / "profile"),
+               MXNET_ROUTER_INCIDENT_DIR=str(tmp / "incidents"),
+               MXNET_FLIGHT_DUMP_DIR=str(tmp / "flight"))
+    stats = [sys.executable, "-c", "from incubator_mxnet_tpu_torch._cli "
+             "import stats_main; stats_main()"]
+    cmd = [sys.executable, "-c", "from incubator_mxnet_tpu_torch._cli "
+           "import supervise_main; supervise_main()", "--replicas",
+           str(FLEET_REPLICAS), "--no-autoscale", "--router-port", "0",
+           "--log-dir", str(logs), "--", "--gen-model", f"plain={cfg}",
+           "--queue", str(SERVE_QUEUE)]
+    print(f"fleet: mxtpu-supervise-torch {' '.join(cmd[3:])}", flush=True)
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    log = []
+    reader = threading.Thread(target=lambda: log.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+    seen_pids = set()
+
+    def tail():
+        return "".join(log)[-3000:] + "".join(
+            f"\n--- {lg.name}\n{lg.read_text(errors='replace')[-2000:]}"
+            for lg in sorted(logs.glob("replica-*.log")))
+    try:
+        # -- 1. start: both replicas warm at once; /healthz meanwhile
+        ready_at, health, health_fail, base = {}, {}, {}, None
+        while base is None or len(ready_at) < FLEET_REPLICAS:
+            check(proc.poll() is None and time.perf_counter() - t_start
+                  < 300, "fleet: the fleet did not start:\n" + tail())
+            for lg in logs.glob("replica-*.log"):
+                port = int(lg.stem.split("-", 1)[1])
+                if port in ready_at:
+                    continue
+                url = f"http://127.0.0.1:{port}"
+                t = time.perf_counter()
+                try:
+                    http_json(url, "/healthz", timeout=5)
+                    health.setdefault(port, []).append(
+                        (time.perf_counter() - t) * 1e3)
+                    if http_json(url, "/readyz", timeout=5)[0] == 200:
+                        ready_at[port] = time.perf_counter() - t_start
+                except urllib.error.URLError as e:
+                    if not isinstance(e.reason, ConnectionRefusedError):
+                        health_fail[port] = health_fail.get(port, 0) + 1
+                except OSError:         # a timeout: /healthz starved
+                    health_fail[port] = health_fail.get(port, 0) + 1
+            for line in list(log):
+                if base is None and "router on http://0.0.0.0:" in line:
+                    base = ("http://127.0.0.1:" + line.split(
+                        "0.0.0.0:", 1)[1].split()[0])
+            time.sleep(0.2)
+        while True:
+            code, _, body = http_json(base, "/readyz", timeout=10)
+            if code == 200 and body.get("eligible") == FLEET_REPLICAS:
+                break
+            check(proc.poll() is None and time.perf_counter() - t_start
+                  < 300, f"fleet: router never ready ({body}):\n" + tail())
+            time.sleep(0.2)
+        ready = time.perf_counter() - t_start
+        for port in sorted(ready_at):
+            lat = health.get(port, [0.0])
+            print(f"fleet: replica 127.0.0.1:{port} ready after "
+                  f"{ready_at[port]:.1f} s, both warming at once; /healthz "
+                  f"answered {len(lat)} polls while it warmed, slowest "
+                  f"{max(lat):.1f} ms, {health_fail.get(port, 0)} failed "
+                  f"(the supervisor allows 5 s) [{card}]", flush=True)
+        check(not health_fail, f"fleet: /healthz failed during warm-up: "
+              f"{health_fail}")
+        pids = replica_pids(logs)
+        seen_pids |= set(pids.values())
+        check(len(pids) == FLEET_REPLICAS, f"fleet: replica pids {pids}")
+        ids = {port: f"127.0.0.1:{port}" for port in pids}
+        print(f"fleet: router {base} ready with {FLEET_REPLICAS} eligible "
+              f"replicas after {ready:.1f} s; replica pids "
+              f"{sorted(pids.values())}, supervisor pid {proc.pid}",
+              flush=True)
+
+        # -- 2. the card's processes: the two replicas, not the supervisor
+        apps = compute_apps()
+        files = {pid: nvidia_files(pid) for pid in
+                 [proc.pid] + sorted(pids.values())}
+        print(f"fleet: nvidia-smi compute apps {apps}, before the fleet "
+              f"{base_apps}; NVIDIA device files of the supervisor (pid "
+              f"{proc.pid}) {files[proc.pid]}, of the replicas "
+              + ", ".join(f"{pid} {files[pid]}" for pid in
+                          sorted(pids.values())), flush=True)
+        check(len(apps) - len(base_apps) == FLEET_REPLICAS,
+              f"fleet: {len(apps) - len(base_apps)} new CUDA contexts on "
+              f"the card, expected the {FLEET_REPLICAS} replicas'")
+        check(not files[proc.pid]["device"]
+              and all(files[pid]["device"] for pid in pids.values()),
+              f"fleet: the supervisor maps the card or a replica does not: "
+              f"{files}")
+
+        # -- 3. the path's requests through the router
+        def owner(rid):
+            _, _, tr = http_json(base, f"/trace?request_id={rid}")
+            return tr["hops"][-1]["replica"]
+
+        before = fleet_launches(base)
+        up0 = hist_totals(base, "mxtpu_router_upstream_seconds")
+        res = [{} for _ in prompts]
+        threads = [threading.Thread(target=sse_client, args=(
+            base, "plain", p, b, r, f"fleet-sse-{i}"))
+            for i, (p, b, r) in enumerate(zip(prompts, budgets, res))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launched = {k: v - before.get(k, 0)
+                    for k, v in fleet_launches(base).items()}
+        up1 = hist_totals(base, "mxtpu_router_upstream_seconds")
+        check(all(r.get("status") == 200 and r["events"][-1] == "done"
+                  for r in res), f"fleet: a stream failed: {res}")
+        ttft = [(r["arrivals"][0] - r["t_send"]) * 1e3 for r in res]
+        gaps = [(b - a) * 1e3 for r in res
+                for a, b in zip(r["arrivals"], r["arrivals"][1:])]
+        n_tok = sum(len(r["tokens"]) for r in res)
+        print(f"fleet: 8 concurrent SSE clients through the router: {n_tok} "
+              f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; time "
+              f"to first token p50 {pct(ttft, 50):.2f} ms, p99 "
+              f"{pct(ttft, 99):.2f} ms; gap between tokens p50 "
+              f"{pct(gaps, 50):.3f} ms, p99 {pct(gaps, 99):.3f} ms (at the "
+              f"client) [{card}]; one replica (serve:) "
+              f"{one['tokens_per_s']:.1f} tokens/s, {one['ttft_p50']:.2f} / "
+              f"{one['ttft_p99']:.2f} ms, {one['gap_p50']:.3f} / "
+              f"{one['gap_p99']:.3f} ms", flush=True)
+        print(f"fleet: the router's {up1[1] - up0[1]:.0f} upstream "
+              f"attempts for the SSE clients took {mean_delta(up0, up1):.2f} "
+              f"ms on average to the replica's first event; the clients' "
+              f"mean first token {sum(ttft) / len(ttft):.2f} ms [{card}]",
+              flush=True)
+        print(f"fleet: federated kernel launches {launched}", flush=True)
+        for name, want in (("flash_fwd", True), ("paged_decode", True),
+                           ("decode", False), ("paged_verify", False),
+                           ("verify", False)):
+            check((launched.get(name, 0) > 0) == want, f"fleet: kernel "
+                  f"{name} launched {launched.get(name, 0)} times")
+        split = 0
+        for i, (p, want, r) in enumerate(zip(prompts, plain, res)):
+            split += near_tie(p, want, r["tokens"],
+                              f"fleet: SSE request {i}") is not None
+        sync, took = [None] * len(prompts), {}
+
+        def post(i, rid, out):
+            t = time.perf_counter()
+            out[i] = http_json(base, "/v1/models/plain:generate",
+                               {"tokens": prompts[i],
+                                "max_new_tokens": budgets[i]},
+                               headers={"x-request-id": rid})
+            took[rid] = (time.perf_counter() - t) * 1e3
+        up0 = hist_totals(base, "mxtpu_router_upstream_seconds")
+        lat0 = hist_totals(base, "mxtpu_serve_latency_seconds")
+        threads = [threading.Thread(target=post, args=(
+            i, f"fleet-sync-{i}", sync)) for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(all(a is not None and a[0] == 200
+                  and a[1]["X-Request-Id"] == f"fleet-sync-{i}"
+                  and a[2]["request_id"] == f"fleet-sync-{i}"
+                  for i, a in enumerate(sync)),
+              f"fleet: a sync request failed: {sync}")
+        for i, (p, want, a) in enumerate(zip(prompts, plain, sync)):
+            split += near_tie(p, want, a[2]["tokens"],
+                              f"fleet: sync request {i}") is not None
+        n_tok = sum(a[2]["count"] for a in sync)
+        up1 = hist_totals(base, "mxtpu_router_upstream_seconds")
+        time.sleep(FEDERATE_WAIT)       # the replicas' latencies
+        lat1 = hist_totals(base, "mxtpu_serve_latency_seconds")
+        at_client = sum(took[f"fleet-sync-{i}"] for i in range(8)) / 8
+        print(f"fleet: 8 concurrent sync requests: {n_tok} tokens in "
+              f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s [{card}]; "
+              f"{16 - split} of 16 responses equal the path phase's tokens, "
+              f"{split} first differ at a near-tie", flush=True)
+        print(f"fleet: a sync request's mean time at the client "
+              f"{at_client:.2f} ms, in the router's upstream attempt "
+              f"{mean_delta(up0, up1):.2f} ms ({up1[1] - up0[1]:.0f} "
+              f"attempts), from submit to result in the replicas' batchers "
+              f"{mean_delta(lat0, lat1):.2f} ms ({lat1[1] - lat0[1]:.0f} "
+              f"requests) [{card}]", flush=True)
+        owners = {rid: owner(rid) for kind in ("sse", "sync")
+                  for rid in (f"fleet-{kind}-{i}" for i in range(8))}
+        check(owners["fleet-sse-1"] == owners["fleet-sse-4"]
+              == owners["fleet-sync-1"] == owners["fleet-sync-4"],
+              f"fleet: the shared-prefix requests split: {owners}")
+        served = set(owners.values())
+        rng = np.random.RandomState(SEED + 1)
+        extra = 0
+        while served != set(ids.values()) and extra < 16:
+            rid = f"fleet-extra-{extra}"
+            a = http_json(base, "/v1/models/plain:generate",
+                          {"tokens": rng.randint(0, 50257, 40).tolist(),
+                           "max_new_tokens": 4},
+                          headers={"x-request-id": rid})
+            check(a[0] == 200, f"fleet: {rid} answered {a}")
+            served.add(owner(rid))
+            extra += 1
+        check(served == set(ids.values()), f"fleet: replicas served: "
+              f"{sorted(served)} of {sorted(ids.values())}")
+        per = {rep: sum(o == rep for o in owners.values())
+               for rep in sorted(ids.values())}
+        print(f"fleet: requests per replica {per} (hop log), the two "
+              f"requests sharing the 64-token prefix both on "
+              f"{owners['fleet-sse-1']}; {extra} extra requests to reach "
+              f"every replica", flush=True)
+
+        # -- 4. the fleet's views through mxtpu-stats-torch
+        views = {}
+        for view in ("--programs", "--memory", "--health"):
+            out = subprocess.run(stats + ["--fleet", base, view], cwd=root,
+                                 capture_output=True, text=True,
+                                 timeout=120)
+            check(out.returncode == 0, f"fleet: mxtpu-stats-torch {view} "
+                  f"exited {out.returncode}: {out.stderr[-2000:]}")
+            views[view] = json.loads(out.stdout)
+        for rep in ids.values():
+            inv = views["--programs"]["replicas"][rep]["engines"]["plain"]
+            check(inv["compiled_programs"] == inv["expected_programs"],
+                  f"fleet: /programs {rep}: {inv}")
+            own = views["--memory"]["replicas"][rep]["owners"]
+            check(own.get("kv:plain", 0) > 0
+                  and own.get("params:plain", 0) > 0,
+                  f"fleet: /memory {rep}: {own}")
+        check(set(views["--health"]["replicas"]) == set(ids.values()),
+              f"fleet: /health {views['--health']}")
+        print("fleet: mxtpu-stats-torch --programs: " + ", ".join(
+            f"{rep} {v['engines']['plain']['compiled_programs']} of "
+            f"{v['engines']['plain']['expected_programs']}" for rep, v in
+            sorted(views["--programs"]["replicas"].items()))
+            + "; --memory: " + ", ".join(
+                f"{rep} kv {v['owners']['kv:plain']:.0f} B, params "
+                f"{v['owners']['params:plain']:.0f} B" for rep, v in
+                sorted(views["--memory"]["replicas"].items()))
+            + f"; --health: status {views['--health']['status']} "
+            f"[{card}]", flush=True)
+
+        # -- 5. a profile of every replica while 8 streams are in flight
+        stop, records = threading.Event(), []
+
+        def looping(i):
+            n = 0
+            while not stop.is_set():
+                r = {}
+                try:
+                    sse_client(base, "plain", prompts[i], budgets[i], r,
+                               f"fleet-cap-{i}-{n}")
+                except Exception as e:  # an HTTP error, a reset, a timeout
+                    r.update(status=None, error=repr(e), events=["error"],
+                             t_done=time.perf_counter())
+                    records.append((i, r))
+                    return
+                records.append((i, r))
+                n += 1
+        streams = [threading.Thread(target=looping, args=(i,))
+                   for i in range(len(prompts))]
+        for t in streams:
+            t.start()
+        time.sleep(2.0)
+        probe_port = sorted(ids)[0]
+        t_cap0 = time.perf_counter()
+        capture = subprocess.Popen(
+            stats + ["--fleet", base, "--profile",
+                     str(FLEET_PROFILE_SECONDS)], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # a replica makes its artifact directory as its capture starts
+        while not list((tmp / "profile").glob(
+                f"capture_{pids[probe_port]}_*")):
+            check(capture.poll() is None, "fleet: the capture ended before "
+                  "the probe")
+            time.sleep(0.02)
+        busy = http_json(f"http://127.0.0.1:{probe_port}",
+                         "/debug/profile?seconds=0.1", body={}, timeout=60)
+        cap_out, cap_err = capture.communicate(timeout=300)
+        t_cap1 = time.perf_counter()
+        time.sleep(2.0)
+        stop.set()
+        for t in streams:
+            t.join(timeout=600)
+        check(capture.returncode == 0, f"fleet: mxtpu-stats-torch --profile "
+              f"exited {capture.returncode}: {cap_err[-2000:]}")
+        check(busy[0] == 409 and int(busy[1]["Retry-After"]) >= 1,
+              f"fleet: a second capture during the window answered {busy}")
+        profiles = json.loads(cap_out)["replicas"]
+        check(set(profiles) == set(ids.values()), f"fleet: {profiles}")
+        for rep, body in sorted(profiles.items()):
+            check("profile" in body, f"fleet: capture on {rep}: {body}")
+            summ = trace_summary(os.path.join(body["profile"], "trace.json"))
+            print(f"fleet: profile of {rep}: {body['profile']}: "
+                  f"{summ['kernels']} kernel events, {summ['k2']} of K2 "
+                  f"({K2_TRACE_NAME}), {summ['graph_launches']} "
+                  f"cudaGraphLaunch, {summ['kernels_with_graph_id']} kernels "
+                  f"with a graph id, host ops of threads "
+                  f"{summ['cpu_op_threads']}", flush=True)
+            check(summ["k2"] > 0, f"fleet: the trace of {rep} names no K2")
+            with open(os.path.join(body["profile"], "capture.json")) as f:
+                held = json.load(f)
+            gate = held["stop"]
+            print(f"fleet: capture on {rep}: the profiler's start took "
+                  f"{held['start_s'] * 1e3:.1f} ms (ungated), its stop "
+                  f"held the dispatch gate {gate['gate_held_s'] * 1e3:.1f} "
+                  f"ms after waiting {gate['gate_wait_s'] * 1e3:.1f} ms for "
+                  f"it, the export took {held['export_s'] * 1e3:.1f} ms "
+                  f"[{card}]", flush=True)
+        failed = [(i, r.get("status"), r.get("error"), r["events"][-3:])
+                  for i, r in records if r.get("status") != 200
+                  or r["events"][-1:] != ["done"]]
+        check(records and not failed, f"fleet: {len(failed)} streams "
+              f"failed during the capture: {failed[:8]}")
+        finished = {i for i, r in records if t_cap0 <= r["t_done"] <= t_cap1}
+        check(finished == set(range(len(prompts))), f"fleet: only the "
+              f"streams {sorted(finished)} finished a request inside the "
+              f"capture")
+        for i, r in records:
+            near_tie(prompts[i], plain[i], r["tokens"],
+                     f"fleet: stream {i} during the capture")
+        inside, outside = [], []
+        for _, r in records:
+            for a, b in zip(r["arrivals"], r["arrivals"][1:]):
+                (inside if t_cap0 <= b <= t_cap1 else outside).append(
+                    (b - a) * 1e3)
+        every = sorted(t for _, r in records for t in r["arrivals"])
+        quiet_in = longest_quiet(every, t_cap0, t_cap1)
+        quiet_out = max(longest_quiet(every, t_cap0 - 2.0, t_cap0),
+                        longest_quiet(every, t_cap1, t_cap1 + 2.0))
+        check(metric_sum(base, "mxtpu_supervise_restarts") == 0
+              and replica_pids(logs) == pids,
+              "fleet: a replica restarted during the capture")
+        print(f"fleet: capture of {FLEET_PROFILE_SECONDS} s on every "
+              f"replica with 8 streams in flight ({len(records)} streams "
+              f"served, all equal to the path's tokens; a second capture "
+              f"answered 409): gap between tokens inside the capture "
+              f"({t_cap1 - t_cap0:.1f} s from request to artifacts) p50 "
+              f"{pct(inside, 50):.3f} ms, p99 {pct(inside, 99):.3f} ms, "
+              f"longest {max(inside):.3f} ms, outside p50 "
+              f"{pct(outside, 50):.3f} ms, p99 {pct(outside, 99):.3f} ms, "
+              f"longest {max(outside):.3f} ms; the longest interval in "
+              f"which no stream got a token: {quiet_in:.3f} ms inside, "
+              f"{quiet_out:.3f} ms in the 2 s before and after; no replica "
+              f"restarted [{card}]", flush=True)
+
+        # -- 6. SIGKILL one replica with sync requests in flight
+        victim_rep = owners["fleet-sse-1"]
+        victim_port = int(victim_rep.rsplit(":", 1)[1])
+        victim = pids[victim_port]
+        fo = [None] * len(prompts)
+        threads = [threading.Thread(target=post, args=(
+            i, f"fleet-fo-{i}", fo)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        time.sleep(0.1)
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        for t in threads:
+            t.join(timeout=600)
+        moved = 0
+        for i, a in enumerate(fo):
+            rid = f"fleet-fo-{i}"
+            check(a is not None and a[1].get("X-Request-Id") == rid
+                  and a[2].get("request_id") == rid
+                  and (a[0] == 200 or (a[0] == 503 and "error" in a[2])),
+                  f"fleet: {rid} after the kill: {a}")
+            if a[0] == 200:
+                near_tie(prompts[i], plain[i], a[2]["tokens"],
+                         f"fleet: {rid}")
+            _, _, tr = http_json(base, f"/trace?request_id={rid}")
+            moved += len({h["replica"] for h in tr["hops"]}) > 1
+        while True:
+            now = replica_pids(logs)
+            code, _, body = http_json(base, "/readyz", timeout=10)
+            if now.get(victim_port, victim) != victim and code == 200 \
+                    and body.get("eligible") == FLEET_REPLICAS:
+                break
+            check(proc.poll() is None and time.perf_counter() - t_kill
+                  < 300, f"fleet: the killed replica never came back "
+                  f"({body}):\n" + tail())
+            time.sleep(0.2)
+        kill_to_ready = time.perf_counter() - t_kill
+        seen_pids |= set(now.values())
+        after = http_json(base, "/v1/models/plain:generate",
+                          {"tokens": prompts[1],
+                           "max_new_tokens": budgets[1]},
+                          headers={"x-request-id": "fleet-after"})
+        check(after[0] == 200 and owner("fleet-after") == victim_rep,
+              f"fleet: the restarted replica did not serve: {after}")
+        near_tie(prompts[1], plain[1], after[2]["tokens"],
+                 "fleet: after the restart")
+        check(metric_sum(base, "mxtpu_supervise_restarts") == 1,
+              "fleet: the supervisor did not count one restart")
+        print(f"fleet: SIGKILL of replica {victim_rep} (pid {victim}) with 8 "
+              f"sync requests in flight: {sum(a[0] == 200 for a in fo)} "
+              f"answered 200 with the path's tokens ({moved} failed over, "
+              f"X-Request-Id kept), {sum(a[0] != 200 for a in fo)} ended "
+              f"in the router's 503; restarted as pid "
+              f"{now[victim_port]}, eligible again {kill_to_ready:.1f} s "
+              f"after the kill, and served the shared-prefix request again "
+              f"[{card}]", flush=True)
+
+        # -- 7. SIGTERM drains the fleet and frees the card
+        router_port = int(base.rsplit(":", 1)[1])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        check(rc == 0 and any("drained, exiting" in ln for ln in log),
+              f"fleet: the supervisor exited {rc}:\n" + tail())
+        try:
+            socket.create_connection(("127.0.0.1", router_port),
+                                     timeout=2).close()
+            closed = False
+        except OSError:
+            closed = True
+        check(closed, "fleet: the router's port is still open")
+        left = [pid for pid in seen_pids if alive(pid)]
+        apps = compute_apps()
+        check(not left and len(apps) == len(base_apps),
+              f"fleet: fleet processes left: {left}; compute apps {apps}, "
+              f"before the fleet {base_apps}")
+        wall = time.perf_counter() - t_phase
+        print(f"fleet: SIGTERM: supervisor exit code {rc}, 'drained, "
+              f"exiting', router port closed, no replica process left and "
+              f"the card's contexts back to the {len(base_apps)} before the "
+              f"fleet ({apps}); phase wall {wall:.1f} s", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for pid in replica_pids(logs).values() if logs.exists() else ():
+            if alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fleet_in_child(prompts, budgets, plain, serve):
+    """Run :func:`drive_fleet` in a child interpreter (``--fleet``, with
+    ``faulthandler`` on), handing it the path phase's requests and tokens
+    and the ``serve:`` phase's client figures through a file, and print
+    the child's ``fleet:`` lines.  Fails unless the child exits 0 and
+    reports the shutdown."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump({"prompts": prompts, "budgets": budgets,
+                   "plain": plain, "serve": serve}, f)
+    try:
+        proc = subprocess.run([sys.executable, "-X", "faulthandler",
+                               str(Path(__file__).resolve()), "--fleet",
+                               f.name], capture_output=True, text=True,
+                              timeout=900)
+    finally:
+        os.unlink(f.name)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("fleet: ", "path: "))]
+    for ln in lines:
+        print(ln, flush=True)
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("fleet: SIGTERM"),
+          f"fleet: the child exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print(f"fleet: the fleet phase ran in a child process in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def parses_as_json(tokens):
@@ -2059,6 +2754,11 @@ def main():
                     help="only run the HTTP phase against the path phase's "
                          "requests and tokens in REF.json (the full run "
                          "does this in a child process)")
+    ap.add_argument("--fleet", metavar="REF.json",
+                    help="only run the fleet phase against the path phase's "
+                         "requests and tokens and the HTTP phase's figures "
+                         "in REF.json (the full run does this in a child "
+                         "process)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -2081,6 +2781,9 @@ def main():
         return                               # a measurement, no result
     if args.serve:
         drive_serve(card, args.serve)
+        return                               # a phase, no result
+    if args.fleet:
+        drive_fleet(card, args.fleet)
         return                               # a phase, no result
 
     t0 = time.perf_counter()
@@ -2118,7 +2821,8 @@ def main():
         del net, eng
         torch.cuda.empty_cache()
         windows_in_child()
-        serve_in_child(prompts, budgets, plain)
+        serve = serve_in_child(prompts, budgets, plain)
+        fleet_in_child(prompts, budgets, plain, serve)
         train = drive_training(fa, card, k8_row)
         check_cell_grads(fa, dev)
         launches = {"flash_fwd": counts["flash_fwd"],

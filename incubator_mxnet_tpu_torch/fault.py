@@ -37,7 +37,7 @@ from . import telemetry as _telemetry
 __all__ = [
     "FaultInjected", "FaultRule", "FaultPlan", "RetryPolicy",
     "install_plan", "clear_plan", "current_plan", "active",
-    "inject", "site_calls", "retry_call",
+    "inject", "site_calls", "retry_call", "retry_after_hint",
     "TRANSIENT",
 ]
 
@@ -286,6 +286,20 @@ class RetryPolicy:
         return d * (1.0 - self.jitter * self._rng.random())
 
 
+def retry_after_hint(err: BaseException) -> Optional[float]:
+    """The server-provided backoff of a transport error: its non-negative
+    ``retry_after`` attribute (``BreakerOpen``, ``QueueFullError``, the
+    router's upstream errors), else None."""
+    hint = getattr(err, "retry_after", None)
+    if hint is None:
+        return None
+    try:
+        hint = float(hint)
+    except (TypeError, ValueError):
+        return None
+    return hint if hint >= 0.0 else None
+
+
 def retry_call(fn, *args, site: str = "?",
                policy: Optional[RetryPolicy] = None,
                retry_on=TRANSIENT, retry_after_hint=None, **kwargs):
@@ -303,8 +317,8 @@ def retry_call(fn, *args, site: str = "?",
     the next attempt (capped at the policy's ``max_delay_seconds`` so a
     hostile upstream cannot park the caller, still counted against the
     retry budget and the wall-clock deadline).  Pass
-    an extractor of the ``retry_after`` attribute to honor the serving
-    transport errors' convention."""
+    :func:`retry_after_hint` to honor the ``retry_after`` attribute
+    convention of the serving transport errors."""
     try:
         return fn(*args, **kwargs)
     except retry_on as e:

@@ -181,6 +181,13 @@ class BaseJSONHandler(BaseHTTPRequestHandler):
             (prefix + "data: " + json.dumps(obj, default=str)
              + "\n\n").encode("utf-8"))
 
+    def relay_chunk(self, data: bytes) -> None:
+        """Forward already-framed payload bytes (upstream SSE lines) onto
+        an open stream without re-encoding: the router's passthrough.
+        Same disconnect contract as :meth:`send_event`."""
+        if data:
+            self._write_chunk(data)
+
     def end_stream(self) -> None:
         """Terminate the chunked response (zero-length chunk)."""
         try:

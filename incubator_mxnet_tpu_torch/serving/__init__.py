@@ -1,7 +1,9 @@
 """Generation serving of the PyTorch port: the paged KV-cache pool, the
 sampling plane, the generation engine, the continuous batcher with its
-fault domains (``lifecycle``), SLO accounting (``slo``) and metrics, and
-the HTTP front (``server.ModelServer``)."""
+fault domains (``lifecycle``), SLO accounting (``slo``) and metrics, the
+HTTP front (``server.ModelServer``), and the fleet above it: the router
+(``router.Router``) and the supervisor (``supervisor.Supervisor``), which
+run no model and never touch the card."""
 from .batcher import ContinuousBatcher, QueueFullError
 from .engine import GenerationEngine, derive_prefill_buckets
 from .kvcache import NULL_BLOCK, BlockPool, blocks_for
@@ -10,9 +12,15 @@ from .lifecycle import (BreakerOpen, Cancelled, CircuitBreaker,
                         Watchdog)
 from .sampling import MASK_OFF, SamplingParams
 from .server import ModelServer
+from .router import NoReplicaAvailable, Replica, Router, UpstreamError
+from .supervisor import (AutoscalePolicy, FlapBreaker, ScaleAction,
+                         ScaleSignals, Supervisor, scale_decision)
 
 __all__ = ["BlockPool", "blocks_for", "NULL_BLOCK", "SamplingParams",
            "MASK_OFF", "GenerationEngine", "derive_prefill_buckets",
            "ContinuousBatcher", "QueueFullError", "Cancelled",
            "RequestAborted", "DeadlineExceeded", "BreakerOpen", "Draining",
-           "CircuitBreaker", "Watchdog", "ModelServer"]
+           "CircuitBreaker", "Watchdog", "ModelServer", "Router", "Replica",
+           "UpstreamError", "NoReplicaAvailable", "Supervisor",
+           "AutoscalePolicy", "ScaleSignals", "ScaleAction",
+           "scale_decision", "FlapBreaker"]

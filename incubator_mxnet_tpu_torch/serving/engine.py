@@ -458,13 +458,15 @@ class GenerationEngine:
         else:
             shape = (self.max_slots, self.num_heads, self.max_len,
                      self.head_dim)
-        if self._cache:
-            for c in self._cache:
-                c.zero_()
-        else:
-            self._cache = tuple(
-                torch.zeros(shape, dtype=torch.float32, device=self.device)
-                for _ in range(2 * self.num_layers))
+        with _graphs.DISPATCH_GATE.shared():
+            if self._cache:
+                for c in self._cache:
+                    c.zero_()
+            else:
+                self._cache = tuple(
+                    torch.zeros(shape, dtype=torch.float32,
+                                device=self.device)
+                    for _ in range(2 * self.num_layers))
         self._tables[:] = 0
         self._tables_dirty = True
         if self.paged:
@@ -564,7 +566,8 @@ class GenerationEngine:
         re-raised."""
         t0 = time.perf_counter()
         try:
-            outs = self._dispatch(key, inputs)
+            with _graphs.DISPATCH_GATE.shared():
+                outs = self._dispatch(key, inputs)
         except Exception as e:
             if _tdev.is_oom(e):
                 _tdev.report_oom("serving." + self.name, e, model=self.name)

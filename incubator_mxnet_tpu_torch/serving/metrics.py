@@ -1,11 +1,11 @@
 """Serving metrics of the port, registered on the shared telemetry
-registry at import (the generation series of
-``incubator_mxnet_tpu/serving/metrics.py``, same names and help; the
-router's, supervisor's and autoscaler's series come with those
-modules).  Counters and gauges are labeled by ``model``; histograms are
-registry-wide.  ``mxtpu_kernel_launches`` is the port's own: the launches
-of each hand-written CUDA kernel in this process, refreshed at scrape
-(:func:`refresh_kernel_launches`)."""
+registry at import (the series of
+``incubator_mxnet_tpu/serving/metrics.py`` that the port's serving path,
+router, supervisor and autoscaler emit, same names and help).  Counters
+and gauges are labeled by ``model`` (the router's by ``replica``);
+histograms are registry-wide.  ``mxtpu_kernel_launches`` is the port's
+own: the launches of each hand-written CUDA kernel in this process,
+refreshed at scrape (:func:`refresh_kernel_launches`)."""
 from __future__ import annotations
 
 from .. import telemetry as _telemetry
@@ -90,6 +90,95 @@ SAMPLE_STOP_TRIMMED = _telemetry.registry.counter(
     "over-generated burst-tail tokens discarded host-side past a stop "
     "sequence (their K/V writes were already null-block-redirected)")
 
+# router (serving/router.py; labeled by replica where it matters) ----------
+ROUTER_REQUESTS = _telemetry.registry.counter(
+    "mxtpu_router_requests",
+    "client requests accepted by the mxtpu-router front tier")
+ROUTER_RETRIES = _telemetry.registry.counter(
+    "mxtpu_router_retries",
+    "upstream attempts beyond the first (connect error / 503 / 429 "
+    "re-routed under the per-request retry budget)")
+ROUTER_FAILOVERS = _telemetry.registry.counter(
+    "mxtpu_router_failovers",
+    "requests that ultimately succeeded on a different replica than "
+    "the first one tried")
+ROUTER_EJECTIONS = _telemetry.registry.counter(
+    "mxtpu_router_ejections",
+    "replica ejections (health-loop breaker CLOSED/HALF_OPEN -> OPEN)")
+ROUTER_AFFINITY = _telemetry.registry.counter(
+    "mxtpu_router_affinity_routed",
+    "generation requests routed to their rendezvous-hash prefix owner")
+ROUTER_SPILLS = _telemetry.registry.counter(
+    "mxtpu_router_spills",
+    "generation requests spilled off their prefix owner because it was "
+    "overloaded, draining, or ejected")
+ROUTER_STREAM_ERRORS = _telemetry.registry.counter(
+    "mxtpu_router_stream_errors",
+    "streams terminated with an SSE error event after a mid-stream "
+    "replica death (tokens already on the wire - no silent failover)")
+ROUTER_REPLICA_STATE = _telemetry.registry.gauge(
+    "mxtpu_router_replica_state",
+    "per-replica router view (0 READY, 1 UNREADY, 2 DRAINING, "
+    "3 EJECTED, 4 DOWN)")
+ROUTER_REPLICAS_ELIGIBLE = _telemetry.registry.gauge(
+    "mxtpu_router_replicas_eligible",
+    "replicas currently eligible for new work")
+ROUTER_INFLIGHT = _telemetry.registry.gauge(
+    "mxtpu_router_inflight",
+    "client requests in flight through the router, per replica")
+ROUTER_INCIDENTS = _telemetry.registry.counter(
+    "mxtpu_router_incidents",
+    "correlated incident bundles written (ejection / "
+    "failover-exhaustion / drain-timeout), by reason")
+ROUTER_FEDERATION_STALE = _telemetry.registry.gauge(
+    "mxtpu_router_federation_stale",
+    "replicas whose cached metrics snapshot has aged past the "
+    "staleness horizon and is excluded from fleet totals")
+ROUTER_TRACE_FANOUT = _telemetry.registry.counter(
+    "mxtpu_router_trace_fanout",
+    "replica /trace fetches made while stitching fleet traces")
+ROUTER_MEMBERSHIP = _telemetry.registry.counter(
+    "mxtpu_router_membership_changes",
+    "fleet membership changes (POST/DELETE /admin/replicas), by "
+    "action=join|leave")
+
+# supervisor + autoscaler (serving/supervisor.py; control-plane series,
+# rendered once on the router /metrics — docs/observability.md) -----------
+SUPERVISE_SPAWNS = _telemetry.registry.counter(
+    "mxtpu_supervise_spawns",
+    "replica processes spawned by mxtpu-supervise (first launches and "
+    "restarts alike)")
+SUPERVISE_RESTARTS = _telemetry.registry.counter(
+    "mxtpu_supervise_restarts",
+    "replica restarts after a detected crash or hang (exit, /healthz "
+    "timeout), per replica slot")
+SUPERVISE_QUARANTINES = _telemetry.registry.counter(
+    "mxtpu_supervise_quarantines",
+    "replica slots quarantined by the flap breaker "
+    "(MXNET_SUPERVISE_MAX_RESTARTS within the window)")
+SUPERVISE_REPLICAS = _telemetry.registry.gauge(
+    "mxtpu_supervise_replicas",
+    "supervised replica processes currently alive")
+AUTOSCALE_EVENTS = _telemetry.registry.counter(
+    "mxtpu_autoscale_events",
+    "executed scale actions, by action=up|down (scale-down always "
+    "routes through /admin/drain)")
+AUTOSCALE_DECISIONS = _telemetry.registry.counter(
+    "mxtpu_autoscale_decisions",
+    "autoscale policy evaluations, by action=up|down|hold")
+AUTOSCALE_TARGET = _telemetry.registry.gauge(
+    "mxtpu_autoscale_target_replicas",
+    "fleet size the autoscaler is currently steering toward")
+AUTOSCALE_BURN = _telemetry.registry.gauge(
+    "mxtpu_autoscale_burn_rate",
+    "worst-model fleet SLO burn rate the last policy evaluation saw")
+AUTOSCALE_QUEUE = _telemetry.registry.gauge(
+    "mxtpu_autoscale_queue_depth",
+    "fleet-summed serve queue depth the last policy evaluation saw")
+AUTOSCALE_KV = _telemetry.registry.gauge(
+    "mxtpu_autoscale_kv_utilization",
+    "worst-replica KV-cache utilization the last policy evaluation saw")
+
 # histograms ---------------------------------------------------------------
 BATCH_SIZE = _telemetry.registry.histogram(
     "mxtpu_serve_batch_size",
@@ -118,6 +207,11 @@ SPEC_STEP = _telemetry.registry.histogram(
     "seconds per speculative step (k draft dispatches plus one verify; "
     "compare with mxtpu_generate_decode_step_seconds for the draft "
     "overhead per accepted-token burst)")
+ROUTER_UPSTREAM = _telemetry.registry.histogram(
+    "mxtpu_router_upstream_seconds",
+    "seconds per upstream attempt (router -> replica), successful or "
+    "not")
+
 # gauges -------------------------------------------------------------------
 QUEUE_DEPTH = _telemetry.registry.gauge(
     "mxtpu_serve_queue_depth",
@@ -167,6 +261,7 @@ DISPATCHES_PER_TOKEN = _telemetry.registry.gauge(
     "1/scan_steps at steady state on the scanned burst path, and "
     "1/(accepted burst) when speculation amortizes the verify "
     "dispatch)")
+
 
 # SLO plane (serving/slo.py; docs/observability.md) -------------------------
 SLO_AVAILABILITY = _telemetry.registry.gauge(

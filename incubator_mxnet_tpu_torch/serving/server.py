@@ -35,6 +35,10 @@ Routes:
   captured programs), ``/memory`` (per-device and per-owner bytes),
   ``/metrics`` (Prometheus text), ``/metrics.json``.
 * ``POST /admin/drain`` / ``/admin/undrain`` — the rolling-update pair.
+* ``POST /debug/profile?seconds=S`` — an on-demand ``torch.profiler``
+  capture of this process (:func:`.telemetry_device.capture_profile`):
+  200 ``{"profile": <artifact dir>}``, 400 for a bad ``seconds``, 409
+  with ``Retry-After`` while a capture runs, 500 when it fails.
 
 ``shutdown()`` is the SIGTERM-safe teardown (DRAINING: 503 on new work
 and on ``/readyz``; in-flight work finishes within ``MXNET_DRAIN_SECONDS``;
@@ -116,6 +120,7 @@ class _Handler(BaseJSONHandler):
         elif path == "/memory":
             self.send_json(200, _tdev.sample())
         elif path == "/metrics.json":
+            _m.refresh_kernel_launches()
             self.send_json(200, _thttp.metrics_state_body())
         elif path in ("/metrics", "/"):
             _m.refresh_kernel_launches()
@@ -138,6 +143,9 @@ class _Handler(BaseJSONHandler):
     def _post(self):
         ms = self.server.model_server
         path = self.path.split("?", 1)[0]
+        if path == "/debug/profile":
+            self._profile()
+            return
         if path == "/admin/drain":
             ms.begin_drain()
             self.send_json(200, {"draining": True,
@@ -198,6 +206,29 @@ class _Handler(BaseJSONHandler):
                 headers=_retry_after_header(e.retry_after))
         except (ValueError, TypeError, MXNetError) as e:
             err(400, {"error": str(e)})
+
+    def _profile(self):
+        """``POST /debug/profile?seconds=S``: an on-demand profile of this
+        process; blocks this handler thread for the (clamped) window,
+        then names the artifact directory.  400 for a bad ``seconds``,
+        409 (+ ``Retry-After``) while another capture runs, 500 when the
+        capture fails."""
+        params = parse_qs(urlsplit(self.path).query)
+        try:
+            seconds = float(params.get("seconds", ["1.0"])[0])
+        except ValueError:
+            self.send_json(400, {"error": "seconds must be a number"})
+            return
+        try:
+            artifact = _tdev.capture_profile(seconds)
+        except _tdev.CaptureBusy as e:
+            self.send_json(409, {"error": str(e)},
+                           headers=_retry_after_header(1.0))
+            return
+        except Exception as e:
+            self.send_json(500, {"error": f"profiler capture failed: {e}"})
+            return
+        self.send_json(200, {"profile": artifact})
 
     def _generate(self, ms, name, payload, rid):
         """The ``:generate`` body.  Admission errors raise into

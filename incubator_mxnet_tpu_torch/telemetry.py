@@ -41,7 +41,8 @@ from .base import MXNetError, getenv_bool, getenv_int
 __all__ = [
     "Topic", "EventBus", "bus", "SPAN", "FAULT", "HEALTH",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
-    "counter", "gauge", "histogram",
+    "counter", "gauge", "histogram", "merge_states",
+    "render_prometheus_state",
     "Span", "Tracer", "tracer", "trace_span", "new_request_id",
     "start", "stop", "enabled", "reset",
     "snapshot", "render_prometheus", "counters_flat",
@@ -293,6 +294,55 @@ class Histogram:
             return {"count": self._count, "sum": self._sum,
                     "max": self._max, "samples": list(self._samples)}
 
+    @staticmethod
+    def merge(states, max_samples: int = 4096) -> dict:
+        """Union N :meth:`state` exports into one state.  count/sum/max
+        merge exactly; reservoirs concatenate, and when the union
+        overflows ``max_samples`` each source keeps its proportional
+        share by evenly spaced picks over its sorted samples (no RNG, so
+        merged percentiles are reproducible across processes)."""
+        srcs = [s for s in states if s and s.get("count")]
+        count = sum(int(s["count"]) for s in srcs)
+        total = sum(float(s["sum"]) for s in srcs)
+        maxes = [s["max"] for s in srcs if s.get("max") is not None]
+        pools = [sorted(float(v) for v in (s.get("samples") or ()))
+                 for s in srcs]
+        pools = [p for p in pools if p]
+        kept = sum(len(p) for p in pools)
+        if kept <= max_samples:
+            merged = sorted(v for p in pools for v in p)
+        else:
+            merged = []
+            for p in pools:
+                k = max(1, int(round(max_samples * len(p) / kept)))
+                k = min(k, len(p))
+                if k == len(p):
+                    merged.extend(p)
+                elif k == 1:
+                    merged.append(p[len(p) // 2])
+                else:
+                    step = (len(p) - 1) / (k - 1)
+                    merged.extend(p[int(round(j * step))]
+                                  for j in range(k))
+            merged.sort()
+            del merged[max_samples:]
+        return {"count": count, "sum": total,
+                "max": max(maxes) if maxes else None, "samples": merged}
+
+    @staticmethod
+    def stats_of(state: dict) -> dict:
+        """The :meth:`stats` summary of a :meth:`state`/:meth:`merge`
+        export (nearest-rank percentiles over its reservoir)."""
+        data = sorted(float(v) for v in (state.get("samples") or ()))
+        if not data:
+            return {"count": 0, "sum": 0.0, "p50": None, "p95": None,
+                    "p99": None, "max": None}
+        return {"count": int(state.get("count") or 0),
+                "sum": float(state.get("sum") or 0.0),
+                "p50": _nearest_rank(data, 0.5),
+                "p95": _nearest_rank(data, 0.95),
+                "p99": _nearest_rank(data, 0.99), "max": state.get("max")}
+
     def _reset(self):
         with self._lock:
             self._samples.clear()
@@ -406,6 +456,81 @@ class MetricsRegistry:
 
 
 registry = MetricsRegistry()
+
+
+def merge_states(states, max_samples: int = 4096) -> dict:
+    """Fold N :meth:`MetricsRegistry.export_state` exports into one state
+    of the same shape: counters and gauges sum per label set, histograms
+    union via :meth:`Histogram.merge`.  Summed gauges are fleet totals
+    (inflight, queue depth, ``mxtpu_kernel_launches``); the router's
+    fleet ``/slo`` federates the ratio-style SLO state from merged
+    windows instead."""
+    out = {"counters": {}, "gauges": {}, "histograms": {}}
+    for kind in ("counters", "gauges"):
+        for st in states:
+            for name, m in (st or {}).get(kind, {}).items():
+                dst = out[kind].setdefault(
+                    name, {"help": m.get("help", ""), "values": {}})
+                for label, val in (m.get("values") or {}).items():
+                    dst["values"][label] = \
+                        dst["values"].get(label, 0.0) + float(val)
+    hist_names = {}
+    for st in states:
+        for name, hs in (st or {}).get("histograms", {}).items():
+            hist_names.setdefault(name, []).append(hs)
+    for name, parts in hist_names.items():
+        merged = Histogram.merge(parts, max_samples=max_samples)
+        merged["help"] = next(
+            (p.get("help") for p in parts if p.get("help")), "")
+        out["histograms"][name] = merged
+    return out
+
+
+def render_prometheus_state(state: dict, extra_labels: dict = None,
+                            type_lines: bool = True) -> str:
+    """Prometheus text exposition of a :func:`merge_states` /
+    :meth:`MetricsRegistry.export_state` state.  ``extra_labels`` are
+    appended to every series."""
+    extra = ",".join(f'{k}="{v}"' for k, v in (extra_labels or {}).items())
+    lines = []
+
+    def fmt_labels(label_str):
+        parts = [f'{k}="{v}"' for k, v in
+                 (kv.split("=", 1) for kv in label_str.split(",") if kv)]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    for kind, ptype in (("counters", "counter"), ("gauges", "gauge")):
+        for name in sorted((state or {}).get(kind, {})):
+            m = state[kind][name]
+            if type_lines:
+                if m.get("help"):
+                    lines.append(f"# HELP {name} {m['help']}")
+                lines.append(f"# TYPE {name} {ptype}")
+            vals = m.get("values") or {}
+            if not vals:
+                lines.append(f"{name}{fmt_labels('')} 0")
+            for label, val in sorted(vals.items()):
+                lines.append(f"{name}{fmt_labels(label)} {_fmt_num(val)}")
+    for name in sorted((state or {}).get("histograms", {})):
+        hs = state["histograms"][name]
+        if type_lines:
+            if hs.get("help"):
+                lines.append(f"# HELP {name} {hs['help']}")
+            lines.append(f"# TYPE {name} summary")
+        s = Histogram.stats_of(hs)
+        for q, k in (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99")):
+            if s[k] is not None:
+                lines.append(f'{name}{{quantile="{q}"'
+                             + (f",{extra}" if extra else "")
+                             + f'}} {repr(s[k])}')
+        tail = fmt_labels("")
+        lines.append(f"{name}_sum{tail} {repr(float(s['sum']))}")
+        lines.append(f"{name}_count{tail} {int(s['count'])}")
+        if s["max"] is not None:
+            lines.append(f"{name}_max{tail} {repr(s['max'])}")
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def counter(name: str, help: str = "") -> Counter:

@@ -1,6 +1,5 @@
-"""Device-memory observability of the port (counterpart of
-``incubator_mxnet_tpu/telemetry_device.py``, without the profiler
-capture, which comes in a later slice).
+"""Device observability of the port (counterpart of
+``incubator_mxnet_tpu/telemetry_device.py``).
 
 * **Per-owner attribution** — owners register a byte-count callback
   (:func:`register_owner`: ``kv:<model>``, ``params:<model>``) and
@@ -17,6 +16,11 @@ capture, which comes in a later slice).
   :func:`report_oom` publishes the FAULT ``oom`` event that the flight
   recorder turns into one dump carrying :func:`memory_breakdown` and
   :func:`program_report`.
+* **On-demand profile capture** — :func:`capture_profile` runs
+  ``torch.profiler`` (host ops, and the card's kernels and copies when
+  the process uses CUDA) for a clamped window and writes a Chrome trace
+  under ``MXNET_PROFILE_DIR``; ``POST /debug/profile`` calls it on a
+  live server.
 
 Memory numbers come from the CUDA caching allocator's host-side
 statistics (``torch.cuda.memory_stats`` per device): reading them issues
@@ -25,10 +29,14 @@ A background sampler (:func:`start_sampler`) refreshes the gauges every
 ``MXNET_DEVICE_MEM_INTERVAL_SECONDS`` (0, the default, disables it)."""
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import threading
+import time
 from typing import Callable, Dict, Optional
 
-from .base import getenv_float
+from .base import MXNetError, getenv, getenv_float
 from . import telemetry as _telemetry
 from . import telemetry_ring as _ring
 
@@ -36,8 +44,16 @@ __all__ = [
     "register_owner", "owned_bytes", "register_inventory",
     "memory_breakdown", "program_report", "sample",
     "start_sampler", "stop_sampler", "is_oom", "report_oom",
-    "default_sample_interval",
+    "CaptureBusy", "capture_profile", "capture_active",
+    "default_profile_dir", "default_sample_interval",
 ]
+
+
+def default_profile_dir() -> str:
+    """``MXNET_PROFILE_DIR``: where profile captures land (default
+    ``<tmpdir>/mxtpu_profile``)."""
+    return getenv("MXNET_PROFILE_DIR") \
+        or os.path.join(tempfile.gettempdir(), "mxtpu_profile")
 
 
 def default_sample_interval() -> float:
@@ -52,6 +68,9 @@ _g_owned = _telemetry.registry.gauge(
 _g_unattributed = _telemetry.registry.gauge(
     "mxtpu_device_unattributed_bytes",
     "bytes held by live tensors that no registered owner claims")
+_c_captures = _telemetry.registry.counter(
+    "mxtpu_profile_captures",
+    "completed on-demand profiler captures")
 _c_oom = _telemetry.registry.counter(
     "mxtpu_oom_failures",
     "device out-of-memory dispatch failures, by site")
@@ -207,6 +226,102 @@ def report_oom(site: str, err: BaseException, **ctx) -> None:
     _telemetry.FAULT.publish(site=site, event="oom",
                              error=f"{type(err).__name__}: {err}"[:300],
                              **ctx)
+
+
+# ---------------------------------------------------------------------------
+# On-demand profile capture
+# ---------------------------------------------------------------------------
+class CaptureBusy(MXNetError):
+    """A profile capture is already running in this process (one at a
+    time: the profiler is process-wide)."""
+
+
+_capture_lock = threading.Lock()
+_capture_active = False
+_capture_seq = 0
+
+#: capture bounds: the floor keeps a capture observable, the ceiling keeps
+#: an HTTP-triggered capture from parking a server thread for minutes
+CAPTURE_MIN_SECONDS = 0.05
+CAPTURE_MAX_SECONDS = 60.0
+
+
+def capture_active() -> bool:
+    return _capture_active
+
+
+def _gated(step, held: dict, key: str) -> None:
+    """Run ``step()`` holding :data:`.cuda_graphs.DISPATCH_GATE`
+    exclusive, and note in ``held[key]`` how long it waited for the gate
+    and how long it held it (no dispatch starts meanwhile)."""
+    from .cuda_graphs import DISPATCH_GATE
+    t0 = time.perf_counter()
+    with DISPATCH_GATE.exclusive():
+        t1 = time.perf_counter()
+        step()
+    held[key] = {"gate_wait_s": t1 - t0,
+                 "gate_held_s": time.perf_counter() - t1}
+
+
+def capture_profile(seconds: float, out_dir: Optional[str] = None) -> str:
+    """Profile this process for ``seconds`` (clamped to [0.05, 60]) and
+    return the path of a fresh artifact directory
+    ``<out_dir or MXNET_PROFILE_DIR>/capture_<pid>_<seq>`` holding the
+    Chrome trace ``trace.json``.  Blocks for the window.  Raises
+    :class:`CaptureBusy` while another capture runs (HTTP 409 on the
+    server) and lets every other failure propagate (HTTP 500).
+
+    ``torch.profiler`` records the host ops of the calling thread and,
+    when this process has initialised CUDA, every kernel and copy the
+    card runs in the window, whichever thread launched it, the kernels of
+    replayed CUDA graphs included.  The profiler stops holding
+    :data:`.cuda_graphs.DISPATCH_GATE` exclusive, so no serving program
+    is dispatched meanwhile: its stop synchronises the device, which
+    deadlocked against another thread's graph launch under CUPTI.  Its
+    start needs no gate (the first takes seconds, and serving goes on).
+    ``capture.json`` beside the trace holds the window, how long the
+    start and the export took, and how long the stop waited for the gate
+    and held it."""
+    global _capture_active, _capture_seq
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    seconds = min(CAPTURE_MAX_SECONDS,
+                  max(CAPTURE_MIN_SECONDS, float(seconds)))
+    with _capture_lock:
+        if _capture_active:
+            raise CaptureBusy("profiler capture already in progress")
+        _capture_active = True
+        _capture_seq += 1
+        seq = _capture_seq
+    try:
+        base = out_dir or default_profile_dir()
+        path = os.path.join(base, f"capture_{os.getpid()}_{seq:03d}")
+        os.makedirs(path, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            if ProfilerActivity.CUDA not in \
+                    torch.profiler.supported_activities():
+                raise MXNetError("this torch build cannot trace CUDA "
+                                 "activity (no kineto/CUPTI)")
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        t0 = time.perf_counter()
+        prof.start()
+        held = {"window_s": seconds, "start_s": time.perf_counter() - t0}
+        try:
+            time.sleep(seconds)
+        finally:
+            _gated(prof.stop, held, "stop")
+        t0 = time.perf_counter()
+        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+        held["export_s"] = time.perf_counter() - t0
+        with open(os.path.join(path, "capture.json"), "w") as f:
+            json.dump(held, f)
+        _c_captures.inc()
+    finally:
+        with _capture_lock:
+            _capture_active = False
+    return path
 
 
 _ring.recorder.register_provider("device_memory", memory_breakdown)

@@ -3,7 +3,9 @@
 ``jax`` nor the JAX package, ``chip_smoke.py`` imports neither, and an
 entry point called without ``device`` on a host without a GPU raises
 instead of running on the CPU (the serving models, BERT and the
-one-device mesh)."""
+one-device mesh).  The fleet's control plane (``serving.router``,
+``serving.supervisor``) imports and builds its objects without touching
+CUDA: no call reaches ``torch.cuda``'s lazy initialisation."""
 import ast
 import json
 import os
@@ -56,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
                 "parallel.mesh", "parallel.spmd", "telemetry",
                 "telemetry_ring", "telemetry_device", "telemetry_http",
                 "http_util", "fault", "health", "_cli", "serving.server",
-                "serving.lifecycle", "serving.slo", "serving.metrics"):
+                "serving.lifecycle", "serving.slo", "serving.metrics",
+                "serving.router", "serving.supervisor", "cuda_graphs"):
         assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
@@ -77,3 +80,36 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
             names.append(node.module)
     assert "incubator_mxnet_tpu_torch" in {n.split(".")[0] for n in names}
     assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []
+
+
+_CONTROL_PLANE = r"""
+import json, sys, torch
+calls = []
+real = torch.cuda._lazy_init
+def spy():
+    calls.append(1)
+    return real()
+torch.cuda._lazy_init = spy
+from incubator_mxnet_tpu_torch._cli import router_main, supervise_main
+from incubator_mxnet_tpu_torch.serving.router import Router
+from incubator_mxnet_tpu_torch.serving.supervisor import (Supervisor,
+                                                          scale_decision,
+                                                          ScaleSignals)
+r = Router(["127.0.0.1:9"], port=0)
+s = Supervisor([sys.executable, "-c", "pass", "{port}"], autoscale=False)
+scale_decision(ScaleSignals(replicas=1))
+r.render_fleet_metrics()
+print(json.dumps({"lazy_init_calls": len(calls),
+                  "initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_router_and_supervisor_never_touch_cuda():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = {k: v for k, v in env.items() if not k.startswith("MXNET_")}
+    out = subprocess.run([sys.executable, "-c", _CONTROL_PLANE], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"lazy_init_calls": 0, "initialized": False}

@@ -279,7 +279,10 @@ def test_verbs_the_port_does_not_serve_answer_400(server):
         code, _, text = _post(server.port, {"inputs": [[1.0]]},
                               path=f"/v1/models/g:{verb}")
         assert code == 400 and "Queue A item 9" in json.loads(text)["error"]
-    assert _post(server.port, {}, path="/debug/profile")[0] == 404
+    # the profile route is served since the fleet slice; a bad window is
+    # refused before any capture starts
+    assert _post(server.port, {},
+                 path="/debug/profile?seconds=nope")[0] == 400
     with pytest.raises(MXNetError):
         server.add_model("x", object())
 
