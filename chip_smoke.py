@@ -8,6 +8,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --windows  # measure the serving windows only
     python3 chip_smoke.py --serve REF.json  # the HTTP phase only
     python3 chip_smoke.py --fleet REF.json  # the fleet phase only
+    python3 chip_smoke.py --gluon    # the Gluon training loop only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -141,7 +142,27 @@ Phases, each of which raises (exit code 1) on any failure:
    ``TransformerEncoderCell`` (B = 32, T = 128, ragged valid lengths)
    must give the same input and parameter gradients through the kernels
    as through the plain attention on the card, within ``CELL_TOL`` of
-   each gradient's largest value.
+   each gradient's largest value;
+7. Gluon loop ("gluon:" lines): ``example/language_model/train_gpt.py``'s
+   loop as a user writes it: ``gpt2_124m`` at full width and depth
+   (dropout 0), ``Normal(0.02)`` from the seed, ``hybridize()``,
+   ``SoftmaxCrossEntropyLoss``, ``gluon.Trainer(net.collect_params(),
+   "adam", {"learning_rate": 1e-4})``; per batch of B = 8 x T = 1024 of
+   ``train_gpt.py``'s sequences, one ``autograd.record()`` forward,
+   ``L.backward()`` and ``trainer.step(1)``.  3 steps of the fused
+   Trainer (K8) equal 3 steps of a ``fused=False`` Trainer over a second
+   net of the same seed, bit for bit in every loss and parameter; then 5
+   timed steps (CUDA events, median) in their own launch-count window,
+   which must launch K1, K6 and K7 exactly 12 times per step, K8 once per
+   step and nothing else; one profiled step (host launches, idle share);
+   peak allocated bytes; every loss finite and the last below the first.
+   Then a ``skip_nonfinite=True`` Trainer takes a clean step, a step
+   poisoned by a ``trainer.grad:nonfinite`` fault (every parameter and
+   Adam state bit for bit unchanged, the gradients zeroed, exactly one
+   step counted skipped) and a clean step that updates: 3 all-finite
+   launches and 3 of K8.  Before the phases, the all-finite kernel is
+   held to its plain version over BERT-large's 399 leaves (finite, NaN,
+   +Inf, -Inf) and timed beside K8.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
@@ -174,6 +195,8 @@ LOGPROB_TOL = 1e-3      # served logprobs vs the full-prefix forward: K1/K2
 GRAPH_STEPS = 16        # scripted steps of the graph-against-eager check
 TRAIN_B, TRAIN_T = 32, 128
 TRAIN_CHECK, TRAIN_STEPS = 3, 5   # graph-vs-eager steps, timed steps
+GLUON_B, GLUON_T, GLUON_LR = 8, 1024, 1e-4   # the Gluon loop's batch, lr
+GPT_LAYERS, GPT_VOCAB = 12, 50257
 BERT_HEADS, BERT_LAYERS, BERT_VOCAB = 16, 24, 30522
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) peak and
 # the dense TF32 tensor-core peak
@@ -591,10 +614,11 @@ def check_k6_k7(fa, dev, rng):
     """K1 with lse, K6 flash_bwd_dq and K7 flash_bwd_dkv against the plain
     forward-with-lse and backward on the same inputs: BERT-large's
     attention (B=32, H=16, T=128, D=64, dense, no mask), a ragged key mask
-    at T=512 (B=8) and causal at T=300 with a mask.  Also K1's lse through
-    the public ``flash_attention_lse``.  Timed at the first shape, the
-    training path's."""
-    H, D = BERT_HEADS, HEAD_DIM
+    at T=512 (B=8), causal at T=300 with a mask, and the Gluon loop's
+    ``gpt2_124m`` attention (B=8, H=12, T=1024, causal, no mask).  Also
+    K1's lse through the public ``flash_attention_lse``.  Timed at the
+    first shape, the training path's."""
+    D = HEAD_DIM
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
 
@@ -608,8 +632,11 @@ def check_k6_k7(fa, dev, rng):
         return torch.from_numpy(m).to(dev)
 
     e_lse = e6 = e7 = 0.0
-    for B, T, causal, masked in ((TRAIN_B, TRAIN_T, False, False),
-                                 (8, 512, False, True), (2, 300, True, True)):
+    for B, H, T, causal, masked in (
+            (TRAIN_B, BERT_HEADS, TRAIN_T, False, False),
+            (8, BERT_HEADS, 512, False, True),
+            (2, BERT_HEADS, 300, True, True),
+            (GLUON_B, HEADS, GLUON_T, True, False)):
         q, k, v, g = (rand(B * H, T, D) for _ in range(4))
         mask = key_mask(B, T) if masked else None
         bias = fa._key_bias(mask, B, T, dev)
@@ -634,7 +661,10 @@ def check_k6_k7(fa, dev, rng):
               f"dq {ea:.3e} dk/dv/dbs {eb:.3e} (tol {KERNEL_TOL}, relative "
               f"past 1)", flush=True)
         e_lse, e6, e7 = max(e_lse, el), max(e6, ea), max(e7, eb)
+        del q, k, v, g, out, lse, pout, plse, dd, dq, dk, dv, pdq, pdk, pdv
+        torch.cuda.empty_cache()
     # the public entry: (B, H, T, D) with a (B, T) mask
+    H = BERT_HEADS
     B, T = 4, 200
     q, k, v = (rand(B, H, T, D) for _ in range(3))
     mask = key_mask(B, T)
@@ -801,6 +831,94 @@ def check_k8(fa, dev):
             "max_abs_err": err, "ms": k8_ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
             "eager_ms": k8_eager,
+            "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
+                     "parameters"}
+
+
+def check_all_finite(fa, dev):
+    """The guard's all-finite kernel (``fused.all_finite``, one launch
+    over every leaf) against its plain version (the per-leaf
+    ``isfinite().all()`` loop) over BERT-large's 399 leaf shapes: finite
+    leaves, then one NaN, one +Inf and one -Inf in a leaf each (in the
+    middle of a large leaf, and in the last element of an unaligned
+    leaf); then a guarded K8 with the flag set must leave every weight, m
+    and v bit for bit unchanged and zero every gradient.  Timed against
+    its bound (4 bytes read per parameter) and against a check built on
+    ``torch._foreach_norm`` (the norms' sum is finite exactly where every
+    element is)."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    from incubator_mxnet_tpu_torch.parallel import optim as fopt
+    shapes = bert_large_shapes()
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    g = [torch.randn(s, device=dev, generator=gen) * 1e-3 for s in shapes]
+    big = max(range(len(g)), key=lambda i: g[i].numel())
+    odd = next(i for i in range(len(g)) if g[i].numel() % 4)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cases = [("finite", None, None, 0.0)]
+    cases += [(f"{what} in leaf {i}", i, pos, val)
+              for what, val in (("NaN", float("nan")), ("+Inf", math.inf),
+                                ("-Inf", -math.inf))
+              for i, pos in ((big, g[big].numel() // 2),
+                             (odd, g[odd].numel() - 1))]
+    for what, i, pos, val in cases:
+        if i is not None:
+            keep = g[i].view(-1)[pos].item()
+            g[i].view(-1)[pos] = val
+        got = int(fused.all_finite(g, flag).item())
+        want = int(fused._plain_all_finite(
+            g, torch.zeros(1, dtype=torch.int32, device=dev)).item())
+        check(got == want == (0 if i is None else 1),
+              f"all_finite, {what}: kernel {got}, plain {want}")
+        if i is not None:
+            g[i].view(-1)[pos] = keep
+    # a set flag: K8 writes nothing but zeros into the gradients
+    w = [torch.randn(s, device=dev, generator=gen) * 0.02 for s in shapes]
+    m = [torch.randn(s, device=dev, generator=gen) * 1e-4 for s in shapes]
+    v = [x * x for x in g]
+    before = [[x.clone() for x in xs] for xs in (w, m, v)]
+    lr_t = fopt.bias_corrected_lr(1e-4, 0.9, 0.999, torch.tensor(
+        3, dtype=torch.int32, device=dev))
+    g2 = [x.clone() for x in g]
+    g2[odd].view(-1)[-1] = float("nan")
+    fused.all_finite(g2, flag)
+    fused.adam_update(w, g2, m, v, lr_t, nonfinite=flag)
+    torch.cuda.synchronize()
+    for what, a, b in zip("wmv", (w, m, v), before):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"guarded K8 with the flag set changed {what}")
+    check(all(not bool(x.any()) for x in g2),
+          "guarded K8 with the flag set left a gradient non-zero")
+    print(f"all_finite over {len(shapes)} leaves ({n} parameters): kernel "
+          f"== plain on {len(cases)} cases (finite; NaN, +Inf, -Inf in a "
+          f"large and an unaligned leaf); a set flag leaves w, m, v bit for "
+          f"bit and zeroes the gradients", flush=True)
+    del w, m, v, before, g2
+    torch.cuda.empty_cache()
+
+    def kernel():
+        fused.all_finite(g, flag)
+
+    def library():
+        return torch.isfinite(torch.stack(torch._foreach_norm(g)).sum())
+
+    af_ms, af_eager = device_ms(kernel, [()], 20), time_ms(kernel, [()], 20)
+    plain = time_ms(lambda: fused._plain_all_finite(g, flag), [()], 3)
+    lib_ms = device_ms(library, [()], 20)
+    bnd, by = bound_ms(4 * n, n)
+    print(f"time: all_finite, {len(shapes)} leaves, {n} parameters: "
+          f"{af_ms:.4f} ms on the card ({af_eager:.4f} ms per eager call), "
+          f"bound {bnd:.4f} ms by {by} (4 bytes per parameter at 3.35 "
+          f"TB/s), plain {plain:.4f} ms, torch._foreach_norm check "
+          f"{lib_ms:.4f} ms [{CARD}]", flush=True)
+    del g
+    torch.cuda.empty_cache()
+    return {"name": "all_finite",
+            "source": SOURCES + "multi_tensor_adam.cu",
+            "replaces": "incubator_mxnet_tpu/optimizer/fused.py:638",
+            "max_abs_err": 0.0, "ms": af_ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "eager_ms": af_eager,
             "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
                      "parameters"}
 
@@ -2743,6 +2861,235 @@ def check_cell_grads(fa, dev):
           f"{CELL_TOL})", flush=True)
 
 
+# ------------------------------------------------------------ phase 7
+def gpt_batch(rng, B, T, V):
+    """``example/language_model/train_gpt.py``'s ``make_batch``:
+    arithmetic sequences mod ``V``, stride 1-3, as (ids, next ids)."""
+    start = rng.randint(0, V, (B, 1))
+    stride = rng.randint(1, 4, (B, 1))
+    seq = (start + stride * np.arange(T + 1)[None]) % V
+    return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+
+def drive_gluon(fa, card):
+    """``train_gpt.py``'s loop as a user writes it, on the card:
+    ``gpt2_124m`` at full width and depth (dropout 0), ``Normal(0.02)``
+    from the seed, ``hybridize()``, ``SoftmaxCrossEntropyLoss`` and
+    ``gluon.Trainer(net.collect_params(), "adam", ...)``, one
+    ``autograd.record()`` forward, ``L.backward()`` and ``trainer.step(1)``
+    per batch of ``GLUON_B`` x ``GLUON_T`` tokens.  3 steps of the fused
+    trainer (K8) equal 3 steps of a ``fused=False`` trainer over a second
+    net of the same seed, bit for bit in every loss and parameter; 5
+    timed steps in a launch-count window (K1, K6, K7 12 times per step,
+    K8 once, nothing else); one profiled step; the ``skip_nonfinite``
+    guard over a ``trainer.grad:nonfinite`` step.  Returns the counts of
+    the timed window and of the guarded run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd as ag, fault
+    from incubator_mxnet_tpu_torch import telemetry
+    from incubator_mxnet_tpu_torch.models import gpt
+    V, B, T = GPT_VOCAB, GLUON_B, GLUON_T
+
+    def build():
+        mx.random.seed(SEED)
+        net = gpt.gpt2_124m(vocab_size=V, dropout=0.0)
+        net.initialize(init=mx.init.Normal(0.02))
+        net.hybridize()
+        return net
+
+    t0 = time.perf_counter()
+    net, ref_net = build(), build()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    opt = {"learning_rate": GLUON_LR}
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", opt)
+    ref = mx.gluon.Trainer(ref_net.collect_params(), "adam", opt,
+                           fused=False)
+    params = net.collect_params()
+    n_params = sum(p.data().size for p in params.values())
+    print(f"gluon: gpt2_124m ({GPT_LAYERS} x 768, vocab {V}) on "
+          f"{net.device}, {n_params} parameters in {len(params)} leaves, "
+          f"Normal(0.02) seed {SEED}, hybridized, built twice in "
+          f"{time.perf_counter() - t0:.1f} s; B={B} T={T} fp32, "
+          f"gluon.Trainer adam lr {GLUON_LR} [{card}]", flush=True)
+    rng = np.random.RandomState(SEED)
+
+    def step(n, tr, x, y):
+        with ag.record():
+            out = n(mx.nd.array(x, dtype="int32"))
+            L = loss_fn(out.reshape((-1, V)),
+                        mx.nd.array(y.reshape(-1).astype(np.float32))).mean()
+        L.backward()
+        tr.step(1)
+        return L
+
+    losses, ref_losses = [], []
+    for _ in range(TRAIN_CHECK):
+        x, y = gpt_batch(rng, B, T, V)
+        losses.append(float(step(net, trainer, x, y).asnumpy()))
+        ref_losses.append(float(step(ref_net, ref, x, y).asnumpy()))
+    check(losses == ref_losses, f"fused losses {losses} != loop losses "
+          f"{ref_losses}")
+    ref_params = ref_net.collect_params()
+    for (name, p), q in zip(params.items(), ref_params.values()):
+        check(torch.equal(p.data()._data, q.data()._data),
+              f"gluon: parameter {name} of the fused trainer differs from "
+              f"the loop's after {TRAIN_CHECK} steps")
+    print(f"gluon: {TRAIN_CHECK} steps of the fused Trainer (K8) equal "
+          f"{TRAIN_CHECK} of a fused=False Trainer bit for bit (losses "
+          f"{losses} and all {len(params)} parameters)", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = [gpt_batch(rng, B, T, V) for _ in range(TRAIN_STEPS)]
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    timed = []
+    fa.reset_launch_counts()                 # --- the Gluon loop
+    events[0].record()
+    for i, (x, y) in enumerate(batches):
+        timed.append(step(net, trainer, x, y))
+        events[i + 1].record()
+    events[-1].synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the Gluon loop
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = float(np.median(step_ms))
+    x, y = gpt_batch(rng, B, T, V)
+    prof, _ = profile_window(lambda: None,
+                             lambda: timed.append(step(net, trainer, x, y)))
+    losses += [float(L.asnumpy()) for L in timed]
+    print(f"gluon: {ms:.2f} ms per step (median of {TRAIN_STEPS}, CUDA "
+          f"events; steps {[round(v, 2) for v in step_ms]}), "
+          f"{B * T * 1e3 / ms:.1f} tokens/s; one profiled step: wall "
+          f"{prof['wall_ms']:.2f} ms (median of 3), device "
+          f"{prof['device_ms']:.2f} ms in {prof['device_ops']} kernels and "
+          f"copies, {prof['host_launches']} host launches, idle share "
+          f"{prof['idle_share']:.3f}; peak {peak} bytes allocated "
+          f"({peak / 2 ** 30:.2f} GiB) [{card}]", flush=True)
+    print(f"gluon: launches in the {TRAIN_STEPS}-step window {counts}",
+          flush=True)
+    per_step = {"flash_fwd": GPT_LAYERS, "flash_bwd_dq": GPT_LAYERS,
+                "flash_bwd_dkv": GPT_LAYERS, "multi_tensor_adam": 1}
+    for name, n in counts.items():
+        expect = per_step.get(name, 0) * TRAIN_STEPS
+        check(n == expect, f"Gluon loop: kernel {name} launched {n} times, "
+              f"expected {expect}")
+    print(f"gluon: losses {[round(v, 5) for v in losses]}", flush=True)
+    check(all(math.isfinite(v) for v in losses), "gluon: a non-finite loss")
+    check(losses[-1] < losses[0], f"gluon: loss did not fall: {losses[0]} "
+          f"-> {losses[-1]}")
+    del trainer, net
+    torch.cuda.empty_cache()
+
+    # the guard: one poisoned step changes nothing and is counted
+    skipped = []
+
+    def on_fault(site="?", event="?", **kw):
+        if event == "skipped_step":
+            skipped.append(site)
+
+    guarded = mx.gluon.Trainer(ref_params, "adam", opt, skip_nonfinite=True)
+    telemetry.FAULT.subscribe(on_fault)
+    fa.reset_launch_counts()                 # --- the guarded run
+    try:
+        x, y = gpt_batch(rng, B, T, V)
+        step(ref_net, guarded, x, y)
+        snap = [p.data()._data.clone() for p in ref_params.values()]
+        states = [s._data.clone() for st in guarded._updaters.states.values()
+                  for s in st]
+        fault.install_plan("trainer.grad:nonfinite@1")
+        try:
+            x, y = gpt_batch(rng, B, T, V)
+            step(ref_net, guarded, x, y)
+        finally:
+            fault.clear_plan()
+        guarded.sync_nonfinite_guard()
+        same = all(torch.equal(p.data()._data, s)
+                   for p, s in zip(ref_params.values(), snap))
+        same_states = all(torch.equal(s._data, t) for s, t in zip(
+            (s for st in guarded._updaters.states.values() for s in st),
+            states))
+        zero = all(not bool(p.grad()._data.any())
+                   for p in ref_params.values())
+        n_skipped = len(skipped)
+        x, y = gpt_batch(rng, B, T, V)
+        step(ref_net, guarded, x, y)
+        torch.cuda.synchronize()
+        guard_counts = dict(fa.launch_counts)   # --- end of the guarded run
+        moved = not all(torch.equal(p.data()._data, s)
+                        for p, s in zip(ref_params.values(), snap))
+        guarded.sync_nonfinite_guard()
+    finally:
+        telemetry.FAULT.unsubscribe(on_fault)
+    print(f"gluon: skip_nonfinite over a trainer.grad:nonfinite step: "
+          f"parameters {'bit for bit' if same else 'CHANGED'}, Adam states "
+          f"{'bit for bit' if same_states else 'CHANGED'}, gradients "
+          f"{'zeroed' if zero else 'NOT zeroed'}, {n_skipped} step(s) "
+          f"counted skipped, the next step "
+          f"{'updates' if moved else 'does NOT update'}; launches "
+          f"{guard_counts}",
+          flush=True)
+    check(same and same_states and zero, "gluon: the guarded poisoned step "
+          "changed a parameter or a state, or left a gradient")
+    check(n_skipped == 1 and len(skipped) == 1,
+          f"gluon: {len(skipped)} skipped steps counted, expected 1")
+    check(moved, "gluon: the step after the skipped one did not update")
+    check(guard_counts.get("all_finite") == 3
+          and guard_counts.get("multi_tensor_adam") == 3,
+          f"gluon: guarded run launches {guard_counts}, expected 3 "
+          "all_finite and 3 multi_tensor_adam")
+    gluon_update_times(ref_params, guarded, card)
+    del guarded, ref, ref_net
+    torch.cuda.empty_cache()
+    return counts, guard_counts
+
+
+def gluon_update_times(params, trainer, card):
+    """K8 and the all-finite pass over the Gluon net's own leaves (copies
+    of its weights, gradients and Adam states), timed on the card as the
+    kernel rows are, beside their bounds (28 and 4 bytes per
+    parameter)."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    from incubator_mxnet_tpu_torch.parallel import optim as fopt
+    states = trainer._updaters.states
+    w = [p.data()._data.detach().clone() for p in params.values()]
+    g = [p.grad()._data.clone() for p in params.values()]
+    m = [states[i][0]._data.clone() for i in range(len(w))]
+    v = [states[i][1]._data.clone() for i in range(len(w))]
+    dev = w[0].device
+    lr_t = fopt.bias_corrected_lr(GLUON_LR, 0.9, 0.999, torch.tensor(
+        9, dtype=torch.int32, device=dev))
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = sum(x.numel() for x in w)
+    # the all-finite kernel against its plain version over these leaves:
+    # finite, then a NaN, +Inf or -Inf in the first and the last leaf
+    plain_flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cases = [(None, None, None)] + [(leaf, pos, bad) for bad in (
+        float("nan"), float("inf"), -float("inf"))
+        for leaf, pos in ((0, g[0].numel() - 1), (len(g) - 1, 0))]
+    for leaf, pos, bad in cases:
+        if bad is not None:
+            keep = g[leaf].view(-1)[pos].item()
+            g[leaf].view(-1)[pos] = bad
+        got = int(fused.all_finite(g, flag).item())
+        plain_flag.zero_()
+        want = int(fused._plain_all_finite(g, plain_flag).item())
+        check(got == want == (bad is not None), f"gluon: all_finite over "
+              f"the net's leaves gave {got}, plain {want}, for {bad} in "
+              f"leaf {leaf}")
+        if bad is not None:
+            g[leaf].view(-1)[pos] = keep
+    print(f"gluon: all_finite == plain over the net's {len(g)} gradient "
+          f"leaves on {len(cases)} cases (finite; NaN, +Inf, -Inf in the "
+          f"first and the last leaf)", flush=True)
+    k8 = device_ms(lambda: fused.adam_update(w, g, m, v, lr_t), [()], 20)
+    af = device_ms(lambda: fused.all_finite(g, flag), [()], 20)
+    print(f"gluon: over the net's {len(w)} leaves ({n} parameters): K8 "
+          f"{k8:.4f} ms on the card, bound {bound_ms(28 * n, 12 * n)[0]:.4f}"
+          f" ms; all-finite {af:.4f} ms, bound "
+          f"{bound_ms(4 * n, n)[0]:.4f} ms [{card}]", flush=True)
+    del w, g, m, v
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2759,6 +3106,8 @@ def main():
                          "requests and tokens and the HTTP phase's figures "
                          "in REF.json (the full run does this in a child "
                          "process)")
+    ap.add_argument("--gluon", action="store_true",
+                    help="only run the Gluon training loop (phase 7)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -2785,6 +3134,9 @@ def main():
     if args.fleet:
         drive_fleet(card, args.fleet)
         return                               # a phase, no result
+    if args.gluon:
+        drive_gluon(fa, card)
+        return                               # a phase, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -2802,7 +3154,7 @@ def main():
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e_lse)
     rows += bwd_rows
     k8_row = check_k8(fa, dev)
-    rows.append(k8_row)
+    rows += [k8_row, check_all_finite(fa, dev)]
     for r in rows:
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms on the "
               f"card ({r['eager_ms']:.4f} ms per eager call, host "
@@ -2812,7 +3164,8 @@ def main():
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
     # main path, K3 on the dense engine's run, K4 on the paged spec path,
-    # K5 on the dense spec run, K6, K7 and K8 on the training path
+    # K5 on the dense spec run, K6, K7 and K8 on the training path, the
+    # all-finite check on the Gluon loop's guarded run
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
         counts, dense_counts, net, eng, prompts, budgets, plain = \
@@ -2825,6 +3178,7 @@ def main():
         fleet_in_child(prompts, budgets, plain, serve)
         train = drive_training(fa, card, k8_row)
         check_cell_grads(fa, dev)
+        _, guard = drive_gluon(fa, card)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
@@ -2832,7 +3186,8 @@ def main():
                     "verify": dense_spec["verify"],
                     "flash_bwd_dq": train["flash_bwd_dq"],
                     "flash_bwd_dkv": train["flash_bwd_dkv"],
-                    "multi_tensor_adam": train["multi_tensor_adam"]}
+                    "multi_tensor_adam": train["multi_tensor_adam"],
+                    "all_finite": guard["all_finite"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

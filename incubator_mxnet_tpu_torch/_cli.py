@@ -31,13 +31,15 @@ def _load_generation_engine(name, cfg_path, device, max_slots=None,
     ``block_size``, ``scan_steps``, ``logprobs_topn`` and — for a draft —
     ``spec_k``.
 
-    The weights are ``Normal(0.02)`` drawn by the port's initializer from
-    seed 0, exactly as ``chip_smoke.py``'s ``build_served`` draws them
-    (so a 6-layer config of the same width holds the first 6 cells of the
-    12-layer model's draw).  A config with ``"params"`` raises
-    :class:`MXNetError`: reading the reference's parameter files is not
-    ported yet (ROADMAP Queue A items 7-8), and a server must not quietly
-    serve random weights in place of a checkpoint."""
+    A config's ``"params"`` names a weights file in the reference's
+    ``save_parameters`` format (either package writes it; resolved
+    relative to the config), loaded with ``load_parameters``; a missing
+    file raises :class:`MXNetError` rather than serving random weights
+    in its place.  Without ``"params"`` the weights are ``Normal(0.02)``
+    drawn by the port's initializer from seed 0, exactly as
+    ``chip_smoke.py``'s ``build_served`` draws them (so a 6-layer config
+    of the same width holds the first 6 cells of the 12-layer model's
+    draw)."""
     from .base import MXNetError
     from . import initializer as init
     from .models.gpt import GPTModel
@@ -48,11 +50,14 @@ def _load_generation_engine(name, cfg_path, device, max_slots=None,
     if "vocab_size" not in cfg:
         raise MXNetError(f"{cfg_path}: a generation config needs at least "
                          '{"vocab_size": N}')
-    if "params" in cfg:
-        raise MXNetError(
-            f"{cfg_path}: \"params\" weights files cannot be read by the "
-            "PyTorch port yet (ROADMAP Queue A items 7-8); refusing to "
-            "serve random weights in their place")
+    params = cfg.pop("params", None)
+    if params is not None:
+        params = os.path.join(os.path.dirname(os.path.abspath(cfg_path)),
+                              params)
+        if not os.path.isfile(params):
+            raise MXNetError(f"{cfg_path}: the params file {params} does "
+                             "not exist; refusing to serve random weights "
+                             "in its place")
     cfg_slots = cfg.pop("max_slots", None)
     cfg_len = cfg.pop("max_len", None)
     cfg_paged = cfg.pop("paged", None)
@@ -67,7 +72,10 @@ def _load_generation_engine(name, cfg_path, device, max_slots=None,
     scan_steps = cfg_scan if scan_steps is None else scan_steps
     cfg.setdefault("dropout", 0.0)              # serving never trains
     net = GPTModel(device=device, **cfg)
-    net.initialize(init.Normal(0.02), seed=0)
+    if params is None:
+        net.initialize(init.Normal(0.02), seed=0)
+    else:
+        net.load_parameters(params)
     engine = GenerationEngine(net, name=name, max_slots=max_slots,
                               max_len=max_len, paged=paged,
                               block_size=block_size, scan_steps=scan_steps,
@@ -360,9 +368,11 @@ def _fleet_stats(ns) -> int:
     req = None
     if ns.profile is not None:
         # the capture blocks server-side for the window plus profiler
-        # start-up and the trace's export
+        # start-up and the trace's export; the router's fan-out waits as
+        # long for each replica, and answers a little after
+        from .serving.router import profile_timeout
         path = f"/debug/profile?seconds={ns.profile}"
-        timeout = float(ns.profile) + max(30.0, 2.0 * float(ns.profile))
+        timeout = profile_timeout(ns.profile) + 10.0
         req = Request(base + path, data=b"{}", method="POST",
                       headers={"Content-Type": "application/json"})
     elif ns.memory:

@@ -197,6 +197,22 @@ def active() -> bool:
     return _plan is not None
 
 
+def take(site: str, kind: str, **ctx) -> bool:
+    """Poll ``site``; True when a rule of ``kind`` fires on this call.
+    For faults the caller realizes itself (the Gluon ``Trainer`` poisons
+    a gradient when a ``trainer.grad:nonfinite`` rule fires)."""
+    plan = _plan
+    if plan is None:
+        return False
+    hit = False
+    for r in plan.fire(site):
+        if r.kind == kind:
+            _telemetry.FAULT.publish(site=site, event="injected",
+                                     kind=r.kind, **ctx)
+            hit = True
+    return hit
+
+
 def site_calls(site: str) -> int:
     """How many times ``site`` has been polled (0 without a plan)."""
     plan = _plan

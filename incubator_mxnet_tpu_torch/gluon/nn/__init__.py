@@ -1,6 +1,7 @@
-"""Neural-network layers of the PyTorch port."""
-from .basic_layers import (Block, Dense, Dropout, Embedding, LayerNorm,
-                           gelu, mx_named_parameters)
+"""``gluon.nn``: the neural-network layers of the PyTorch port."""
+from .activations import *  # noqa: F401,F403
+from .activations import __all__ as _a
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _b
 
-__all__ = ["Block", "Dense", "Dropout", "Embedding", "LayerNorm", "gelu",
-           "mx_named_parameters"]
+__all__ = list(_a) + list(_b)

@@ -1,103 +1,109 @@
-"""Basic layers as ``torch.nn.Module``s with MXNet's parameter shapes and
-names (counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``).
+"""Basic layers with MXNet's parameter shapes and names (counterpart of
+``incubator_mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
+``HybridSequential``, ``Dense``, ``LayerNorm``, ``Embedding``,
+``Dropout``, ``Flatten``, ``Identity``, ``Lambda``, ``HybridLambda``.
 
-Every layer derives from :class:`Block`, whose ``_alias`` is the word
-MXNet's name scopes number (``dense0``, ``layernorm1``, ...).
-:func:`mx_named_parameters` walks a module tree in registration order and
-numbers the aliases per parent exactly as MXNet's name scopes do, so a
-port model's parameters carry the JAX package's ``collect_params()``
-names (model prefix stripped) — the key that weights cross packages by."""
+Each layer is a :class:`..block.HybridBlock` whose ``forward`` is torch
+code over tensors, and each creates its parameters on ``device``
+(default: the current context, ``cuda:0`` outside ``with mx.cpu():``).
+A layer's input width is given at construction (``in_units``,
+``in_channels``): deferred shape inference is not ported."""
 from __future__ import annotations
-
-from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...base import MXNetError
+from ...context import resolve_device
+from ...ndarray import ops as _ops
+from ...ndarray.ndarray import torch_dtype
+from .. import block as _block
+from ..block import Block, HybridBlock, mx_named_parameters
 
-__all__ = ["Block", "Dense", "LayerNorm", "Embedding", "Dropout", "gelu",
+__all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
+           "Dense", "LayerNorm", "Embedding", "Dropout", "Flatten",
+           "Identity", "Lambda", "HybridLambda", "gelu",
            "mx_named_parameters"]
 
 
-class Block(nn.Module):
-    """A module that takes part in MXNet-style parameter naming."""
-
-    _alias = "block"
-
-    @property
-    def device(self) -> torch.device:
-        """The device of the block's (first) parameter."""
-        return next(self.parameters()).device
-
-    def initialize(self, init=None, seed=0):
-        """Draw every parameter from ``numpy.random.RandomState(seed)``
-        (default initializer ``Uniform(0.07)``, as in MXNet)."""
-        # initializer names parameters through this module
+def _param(shape, device, init=None):
+    """A zero ``nn.Parameter`` of ``shape`` on ``device`` carrying its own
+    initializer (``mx_init``) when ``init`` is given."""
+    p = nn.Parameter(torch.zeros(*shape, device=resolve_device(device)))
+    if init is not None:
         from ... import initializer as _init
-        _init.initialize(self, init if init is not None else _init.Uniform(),
-                         seed)
-        return self
+        p.mx_init = _init.create(init)
+    return p
 
 
-def _scope_children(module: nn.Module):
-    """Children in registration order; plain containers (``ModuleList``,
-    ``Sequential``) are transparent, as MXNet's ``HybridSequential``
-    children are named in their creator's scope."""
-    for child in module.children():
-        if isinstance(child, (nn.ModuleList, nn.Sequential)):
-            yield from _scope_children(child)
-        else:
-            yield child
+class _SequentialMixin:
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+            if isinstance(x, (tuple, list)):
+                args = tuple(x[1:])
+                x = x[0]
+        return (x,) + args if args else x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(key, slice):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-def mx_named_parameters(module: nn.Module) -> List[Tuple[str, nn.Parameter]]:
-    """``[(mxnet_name, parameter)]`` in MXNet ``collect_params()`` order,
-    without the root block's own prefix (``embedding0_weight``,
-    ``gptcell0_multiheadattention0_dense0_weight``, ...)."""
-    out: List[Tuple[str, nn.Parameter]] = []
+class Sequential(_SequentialMixin, Block):
+    """Blocks run in order."""
 
-    def walk(mod, prefix):
-        for pname, p in mod.named_parameters(recurse=False):
-            out.append((prefix + pname, p))
-        counters = {}
-        for child in _scope_children(mod):
-            alias = getattr(child, "_alias", None)
-            if alias is None:
-                raise TypeError(
-                    f"{type(child).__name__} is not a Block: cannot give its "
-                    "parameters MXNet names")
-            idx = counters.get(alias, 0)
-            counters[alias] = idx + 1
-            walk(child, f"{prefix}{alias}{idx}_")
-
-    walk(module, "")
-    return out
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children_blocks():
+            child.hybridize(active, **kwargs)
 
 
-# Dense activations that are ported (MXNet ``act_type`` names)
-_ACTIVATIONS = {"tanh": torch.tanh}
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """Hybrid blocks run in order."""
 
 
-class Dense(Block):
-    """``out = act(x @ weight.T + bias)``; ``weight`` is (units, in_units)
-    and ``activation`` is None or ``"tanh"``.  ``flatten`` folds every axis
-    after the first into the input, as MXNet's (default False here: the
-    port's callers pass the JAX layer's value)."""
+class Dense(HybridBlock):
+    """``out = act(x @ weight.T + bias)`` with ``weight`` (units,
+    in_units).  ``activation`` is any of MXNet's ``Activation`` types or
+    None; ``flatten`` folds every axis after the first into the input."""
 
-    _alias = "dense"
-
-    def __init__(self, units, in_units, use_bias=True, flatten=False,
-                 activation=None, device=None):
-        super().__init__()
-        if activation is not None and activation not in _ACTIVATIONS:
+    def __init__(self, units, in_units=0, use_bias=True, flatten=True,
+                 activation=None, dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", device=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        if activation is not None and activation not in _ops.ACTIVATIONS:
             raise MXNetError(f"Dense activation {activation!r} is not "
-                             f"ported; have {sorted(_ACTIVATIONS)} or None")
+                             f"ported; have {sorted(_ops.ACTIVATIONS)} or "
+                             "None")
+        if int(in_units) <= 0:
+            raise MXNetError("Dense needs in_units: deferred shape "
+                             "inference is not ported")
+        if torch_dtype(dtype) != torch.float32:
+            raise MXNetError("Dense is created in float32; cast() it")
+        self._units = int(units)
         self._flatten = bool(flatten)
-        self._act = _ACTIVATIONS.get(activation)
-        self.weight = nn.Parameter(torch.zeros(units, in_units, device=device))
-        self.bias = nn.Parameter(torch.zeros(units, device=device)) \
+        self._act_type = activation
+        self._act = _ops.ACTIVATIONS.get(activation)
+        self.weight = _param((units, in_units), device, weight_initializer)
+        self.bias = _param((units,), device, bias_initializer) \
             if use_bias else None
 
     def forward(self, x):
@@ -106,20 +112,29 @@ class Dense(Block):
         out = F.linear(x, self.weight, self.bias)
         return out if self._act is None else self._act(out)
 
+    def __repr__(self):
+        return (f"Dense({self.weight.shape[1]} -> {self._units}, "
+                f"{self._act_type or 'linear'})")
 
-class LayerNorm(Block):
-    """Normalises the last axis; ``gamma``/``beta`` and ``epsilon=1e-5``
-    as in MXNet."""
 
-    _alias = "layernorm"
+class LayerNorm(HybridBlock):
+    """Normalises ``axis`` (default the last); ``gamma``/``beta`` of
+    ``in_channels`` and ``epsilon=1e-5`` as in MXNet."""
 
-    def __init__(self, in_channels, epsilon=1e-5, device=None):
-        super().__init__()
+    def __init__(self, in_channels, epsilon=1e-5, axis=-1, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._eps = float(epsilon)
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=device))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=device))
+        self._axis = int(axis)
+        self.gamma = _param((in_channels,), device)
+        self.beta = _param((in_channels,), device)
 
     def forward(self, x):
+        if self._axis not in (-1, x.dim() - 1):
+            x = x.movedim(self._axis, -1)
+            out = F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta,
+                               self._eps)
+            return out.movedim(-1, self._axis)
         return F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta,
                             self._eps)
 
@@ -155,37 +170,95 @@ class _SortedEmbedding(torch.autograd.Function):
         return None, gw
 
 
-class Embedding(Block):
-    """Row lookup into ``weight`` (input_dim, output_dim).  On the card
-    its gradient is deterministic (:class:`_SortedEmbedding`); on the CPU
-    it is ``F.embedding``'s, which is."""
+class Embedding(HybridBlock):
+    """Row lookup into ``weight`` (input_dim, output_dim); ids of any
+    integer dtype.  On the card its gradient is deterministic
+    (:class:`_SortedEmbedding`); on the CPU it is ``F.embedding``'s, which
+    is."""
 
-    _alias = "embedding"
-
-    def __init__(self, input_dim, output_dim, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(
-            torch.zeros(input_dim, output_dim, device=device))
+    def __init__(self, input_dim, output_dim, weight_initializer=None,
+                 sparse_grad=False, device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True) is not ported "
+                             "(sparse arrays: ROADMAP Queue A item 15)")
+        self.weight = _param((input_dim, output_dim), device,
+                             weight_initializer)
 
     def forward(self, ids):
+        if ids.dtype not in (torch.int32, torch.int64):
+            ids = ids.long()
         if self.weight.is_cuda:
             return _SortedEmbedding.apply(ids, self.weight)
         return F.embedding(ids, self.weight)
 
 
-class Dropout(Block):
-    """Dropout that is active only in training mode."""
+class Dropout(HybridBlock):
+    """Dropout at ``rate``.  Called through the Gluon surface (with
+    NDArrays) it is active while ``autograd.is_training()``; called with
+    tensors it follows the module's ``training`` flag, as the serving
+    engine and ``SPMDTrainer`` set it."""
 
-    _alias = "dropout"
-
-    def __init__(self, rate=0.0):
-        super().__init__()
+    def __init__(self, rate=0.0, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._rate = float(rate)
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        if self.training and self._rate > 0.0:
+        from ... import autograd as _ag
+        training = _ag.is_training() if _block.in_gluon_call() \
+            else self.training
+        if not training or self._rate <= 0.0:
+            return x
+        if not self._axes:
             return F.dropout(x, self._rate, training=True)
+        shape = tuple(x.shape[i] if i in self._axes else 1
+                      for i in range(x.dim()))
+        keep = torch.rand(shape, device=x.device) >= self._rate
+        return torch.where(keep, x / (1.0 - self._rate), torch.zeros_like(x))
+
+
+class Flatten(HybridBlock):
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
         return x
+
+
+class Lambda(Block):
+    """A function of NDArrays as a block; a string names an ``nd`` op."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return _block._unwrap(self._func(*_block._wrap(args)))
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)`` over NDArrays as a block; a string names an
+    ``F`` op."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func = function
+
+    def forward(self, *args):
+        from ... import ndarray as nd
+        nds = _block._wrap(args)
+        out = getattr(nd, self._func)(*nds) if isinstance(self._func, str) \
+            else self._func(nd, *nds)
+        return _block._unwrap(out)
 
 
 def gelu(x):

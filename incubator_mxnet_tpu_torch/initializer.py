@@ -16,7 +16,8 @@ import torch
 from .base import MXNetError
 from .gluon.nn.basic_layers import mx_named_parameters
 
-__all__ = ["Initializer", "Zero", "One", "Normal", "Uniform", "initialize"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Normal", "Uniform",
+           "create", "initialize"]
 
 
 class Initializer:
@@ -46,6 +47,19 @@ class One(Initializer):
         return _np.ones(shape)
 
 
+class Constant(Initializer):
+    """Every element ``value`` (bias and gamma included)."""
+
+    def __init__(self, value=0.0):
+        self.value = float(value)
+
+    def __call__(self, name, shape, rng):
+        return _np.full(shape, self.value, _np.float32)
+
+    def __repr__(self):
+        return f"Constant(value={self.value})"
+
+
 class Normal(Initializer):
     """N(0, sigma^2) weights."""
 
@@ -70,6 +84,20 @@ class Uniform(Initializer):
 
     def __repr__(self):
         return f"Uniform(scale={self.scale})"
+
+
+_BY_NAME = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
+            "normal": Normal, "uniform": Uniform}
+
+
+def create(init) -> Initializer:
+    """An initializer from an instance or its name (``"zeros"``,
+    ``"ones"``, ``"normal"``, ``"uniform"``)."""
+    if isinstance(init, Initializer):
+        return init
+    if isinstance(init, str) and init.lower() in _BY_NAME:
+        return _BY_NAME[init.lower()]()
+    raise MXNetError(f"unknown initializer {init!r}")
 
 
 def initialize(module: torch.nn.Module, init: Initializer, seed: int):

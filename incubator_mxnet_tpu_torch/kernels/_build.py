@@ -54,8 +54,13 @@ ARGTYPES = {
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P],
     "multi_tensor_adam": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I,
-                          _P],
+                          _P, _P],
+    "all_finite": [_P, _I, _P, _P],
 }
+# the C entry points of each kernel's library: its own, and beside K8 the
+# skip_nonfinite guard's all-finite check over the same leaf table
+ENTRIES = {name: (name,) for name in KERNELS}
+ENTRIES["multi_tensor_adam"] += ("all_finite",)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -141,6 +146,7 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.mx_error_string.argtypes = [ctypes.c_int]
     lib.mx_error_string.restype = ctypes.c_char_p
-    fn = getattr(lib, "mx_" + name)
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    for entry in ENTRIES[name]:
+        fn = getattr(lib, "mx_" + entry)
+        fn.argtypes = ARGTYPES[entry]
+        fn.restype = ctypes.c_int

@@ -23,6 +23,19 @@
 // Bound on this card: bytes.  Each parameter reads w, g, m, v and writes
 // w, m, v: 28 bytes for ~15 FLOP.
 //
+// The skip_nonfinite guard (the Gluon Trainer's; the JAX package gates
+// its fused update with an all-finite flag inside the one compiled
+// program, optimizer/fused.py): mx_all_finite reads every gradient leaf
+// over the same chunked leaf table in one launch and sets a device int
+// flag where it meets a NaN or an Inf (the caller zeroes the flag first).
+// Given that flag, every K8 block reads it before any write and, when it
+// is set, zeroes its chunk of the gradient and returns: weights, m and v
+// stay untouched, and the gradients are zero, as the JAX guard leaves
+// them.  The flag is final before any K8 block runs because the check is
+// an earlier launch on the same stream.  Without a flag (a null pointer)
+// K8 is the update above, unchanged.  The check's bound is its 4 bytes
+// read per parameter.
+//
 // Design: a grid-stride-free chunked map.  Each leaf is cut into chunks of
 // kChunk elements; block b owns one chunk and finds its leaf by a binary
 // search over the per-leaf first-block table.  The leaf table (four
@@ -45,7 +58,7 @@ enum : int { kRescale = 1, kClip = 2, kWd = 4 };
 
 struct Leaf {
   float* w;
-  const float* g;
+  float* g;
   float* m;
   float* v;
 };
@@ -58,6 +71,7 @@ struct Params {
   int n_leaves;
   int flags;
   const float* lr;
+  const int* nonfinite;   // the guard's flag, or null
   float beta1, beta2, omb1, omb2, eps, rescale, clip, wd;
 };
 
@@ -74,20 +88,30 @@ __device__ __forceinline__ void adam_elem(float& w, float g, float& m,
                              __fadd_rn(__fsqrt_rn(v), p.eps)));
 }
 
+// the leaf whose chunks include block b: the last with first_block <= b
+__device__ __forceinline__ int find_leaf(const int* first_block, int n,
+                                         int b) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first_block[mid] <= b) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
 __global__ void __launch_bounds__(kThreads)
 multi_tensor_adam_kernel(const __grid_constant__ Params p) {
   const int b = blockIdx.x;
-  int lo = 0, hi = p.n_leaves - 1;      // last leaf with first_block <= b
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (p.first_block[mid] <= b) lo = mid; else hi = mid - 1;
-  }
-  const int li = lo;
+  const int li = find_leaf(p.first_block, p.n_leaves, b);
   const Leaf L = p.leaf[li];
   const long long begin =
       static_cast<long long>(b - p.first_block[li]) * kChunk;
   const long long rest = p.n[li] - begin;
   const int len = rest < kChunk ? static_cast<int>(rest) : kChunk;
+  if (p.nonfinite != nullptr && *p.nonfinite) {   // a skipped step
+    for (int i = threadIdx.x; i < len; i += kThreads) L.g[begin + i] = 0.f;
+    return;
+  }
   const float lr = *p.lr;
   float* w = L.w + begin;
   const float* g = L.g + begin;
@@ -122,6 +146,42 @@ multi_tensor_adam_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// The all-finite check: the same chunking over (pointer, length) rows.
+struct FiniteParams {
+  const float* g[kMaxLeaves];
+  long long n[kMaxLeaves];
+  int first_block[kMaxLeaves + 1];
+  unsigned char vec[kMaxLeaves];
+  int n_leaves;
+  int* flag;
+};
+
+__device__ __forceinline__ bool bad(float x) { return !isfinite(x); }
+
+__global__ void __launch_bounds__(kThreads)
+all_finite_kernel(const __grid_constant__ FiniteParams p) {
+  const int b = blockIdx.x;
+  const int li = find_leaf(p.first_block, p.n_leaves, b);
+  const long long begin =
+      static_cast<long long>(b - p.first_block[li]) * kChunk;
+  const long long rest = p.n[li] - begin;
+  const int len = rest < kChunk ? static_cast<int>(rest) : kChunk;
+  const float* g = p.g[li] + begin;
+  bool found = false;
+  int done = 0;
+  if (p.vec[li]) {
+    const int n4 = len >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    for (int i = threadIdx.x; i < n4; i += kThreads) {
+      const float4 v = g4[i];
+      found |= bad(v.x) | bad(v.y) | bad(v.z) | bad(v.w);
+    }
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < len; i += kThreads) found |= bad(g[i]);
+  if (__syncthreads_or(found) && threadIdx.x == 0) *p.flag = 1;
+}
+
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<unsigned long long>(ptr) & 15ull) == 0;
 }
@@ -130,11 +190,13 @@ bool aligned16(const void* ptr) {
 
 // table: n_leaves rows of (w, g, m, v, numel) as 64-bit integers, in host
 // memory; read here, before the launch returns.  lr: a device fp32 scalar.
+// nonfinite: null, or the all-finite check's device flag (see above).
 extern "C" int mx_multi_tensor_adam(const long long* table, int n_leaves,
                                     const float* lr, float beta1,
                                     float beta2, float omb1, float omb2,
                                     float eps, float rescale, float clip,
-                                    float wd, int flags, void* stream) {
+                                    float wd, int flags,
+                                    const int* nonfinite, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static thread_local Params p;   // ~23 KB: off the host stack
   int i = 0;
@@ -145,7 +207,7 @@ extern "C" int mx_multi_tensor_adam(const long long* table, int n_leaves,
       const long long n = row[4];
       if (n <= 0) continue;
       Leaf L{reinterpret_cast<float*>(row[0]),
-             reinterpret_cast<const float*>(row[1]),
+             reinterpret_cast<float*>(row[1]),
              reinterpret_cast<float*>(row[2]),
              reinterpret_cast<float*>(row[3])};
       p.leaf[k] = L;
@@ -161,6 +223,7 @@ extern "C" int mx_multi_tensor_adam(const long long* table, int n_leaves,
     p.n_leaves = k;
     p.flags = flags;
     p.lr = lr;
+    p.nonfinite = nonfinite;
     p.beta1 = beta1;
     p.beta2 = beta2;
     p.omb1 = omb1;
@@ -170,6 +233,38 @@ extern "C" int mx_multi_tensor_adam(const long long* table, int n_leaves,
     p.clip = clip;
     p.wd = wd;
     multi_tensor_adam_kernel<<<blocks, kThreads, 0, s>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// table: n_leaves rows of (g, numel) as 64-bit integers, in host memory;
+// read here, before the launch returns.  flag: a device int the caller
+// zeroed; set to 1 where a NaN or an Inf is found.
+extern "C" int mx_all_finite(const long long* table, int n_leaves, int* flag,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static thread_local FiniteParams p;
+  int i = 0;
+  while (i < n_leaves) {
+    int k = 0, blocks = 0;
+    for (; i < n_leaves && k < kMaxLeaves; ++i) {
+      const long long* row = table + 2 * static_cast<long long>(i);
+      const long long n = row[1];
+      if (n <= 0) continue;
+      p.g[k] = reinterpret_cast<const float*>(row[0]);
+      p.n[k] = n;
+      p.vec[k] = aligned16(p.g[k]);
+      p.first_block[k] = blocks;
+      blocks += static_cast<int>((n + kChunk - 1) / kChunk);
+      ++k;
+    }
+    if (k == 0) break;
+    p.first_block[k] = blocks;
+    p.n_leaves = k;
+    p.flag = flag;
+    all_finite_kernel<<<blocks, kThreads, 0, s>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

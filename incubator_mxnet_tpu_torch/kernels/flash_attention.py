@@ -65,7 +65,7 @@ _FWD_TILE = 64          # query rows (K1, K6) or keys (K7) per block
 
 # kernel name -> launches since the last reset (kernel launches only; the
 # plain versions never count)
-launch_counts = {name: 0 for name in _build.KERNELS}
+launch_counts = {name: 0 for name in _build.ARGTYPES}
 
 
 # the counters are shared by every thread (a server replays several

@@ -21,7 +21,8 @@ from .. import initializer as _init
 from ..base import MXNetError, getenv_bool
 from ..context import resolve_device
 from ..gluon.loss import SoftmaxCrossEntropyLoss
-from ..gluon.nn import Block, Dense, Dropout, Embedding, LayerNorm, gelu
+from ..gluon.nn import (Dense, Dropout, Embedding, HybridBlock, LayerNorm,
+                        gelu)
 from ..kernels.flash_attention import NEG, flash_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "cached_step_attn",
@@ -62,25 +63,24 @@ def _sdpa(q, k, v, num_heads, mask=None, causal=False):
     return out.transpose(1, 2).reshape(B, Tq, C)
 
 
-class MultiHeadAttention(Block):
+class MultiHeadAttention(HybridBlock):
     """Projected multi-head attention over :func:`_sdpa`.  ``mem``
     switches to cross-attention (keys/values project from ``mem``)."""
 
-    _alias = "multiheadattention"
-
     def __init__(self, units, num_heads, dropout=0.0, causal=False,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         if units % num_heads:
             raise MXNetError("num_heads must divide units")
         self._units = units
         self._num_heads = num_heads
         self._causal = causal
-        self.query = Dense(units, units, device=device)
-        self.key = Dense(units, units, device=device)
-        self.value = Dense(units, units, device=device)
-        self.proj = Dense(units, units, device=device)
-        self.dropout = Dropout(dropout)
+        with self.name_scope():
+            self.query = Dense(units, units, flatten=False, device=device)
+            self.key = Dense(units, units, flatten=False, device=device)
+            self.value = Dense(units, units, flatten=False, device=device)
+            self.proj = Dense(units, units, flatten=False, device=device)
+            self.dropout = Dropout(dropout)
 
     def forward(self, x, mask=None, mem=None):
         kv_src = x if mem is None else mem
@@ -112,39 +112,40 @@ def cached_step_attn(qv, kn, vn, ck, cv, t, num_heads):
     return out.transpose(1, 2).reshape(B, 1, C), ck, cv
 
 
-class PositionwiseFFN(Block):
+class PositionwiseFFN(HybridBlock):
     """``dropout(ffn_2(gelu(ffn_1(x))))``."""
 
-    _alias = "positionwiseffn"
-
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         if activation != "gelu":
             raise MXNetError(f"activation {activation!r} is not ported; "
                              "only 'gelu'")
-        self.ffn_1 = Dense(hidden_size, units, device=device)
-        self.ffn_2 = Dense(units, hidden_size, device=device)
-        self.dropout = Dropout(dropout)
+        with self.name_scope():
+            self.ffn_1 = Dense(hidden_size, units, flatten=False,
+                               device=device)
+            self.ffn_2 = Dense(units, hidden_size, flatten=False,
+                               device=device)
+            self.dropout = Dropout(dropout)
 
     def forward(self, x):
         return self.dropout(self.ffn_2(gelu(self.ffn_1(x))))
 
 
-class TransformerEncoderCell(Block):
+class TransformerEncoderCell(HybridBlock):
     """Post-LN transformer layer (BERT style): ln1(x + attn(x, mask)),
     then ln2(x + ffn(x))."""
 
-    _alias = "transformerencodercell"
-
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
-        super().__init__()
-        self.attention = MultiHeadAttention(units, num_heads, dropout,
-                                            device=device)
-        self.ln1 = LayerNorm(units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, device=device)
-        self.ln2 = LayerNorm(units, device=device)
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                                device=device)
+            self.ln1 = LayerNorm(units, device=device)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       device=device)
+            self.ln2 = LayerNorm(units, device=device)
 
     def forward(self, x, mask=None):
         x = self.ln1(x + self.attention(x, mask))
@@ -163,18 +164,23 @@ def maybe_remat_cell(cell, x, *rest):
     return checkpoint(cell, x, *rest, use_reentrant=False)
 
 
-class BERTEncoder(Block):
-    """``num_layers`` :class:`TransformerEncoderCell` in sequence."""
-
-    _alias = "bertencoder"
+class BERTEncoder(HybridBlock):
+    """``num_layers`` :class:`TransformerEncoderCell` in sequence,
+    registered as ``layer0``, ``layer1``, ... (the reference's structural
+    names); ``cells`` lists them."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads,
-                 dropout=0.0, device=None):
-        super().__init__()
-        self.cells = torch.nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
-                                   device=device)
-            for _ in range(num_layers))
+                 dropout=0.0, device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            for i in range(num_layers):
+                self.register_child(TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout, device=device),
+                    f"layer{i}")
+
+    @property
+    def cells(self):
+        return list(self._modules.values())
 
     def forward(self, x, mask=None):
         for cell in self.cells:
@@ -182,7 +188,7 @@ class BERTEncoder(Block):
         return x
 
 
-class BERTModel(Block):
+class BERTModel(HybridBlock):
     """Embeddings + encoder + tanh pooler (GluonNLP's ``BERTModel``).
     ``forward(input_ids, token_types, valid_length=None)`` -> (sequence
     output (B, T, units), pooled (B, units)).  ``valid_length`` (B,) masks
@@ -191,27 +197,28 @@ class BERTModel(Block):
     hold zeros until ``initialize`` or :func:`..convert.load_jax_params`
     fills them."""
 
-    _alias = "bertmodel"
-
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
-                 token_type_vocab=2, dropout=0.1, device=None):
-        super().__init__()
+                 token_type_vocab=2, dropout=0.1, device=None, **kwargs):
+        super().__init__(**kwargs)
         dev = resolve_device(device)
         self._units = int(units)
         self._max_length = int(max_length)
         # MXNet's params.get("position_weight", init="normal"): its own
         # initializer wins over the one passed to initialize()
-        self.position_weight = torch.nn.Parameter(
-            torch.zeros(max_length, units, device=dev))
-        self.position_weight.mx_init = _init.Normal()
-        self.word_embed = Embedding(vocab_size, units, device=dev)
-        self.token_type_embed = Embedding(token_type_vocab, units, device=dev)
-        self.embed_ln = LayerNorm(units, device=dev)
-        self.embed_dropout = Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout, device=dev)
-        self.pooler = Dense(units, units, activation="tanh", device=dev)
+        pos = torch.nn.Parameter(torch.zeros(max_length, units, device=dev))
+        pos.mx_init = _init.Normal()
+        self.position_weight = pos
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units, device=dev)
+            self.token_type_embed = Embedding(token_type_vocab, units,
+                                              device=dev)
+            self.embed_ln = LayerNorm(units, device=dev)
+            self.embed_dropout = Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, device=dev)
+            self.pooler = Dense(units, units, activation="tanh",
+                                flatten=False, device=dev)
         # inference mode by default, as MXNet outside autograd.record
         self.eval()
 
@@ -231,24 +238,24 @@ class BERTModel(Block):
         return seq, self.pooler(seq[:, 0])
 
 
-class BERTForPretrain(Block):
+class BERTForPretrain(HybridBlock):
     """MLM and NSP heads over a :class:`BERTModel` (GluonNLP's
     ``BERTForPretrain``), on the encoder's device.  ``forward(input_ids,
     token_types, valid_length=None)`` -> (mlm_scores (B, T, vocab),
     nsp_scores (B, 2))."""
 
-    _alias = "bertforpretrain"
-
-    def __init__(self, bert: BERTModel, vocab_size=30522):
-        super().__init__()
+    def __init__(self, bert: BERTModel, vocab_size=30522, **kwargs):
+        super().__init__(**kwargs)
         dev = bert.device
         units = bert._units
         self._vocab_size = int(vocab_size)
-        self.bert = bert
-        self.mlm_dense = Dense(units, units, device=dev)
-        self.mlm_ln = LayerNorm(units, device=dev)
-        self.mlm_decoder = Dense(vocab_size, units, device=dev)
-        self.nsp_classifier = Dense(2, units, flatten=True, device=dev)
+        with self.name_scope():
+            self.bert = bert
+            self.mlm_dense = Dense(units, units, flatten=False, device=dev)
+            self.mlm_ln = LayerNorm(units, device=dev)
+            self.mlm_decoder = Dense(vocab_size, units, flatten=False,
+                                     device=dev)
+            self.nsp_classifier = Dense(2, units, device=dev)
         self.eval()
 
     def forward(self, input_ids, token_types, valid_length=None):
@@ -257,32 +264,30 @@ class BERTForPretrain(Block):
         return self.mlm_decoder(self.mlm_ln(h)), self.nsp_classifier(pooled)
 
 
-class MLMPretrainLoss(Block):
+class MLMPretrainLoss(HybridBlock):
     """Masked-LM cross-entropy over the flattened (B*T, vocab) scores."""
 
-    _alias = "mlmpretrainloss"
-
-    def __init__(self, vocab_size):
-        super().__init__()
+    def __init__(self, vocab_size, **kwargs):
+        super().__init__(**kwargs)
         self._vocab_size = int(vocab_size)
-        self.ce = SoftmaxCrossEntropyLoss()
+        with self.name_scope():
+            self.ce = SoftmaxCrossEntropyLoss()
 
     def forward(self, mlm_scores, labels):
         return self.ce(mlm_scores.reshape(-1, self._vocab_size),
                        labels.reshape(-1))
 
 
-class BERTPretrainLoss(Block):
+class BERTPretrainLoss(HybridBlock):
     """Masked-LM CE + next-sentence CE.  ``labels`` (B, T+1) packs both:
     ``labels[:, :T]`` the per-token MLM targets, ``labels[:, T]`` the NSP
     class.  Returns the scalar mean MLM loss + mean NSP loss."""
 
-    _alias = "bertpretrainloss"
-
-    def __init__(self, vocab_size):
-        super().__init__()
+    def __init__(self, vocab_size, **kwargs):
+        super().__init__(**kwargs)
         self._vocab_size = int(vocab_size)
-        self.ce = SoftmaxCrossEntropyLoss()
+        with self.name_scope():
+            self.ce = SoftmaxCrossEntropyLoss()
 
     def forward(self, mlm_scores, nsp_scores, labels):
         mlm = self.ce(mlm_scores.reshape(-1, self._vocab_size),

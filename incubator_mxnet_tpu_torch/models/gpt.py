@@ -14,26 +14,26 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
-from ..gluon.nn import Block, Dropout, Embedding, LayerNorm
+from ..gluon.nn import (Dropout, Embedding, HybridBlock,
+                        HybridSequential, LayerNorm)
 from .bert import MultiHeadAttention, PositionwiseFFN, _sdpa, cached_step_attn
 
 __all__ = ["GPTCell", "GPTModel", "gpt_tiny", "gpt2_124m"]
 
 
-class GPTCell(Block):
+class GPTCell(HybridBlock):
     """Pre-LN decoder block: x + attn(ln1(x)), then x + ffn(ln2(x))."""
 
-    _alias = "gptcell"
-
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
-        super().__init__()
-        self.ln1 = LayerNorm(units, device=device)
-        self.attention = MultiHeadAttention(units, num_heads, dropout,
-                                            causal=True, device=device)
-        self.ln2 = LayerNorm(units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout,
-                                   device=device)
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ln1 = LayerNorm(units, device=device)
+            self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                                causal=True, device=device)
+            self.ln2 = LayerNorm(units, device=device)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       device=device)
 
     def forward(self, x):
         x = x + self.attention(self.ln1(x))
@@ -67,31 +67,31 @@ def _lm_logits(x, w):
     return torch.matmul(x, w.t())
 
 
-class GPTModel(Block):
+class GPTModel(HybridBlock):
     """Token + learned position embeddings -> N GPTCells -> final LN ->
     tied LM head.  Parameters are created on ``device`` (default
     ``cuda:0``; ``device='cpu'`` for the CPU) and hold zeros until
     :meth:`initialize` or :func:`..convert.load_jax_params` fills them."""
 
-    _alias = "gptmodel"
-
     def __init__(self, vocab_size, units=128, hidden_size=512,
                  num_layers=2, num_heads=2, max_length=256, dropout=0.1,
-                 moe_experts=0, device=None):
-        super().__init__()
+                 moe_experts=0, device=None, **kwargs):
+        super().__init__(**kwargs)
         if int(moe_experts) > 0:
             raise MXNetError("MoE cells are not ported yet (moe_experts=0)")
         dev = resolve_device(device)
         self._vocab_size = int(vocab_size)
         self._units = int(units)
         self._max_length = int(max_length)
-        self.embed = Embedding(vocab_size, units, device=dev)
-        self.pos_embed = Embedding(max_length, units, device=dev)
-        self.drop = Dropout(dropout)
-        self.cells = torch.nn.ModuleList(
-            GPTCell(units, hidden_size, num_heads, dropout, device=dev)
-            for _ in range(num_layers))
-        self.ln_f = LayerNorm(units, device=dev)
+        with self.name_scope():
+            self.embed = Embedding(vocab_size, units, device=dev)
+            self.pos_embed = Embedding(max_length, units, device=dev)
+            self.drop = Dropout(dropout)
+            self.cells = HybridSequential()
+            for _ in range(num_layers):
+                self.cells.add(GPTCell(units, hidden_size, num_heads,
+                                       dropout, device=dev))
+            self.ln_f = LayerNorm(units, device=dev)
         # inference mode by default: MXNet applies dropout only while
         # training (autograd.record), so a fresh model does not drop
         self.eval()

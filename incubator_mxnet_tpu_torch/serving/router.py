@@ -335,6 +335,21 @@ class _RouterHTTPServer(HTTPServerBase):
     router: "Router"
 
 
+#: how long a replica's profile capture may stop its dispatch past the
+#: window: the profiler's stop runs holding the dispatch gate (2.0-8.0 s
+#: on an H100, PERF.md)
+CAPTURE_STALL_SECONDS = 10.0
+
+
+def profile_timeout(seconds: float) -> float:
+    """How long a profile capture of ``seconds`` may take on a replica:
+    the window plus a margin for ``torch.profiler``'s first start in a
+    process (10-16 s on an H100), its gated stop (2-8 s) and the trace's
+    export (2.5-4 s), as PERF.md records them — the reference's 30 s
+    margin, set for ``jax.profiler``, leaves under 2 s of that."""
+    return float(seconds) + max(60.0, 2.0 * float(seconds))
+
+
 class Router:
     """Front tier over N replicas.  Programmatic use::
 
@@ -380,6 +395,9 @@ class Router:
         self.upstream_timeout = float(
             getenv("MXNET_ROUTER_UPSTREAM_TIMEOUT_SECONDS", 10.0)) \
             if upstream_timeout is None else float(upstream_timeout)
+        # the windows of this router's profile fan-outs in flight (a
+        # captured replica stalls its dispatch; see _attempt_timeout)
+        self._captures: List[float] = []
         self.stream_timeout = float(
             getenv("MXNET_ROUTER_STREAM_TIMEOUT_SECONDS", 120.0)) \
             if stream_timeout is None else float(stream_timeout)
@@ -891,6 +909,19 @@ class Router:
             timeout=self.upstream_timeout if timeout is None
             else timeout)
 
+    def _attempt_timeout(self) -> float:
+        """How long a proxied attempt waits for its answer (an SSE
+        stream: its first event): ``upstream_timeout``, and while this
+        router's own profile fan-out runs, longer by the stall a capture
+        can cause (its window and :data:`CAPTURE_STALL_SECONDS`) — every
+        captured replica stops dispatching for the profiler's stop, so a
+        request queued behind it is stalled, not lost, and failing over
+        would only meet another stalled replica.  A replica hung for
+        longer is failed over as before, that much later."""
+        captures = list(self._captures)
+        return self.upstream_timeout + (
+            max(captures) + CAPTURE_STALL_SECONDS if captures else 0.0)
+
     def _get_json(self, rep: Replica, path: str,
                   timeout: float) -> Tuple[int, dict]:
         conn = self._connect(rep, timeout)
@@ -990,7 +1021,7 @@ class Router:
         worth failing over."""
         rep._inflight_add(+1)
         hop = self._hops.begin(rid, rep.id)
-        conn = self._connect(rep)
+        conn = self._connect(rep, self._attempt_timeout())
         done = False
         try:
             try:
@@ -1228,7 +1259,9 @@ class Router:
         margin — never the router's default."""
         reps = self._eligible()
         results: dict = {}
-        timeout = float(seconds) + max(30.0, 2.0 * float(seconds))
+        timeout = profile_timeout(seconds)
+        window = float(seconds)
+        self._captures.append(window)
 
         def one(rep):
             conn = self._connect(rep, timeout)
@@ -1257,10 +1290,13 @@ class Router:
 
         threads = [threading.Thread(target=one, args=(r,), daemon=True)
                    for r in reps]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            self._captures.remove(window)
         return {"seconds": float(seconds), "replicas": results}
 
     # -- drain orchestration ---------------------------------------------

@@ -136,8 +136,9 @@ bus = EventBus()
 #                                       "fallback","watchdog","breaker",
 #                                       "deadline","oom","anomaly",...}
 #   HEALTH(kind=, step=, src=, ...)   — one anomaly of the health plane
-#   TRAINER(phase=, seconds=)         — phase "step": one SPMDTrainer.step,
-#                                       host seconds
+#   TRAINER(phase=, seconds=)         — phase "step": one SPMDTrainer or
+#                                       gluon.Trainer step, "update": one
+#                                       gluon.Trainer.update; host seconds
 SPAN = bus.topic("span")
 FAULT = bus.topic("fault")
 HEALTH = bus.topic("health")
@@ -1069,6 +1070,9 @@ def _metrics_init():
                       "transient failures absorbed by retry, by site")
     _m["giveups"] = c("mxtpu_giveups",
                       "retries exhausted (max attempts/deadline), by site")
+    _m["skipped_steps"] = c("mxtpu_skipped_steps",
+                            "optimizer steps skipped by the non-finite "
+                            "gradient guard")
     _m["peak_flops"] = registry.gauge(
         "mxtpu_device_peak_flops",
         "fp32 peak FLOP/s of the device, by device name")
@@ -1081,6 +1085,8 @@ def _on_fault(site="?", event="injected", kind=None, **_kw):
         _m["retries"].inc(site=site)
     elif event == "giveup":
         _m["giveups"].inc(site=site)
+    elif event == "skipped_step":
+        _m["skipped_steps"].inc()
 
 
 def start() -> None:

@@ -3,9 +3,10 @@ the CPU.
 
 ``mxtpu-serve-torch`` (``_cli:serve_main``): a ``gpt_tiny`` config is
 served (``/readyz`` 200, one ``:generate``), SIGTERM drains it (exit 0,
-"drained, exiting", the port closed); a config with ``"params"`` and a
-host without a card (without ``--device cpu``) exit non-zero with the
-``MXNetError`` that says why.
+"drained, exiting", the port closed); a config whose ``"params"`` file
+is missing and a host without a card (without ``--device cpu``) exit
+non-zero with the ``MXNetError`` that says why (a config's ``"params"``
+file is served by ``tests/test_torch_gluon.py``).
 
 ``mxtpu-stats-torch`` (``_cli:stats_main``): script mode prints the
 Prometheus dump (or JSON) after the script, exits with the script's
@@ -101,9 +102,10 @@ def test_serve_generate_then_sigterm_drains(tmp_path):
 @pytest.mark.parametrize("case", ["params", "no_card"])
 def test_refuses_to_serve_what_it_cannot(tmp_path, case):
     if case == "params":
+        # a params file that is not there: no random weights in its place
         cfg = _config(tmp_path, params="gpt-0000.params")
         args, env = ("--device", "cpu"), _env()
-        why = '"params" weights files cannot be read'
+        why = "gpt-0000.params does not exist"
     else:
         # an empty CUDA_VISIBLE_DEVICES hides any card
         cfg = _config(tmp_path)

@@ -261,12 +261,17 @@ def test_every_include_names_a_file_in_csrc():
 _C_ARG = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+_SOURCE = {entry: src for name, src in _build.KERNELS.items()
+           for entry in _build.ENTRIES[name]}
+
+
+@pytest.mark.parametrize("name", sorted(_build.ARGTYPES))
 def test_argtypes_match_the_extern_c_definition(name):
     """``ARGTYPES[name]`` lists the arguments of the ``extern "C"``
-    definition of ``mx_<name>`` in its source, in order: ``int`` and
-    ``float`` as themselves, every pointer as ``c_void_p``."""
-    src = (_build.CSRC / _build.KERNELS[name]).read_text()
+    definition of ``mx_<name>`` in its library's source, in order:
+    ``int`` and ``float`` as themselves, every pointer as
+    ``c_void_p``."""
+    src = (_build.CSRC / _SOURCE[name]).read_text()
     m = re.search(r'extern "C" int mx_%s\(([^)]*)\)\s*\{' % name, src)
     assert m, f"no extern \"C\" definition of mx_{name}"
     want = [ctypes.c_void_p if "*" in arg
@@ -326,7 +331,8 @@ def test_cuda_decode_kernels_match_plain(D):
     assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 1,
                                  "decode": 1, "paged_verify": 0,
                                  "verify": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0, "multi_tensor_adam": 0}
+                                 "flash_bwd_dkv": 0, "multi_tensor_adam": 0,
+                                 "all_finite": 0}
 
 
 # ------------------------------------- K2/K3 split geometry (host helpers)

@@ -1068,6 +1068,101 @@ def test_port_router_serves_port_replicas(fleet):
     assert "generation models only" in pred["error"]
 
 
+class _StalledReplica:
+    """A stdlib replica whose ``:generate`` answers after ``delay``
+    seconds and whose ``/debug/profile`` takes ``capture`` seconds: a
+    replica whose dispatch a profile capture stalls."""
+
+    def __init__(self, delay, capture):
+        rep = self
+        self.delay = delay
+
+        class H(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _json(self, code, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._json(200, {"status": "ready", "draining": False}
+                           if self.path == "/readyz" else {"models": {}})
+
+            def do_POST(self):
+                self.rfile.read(int(self.headers.get("Content-Length")
+                                    or 0))
+                if self.path.startswith("/debug/profile"):
+                    time.sleep(capture)
+                    self._json(200, {"profile": "p"})
+                else:
+                    time.sleep(rep.delay)
+                    self._json(200, {"tokens": [5], "count": 1})
+
+        class Srv(ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                pass            # the router hung up on a stalled answer
+
+        self.srv = Srv(("127.0.0.1", 0), H)
+        self.port = self.srv.server_address[1]
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+
+def test_attempts_wait_out_the_routers_own_capture(monkeypatch):
+    """While the router's profile fan-out runs, every captured replica
+    stalls its dispatch: a request then waits the upstream timeout plus
+    the stall a capture can cause (its window and
+    ``CAPTURE_STALL_SECONDS``) for its answer, and is served; a replica
+    hung past that is still failed over during the capture; before and
+    after the capture the upstream timeout holds."""
+    from incubator_mxnet_tpu_torch.serving import router as router_mod
+    monkeypatch.setattr(router_mod, "CAPTURE_STALL_SECONDS", 1.5)
+    rep = _StalledReplica(delay=1.0, capture=6.0)
+    router = router_mod.Router(
+        [f"127.0.0.1:{rep.port}"], port=0, host="127.0.0.1",
+        health_interval=0.05, upstream_timeout=0.5, retries=0)
+    router.start()
+    body = {"tokens": [1, 2], "max_new_tokens": 1}
+    try:
+        deadline = time.monotonic() + 10
+        while router._eligible() == [] and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+        def generate():
+            conn, resp = _post(router.port, "/v1/models/g:generate", body)
+            out = resp.status, json.loads(resp.read())
+            conn.close()
+            return out
+
+        assert generate()[0] == 503          # 1.0 s > the 0.5 s timeout
+        cap = threading.Thread(target=lambda: _post(
+            router.port, "/debug/profile?seconds=0.1", {}, timeout=60)[1]
+            .read())
+        cap.start()
+        time.sleep(0.3)
+        status, out = generate()             # 1.0 s < 0.5 + 0.1 + 1.5 s
+        assert status == 200 and out["tokens"] == [5], out
+        rep.delay = 3.0                      # hung past the stall allowed
+        t0 = time.monotonic()
+        assert generate()[0] == 503
+        assert time.monotonic() - t0 < 3.0
+        assert cap.is_alive()                # still inside the capture
+        cap.join(timeout=60)
+        assert router._captures == []
+        rep.delay = 1.0
+        time.sleep(0.3)                     # the health loop re-admits it
+        assert generate()[0] == 503
+    finally:
+        router.stop()
+        rep.srv.shutdown()
+
+
 def test_port_router_fans_out_the_fleet_views(fleet, tmp_path, monkeypatch):
     router, servers = fleet
     ids = {f"127.0.0.1:{s.port}" for s in servers}

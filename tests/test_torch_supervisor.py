@@ -397,6 +397,12 @@ def _env(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("MXNET_", "MXTPU_"))}
     env["PYTHONPATH"] = str(ROOT)
+    # one intra-op thread per replica: on a host busy with other work, a
+    # CPU replica's default thread pool (one per core) is oversubscribed:
+    # an 8-token generate took 7 s instead of 0.04 s beside 6 busy torch
+    # processes (tools/torch_replica_latency.py), and past the router's
+    # 10 s upstream timeout on both replicas on a busier host
+    env["OMP_NUM_THREADS"] = "1"
     env["MXNET_FLIGHT_DUMP_DIR"] = str(tmp_path / "flight")
     env["MXNET_ROUTER_INCIDENT_DIR"] = str(tmp_path / "incidents")
     env["MXNET_SUPERVISE_INTERVAL_SECONDS"] = "0.1"
