@@ -9,6 +9,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --serve REF.json  # the HTTP phase only
     python3 chip_smoke.py --fleet REF.json  # the fleet phase only
     python3 chip_smoke.py --gluon    # the Gluon training loop only
+    python3 chip_smoke.py --oneshot  # one-shot BERT-large serving only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -162,7 +163,28 @@ Phases, each of which raises (exit code 1) on any failure:
    step counted skipped) and a clean step that updates: 3 all-finite
    launches and 3 of K8.  Before the phases, the all-finite kernel is
    held to its plain version over BERT-large's 399 leaves (finite, NaN,
-   +Inf, -Inf) and timed beside K8.
+   +Inf, -Inf) and timed beside K8;
+8. one-shot serving ("oneshot:" lines): K1 at the path's attention shape
+   (B = 32, 16 heads of 64, T = 128, key bias from ragged valid lengths,
+   one row fully masked, no lse) against its plain version, timed beside
+   its bound and SDPA with a float additive mask; then ``bert_large``'s
+   ``BERTModel`` at full width and depth (``Normal(0.02)`` from the
+   seed, fp32) through ``InferenceEngine.from_block`` with int32 inputs
+   ``(input_ids, token_types, valid_length)`` of T = 128 and
+   ``max_batch_size`` 32: ``warmup()`` captures 6 bucket graphs
+   ("programs:" line); predicts at n = 1, 3, 32 and 40 (32 + 8) with
+   ragged valid lengths equal the eager body bit for bit and the body
+   with plain attention within ``ONESHOT_TOL``; the same predicts in
+   their own launch-count window launch K1 24 times per dispatched
+   bucket and nothing else; one profiled predict at bucket 32 (wall,
+   device time, host launches, idle share); ``set_data`` on the pooler
+   weight is read by the next replay with no re-capture; a
+   ``DynamicBatcher`` fed by 32 threads of 4 requests of 1-8 rows makes
+   fewer batches than requests, every answer within ``BATCH_TOL`` of its
+   solo predict (samples/s, latency p50 and p99); ``ModelServer``
+   ``:predict`` from 8 concurrent HTTP clients answers within
+   ``BATCH_TOL`` of the engine, ``/programs`` shows 6 of 6 captured and
+   ``/memory`` the owner ``params:bert``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
@@ -3090,6 +3112,315 @@ def gluon_update_times(params, trainer, card):
     del w, g, m, v
 
 
+# ------------------------------------------------------------ phase 8
+ONESHOT_T, ONESHOT_MAX_BATCH = 128, 32
+ONESHOT_SIZES = (1, 3, 32, 40)  # 40 chunks into 32 + 8
+ONESHOT_TOL = 1e-3      # graphs (K1) vs the body with plain attention,
+                        # relative to each output's largest magnitude: 24
+                        # layers of 3xTF32 attention against fp32 cuBLAS
+BATCH_TOL = 1e-4        # a request served inside a larger bucket against
+                        # its solo predict: the GEMMs of another batch size
+                        # may sum in another order
+ONESHOT_CLIENTS, ONESHOT_REQS = 32, 4   # batcher threads, requests each
+HTTP_CLIENTS = 8
+
+
+def bert_inputs(rng, n, V=BERT_VOCAB, T=ONESHOT_T):
+    """``n`` rows of (ids, token types, valid lengths 1..T), int32."""
+    return [rng.randint(0, V, (n, T)).astype(np.int32),
+            rng.randint(0, 2, (n, T)).astype(np.int32),
+            rng.randint(1, T + 1, (n,)).astype(np.int32)]
+
+
+def max_rel_err(got, want):
+    return max(max_err(g, w) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def check_k1_oneshot(fa, dev, rng, card):
+    """K1 at the one-shot path's attention shape (B = 32, 16 heads of 64,
+    T = 128, key bias from ragged valid lengths with one row fully
+    masked, no lse) against its plain version, then timed beside its
+    bound and SDPA with the same bias as a float additive mask."""
+    B, H, T, D = ONESHOT_MAX_BATCH, BERT_HEADS, ONESHOT_T, HEAD_DIM
+    scale = 1.0 / math.sqrt(D)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    valid = torch.from_numpy(rng.randint(1, T + 1, B)).to(dev)
+    valid[B - 1] = 0                     # a pad row of a bucket
+    mask = (torch.arange(T, device=dev)[None] < valid[:, None]).float()
+    sets = [tuple(rand(B, H, T, D) for _ in range(3)) + (mask,)
+            for _ in range(4)]
+    q, k, v, m = sets[0]
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, scale=scale, mask=m)
+    want = fa._plain_flash_attention(q, k, v, scale, False, m)
+    e = check_close("oneshot: K1 B=32 T=128 key bias", got, want)
+
+    def k1(q, k, v, m):
+        return fa.flash_attention(q, k, v, scale=scale, mask=m)
+
+    def sdpa(q, k, v, m):
+        bias = torch.where(m > 0, 0.0, fa.NEG)[:, None, None, :]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                              scale=scale)
+
+    with torch.no_grad():
+        ms, eager = device_ms(k1, sets, 20), time_ms(k1, sets, 20)
+        plain = time_ms(lambda q, k, v, m: fa._plain_flash_attention(
+            q, k, v, scale, False, m), sets, 5)
+        lib = device_ms(sdpa, sets, 20)
+        lib_err = max_err(sdpa(q, k, v, m)[:B - 1], want[:B - 1])
+    (bnd, by), old = k1_bounds(4 * B * H * T * D * 4 + B * T * 4,
+                               4 * D * B * H * T * T)
+    print(f"oneshot: K1 flash_fwd B={B} H={H} T={T} D={D} key bias, no "
+          f"lse: max_abs_err {e:.3e} against the plain version (tol "
+          f"{KERNEL_TOL}, a fully masked row included); {ms:.4f} ms on the "
+          f"card ({eager:.4f} ms per eager call), bound {bnd:.4f} ms by "
+          f"{by} (3xTF32; fp32 CUDA-core bound {old:.4f} ms), plain "
+          f"{plain:.4f} ms, SDPA with a float additive mask {lib:.4f} ms "
+          f"(max_abs_err {lib_err:.3e} on the rows that keep a key) "
+          f"[{card}]", flush=True)
+    return {"ms": ms, "eager_ms": eager, "bound_ms": bnd, "bound_by": by,
+            "plain_ms": plain, "library_ms": lib, "max_abs_err": e}
+
+
+def drive_oneshot(fa, card):
+    """One-shot serving of ``bert_large``'s ``BERTModel`` at full width
+    and depth: ``InferenceEngine.from_block`` with batch-size buckets up
+    to ``ONESHOT_MAX_BATCH`` (six CUDA graphs captured at ``warmup``),
+    graphs against the eager body (bit for bit) and against the body
+    with plain attention (``ONESHOT_TOL``), a launch-count window (K1
+    once per layer per dispatched bucket, nothing else),
+    one profiled predict at the largest bucket, ``set_data`` seen
+    without a re-capture, a ``DynamicBatcher`` under 32 threads and the
+    ``ModelServer`` ``:predict`` route under 8 HTTP clients.  Returns the
+    window's counts."""
+    import concurrent.futures as cf
+    import threading
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.serving import (DynamicBatcher,
+                                                   InferenceEngine,
+                                                   ModelServer)
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    check_k1_oneshot(fa, dev, rng, card)
+    T, MB = ONESHOT_T, ONESHOT_MAX_BATCH
+    t0 = time.perf_counter()
+    net = bert_mod.bert_large(dropout=0.0)
+    net.initialize(init=mx.init.Normal(0.02), seed=SEED)
+    specs = [((T,), np.int32), ((T,), np.int32), ((), np.int32)]
+    eng = InferenceEngine.from_block(net, specs, max_batch_size=MB,
+                                     name="bert")
+    n_params = sum(p.numel() for p in net.parameters())
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    print(f"oneshot: bert_large BERTModel ({BERT_LAYERS} x 1024, "
+          f"{BERT_HEADS} heads of {HEAD_DIM}, vocab {BERT_VOCAB}) on "
+          f"{net.device}, {n_params} parameters, Normal(0.02) seed {SEED}, "
+          f"fp32, TF32 off, built in {built:.1f} s; buckets "
+          f"{list(eng.buckets)}, inputs {eng.input_names} int32 of "
+          f"{[s for s, _ in specs]}; warmup {time.perf_counter() - t0:.2f} "
+          f"s [{card}]", flush=True)
+    st = program_line("oneshot", eng, card)
+    check(st["expected"] == len(eng.buckets) == 6,
+          f"oneshot: {st['expected']} programs expected, not 6")
+
+    # graphs against the eager body, and against plain attention
+    cases = {n: bert_inputs(rng, n) for n in ONESHOT_SIZES}
+    worst = 0.0
+    real = bert_mod.flash_attention
+    for n, xs in cases.items():
+        got = eng.predict(xs)
+        with eng._eager_bodies():
+            want = eng.predict(xs)
+            bert_mod.flash_attention = (
+                lambda q, k, v, scale=None, causal=False, mask=None:
+                fa._plain_flash_attention(q, k, v, scale, causal, mask))
+            try:
+                plain = eng.predict(xs)
+            finally:
+                bert_mod.flash_attention = real
+        for g, w in zip(got, want):
+            check(tuple(g.shape[:1]) == (n,) and bool(torch.isfinite(g)
+                                                      .all()),
+                  f"oneshot: n={n}: output {tuple(g.shape)} not finite or "
+                  f"not {n} rows")
+            check(torch.equal(g, w), f"oneshot: n={n}: the graphs differ "
+                  f"from the eager body by {max_err(g, w)}")
+        err = max_rel_err(got, plain)
+        check(err <= ONESHOT_TOL, f"oneshot: n={n}: graphs vs plain "
+              f"attention {err} > {ONESHOT_TOL}")
+        worst = max(worst, err)
+    print(f"oneshot: graphs equal the eager body bit for bit at n in "
+          f"{list(ONESHOT_SIZES)} (seq and pooled; 40 chunks into 32 + 8; "
+          f"ragged valid lengths, pad rows with none); against the body "
+          f"with plain attention {worst:.3e} of each output's largest "
+          f"value (tol {ONESHOT_TOL})", flush=True)
+
+    # the launch-count window: K1 once per layer per dispatched bucket
+    dispatches = sum(-(-n // MB) for n in ONESHOT_SIZES)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()                 # --- the one-shot path
+    outs = [eng.predict(xs) for xs in cases.values()]
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the one-shot path
+    print(f"oneshot: launches in the window of {len(cases)} predicts "
+          f"({dispatches} dispatched buckets) {counts}", flush=True)
+    for name, c in counts.items():
+        expect = BERT_LAYERS * dispatches if name == "flash_fwd" else 0
+        check(c == expect, f"oneshot: kernel {name} launched {c} times, "
+              f"expected {expect}")
+    del outs
+
+    # one profiled predict at the largest bucket
+    xs = bert_inputs(rng, MB)
+    prof, _ = profile_window(lambda: None, lambda: eng.predict(xs))
+    print(f"oneshot: one profiled predict at bucket {MB}: wall "
+          f"{prof['wall_ms']:.2f} ms (median of 3), device "
+          f"{prof['device_ms']:.2f} ms in {prof['device_ops']} kernels and "
+          f"copies, {prof['host_launches']} host launches, idle share "
+          f"{prof['idle_share']:.3f}; {MB * 1e3 / prof['wall_ms']:.1f} "
+          f"samples/s [{card}]", flush=True)
+
+    # live weights: a weight copied in place is read by the next replay
+    p = next(q for q in net.collect_params().values()
+             if q._var is net.pooler.weight)
+    xs = cases[3]
+    before = eng.predict(xs)[1]
+    p.set_data(net.pooler.weight.detach() * 2)
+    got = eng.predict(xs)
+    with eng._eager_bodies():
+        want = eng.predict(xs)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    captures = eng.graph_stats()["captures"]
+    print(f"oneshot: set_data(2 x {p.name}): the next predict "
+          f"{'equals' if same else 'DIFFERS from'} the eager body bit for "
+          f"bit, pooled output moved by {max_err(got[1], before):.3e}, "
+          f"{captures} captures (no re-capture)", flush=True)
+    check(same and captures == len(eng.buckets)
+          and not torch.equal(got[1], before),
+          "oneshot: set_data was not seen by the graph, or re-captured")
+
+    # the batcher under 32 threads
+    reqs = [[bert_inputs(rng, int(rng.randint(1, 9)))
+             for _ in range(ONESHOT_REQS)] for _ in range(ONESHOT_CLIENTS)]
+    solo = [[eng.predict(xs) for xs in per] for per in reqs]
+    torch.cuda.synchronize()
+    batcher = DynamicBatcher(eng, max_delay_ms=5.0, name="bert")
+    answers = [[None] * ONESHOT_REQS for _ in range(ONESHOT_CLIENTS)]
+    lat = []
+    lock = threading.Lock()
+    b0, r0 = batcher_counts()
+
+    def client(i):
+        for j, xs in enumerate(reqs[i]):
+            t = time.perf_counter()
+            out = batcher.submit(xs, timeout=120)
+            torch.cuda.synchronize()
+            with lock:
+                lat.append(time.perf_counter() - t)
+            answers[i][j] = out
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(ONESHOT_CLIENTS) as pool:
+        list(pool.map(client, range(ONESHOT_CLIENTS)))
+    wall = time.perf_counter() - t0
+    batcher.close()
+    b1, r1 = batcher_counts()
+    rows = sum(xs[0].shape[0] for per in reqs for xs in per)
+    err, exact = 0.0, True
+    for per_a, per_s in zip(answers, solo):
+        for a, s in zip(per_a, per_s):
+            err = max(err, max_rel_err(a, s))
+            exact = exact and all(torch.equal(x, y) for x, y in zip(a, s))
+    n_req = ONESHOT_CLIENTS * ONESHOT_REQS
+    print(f"oneshot: DynamicBatcher (max_delay 5 ms), {ONESHOT_CLIENTS} "
+          f"threads x {ONESHOT_REQS} requests of 1-8 rows ({rows} rows): "
+          f"{b1 - b0} batches for {r1 - r0} requests, {rows / wall:.1f} "
+          f"samples/s, latency p50 {pct(lat, 50) * 1e3:.1f} ms p99 "
+          f"{pct(lat, 99) * 1e3:.1f} ms; every answer against its solo "
+          f"predict {err:.3e} of the output's largest value (tol "
+          f"{BATCH_TOL}, {'bit for bit' if exact else 'not bit for bit'}) "
+          f"[{card}]", flush=True)
+    check(r1 - r0 == n_req and b1 - b0 < n_req,
+          f"oneshot: {b1 - b0} batches for {r1 - r0} requests")
+    check(err <= BATCH_TOL, f"oneshot: a batched answer differs from its "
+          f"solo predict by {err}")
+    del answers, solo
+
+    # :predict over HTTP from 8 concurrent clients
+    srv = ModelServer(port=0, host="127.0.0.1", max_delay_ms=5.0)
+    srv.add_model("bert", eng)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        hreqs = [bert_inputs(rng, int(rng.randint(1, 3)))
+                 for _ in range(HTTP_CLIENTS)]
+        hsolo = [eng.predict(xs) for xs in hreqs]
+
+        def post(i):
+            xs = hreqs[i]
+            body = {"inputs": {name: x.tolist() for name, x in
+                               zip(eng.input_names, xs)}}
+            t = time.perf_counter()
+            out = http_json(base, "/v1/models/bert:predict", body,
+                            headers={"x-request-id": f"bert-{i}"})
+            return out, time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            got = list(pool.map(post, range(HTTP_CLIENTS)))
+        wall = time.perf_counter() - t0
+        herr = 0.0
+        for (code, hdrs, body), _ in got:
+            check(code == 200, f"oneshot: :predict answered {code}: "
+                  f"{str(body)[:300]}")
+        for ((code, hdrs, body), _), xs, want in zip(got, hreqs, hsolo):
+            n = xs[0].shape[0]
+            check(body["shapes"] == [[n, T, 1024], [n, 1024]],
+                  f"oneshot: :predict shapes {body['shapes']}")
+            herr = max(herr, max_rel_err(
+                [torch.tensor(o, dtype=torch.float32, device=dev)
+                 for o in body["outputs"]], want))
+        hlat = [t for _, t in got]
+        _, _, progs = http_json(base, "/programs")
+        inv = progs["engines"]["bert"]
+        _, _, mem = http_json(base, "/memory")
+        owned = mem["owners"].get("params:bert", 0)
+        print(f"oneshot: :predict over HTTP from {HTTP_CLIENTS} clients "
+              f"({sum(x[0].shape[0] for x in hreqs)} rows, JSON): every "
+              f"answer against the engine's {herr:.3e} (tol {BATCH_TOL}); "
+              f"wall {wall:.2f} s, latency p50 {pct(hlat, 50):.2f} s p99 "
+              f"{pct(hlat, 99):.2f} s; /programs bert compiled "
+              f"{inv['compiled_programs']} of {inv['expected_programs']}; "
+              f"/memory params:bert {owned} bytes [{card}]", flush=True)
+        check(herr <= BATCH_TOL, f"oneshot: an HTTP answer differs from "
+              f"the engine's by {herr}")
+        check(inv["compiled_programs"] == inv["expected_programs"] == 6,
+              f"oneshot: /programs {inv}")
+        check(owned >= 4 * n_params, f"oneshot: /memory params:bert "
+              f"{owned} < {4 * n_params}")
+    finally:
+        srv.stop()
+
+    del eng, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def batcher_counts():
+    """(batches, requests) the one-shot batchers counted so far."""
+    from incubator_mxnet_tpu_torch.serving import metrics as smetrics
+    return smetrics.BATCHES.value, smetrics.REQUESTS.value
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3108,6 +3439,8 @@ def main():
                          "process)")
     ap.add_argument("--gluon", action="store_true",
                     help="only run the Gluon training loop (phase 7)")
+    ap.add_argument("--oneshot", action="store_true",
+                    help="only run one-shot BERT-large serving (phase 8)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -3136,6 +3469,9 @@ def main():
         return                               # a phase, no result
     if args.gluon:
         drive_gluon(fa, card)
+        return                               # a phase, no result
+    if args.oneshot:
+        drive_oneshot(fa, card)
         return                               # a phase, no result
 
     t0 = time.perf_counter()
@@ -3179,6 +3515,7 @@ def main():
         train = drive_training(fa, card, k8_row)
         check_cell_grads(fa, dev)
         _, guard = drive_gluon(fa, card)
+        drive_oneshot(fa, card)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],

@@ -19,8 +19,9 @@ change.
 
 ``hybridize()`` keeps the reference's flag and its propagation; a
 hybridized block runs the same eager body (the reference's cached graph
-is, on the card, CUDA-graph replay, which arrives with serving's
-batch-size buckets: ROADMAP Queue A item 9).  A block may define the
+as CUDA-graph replay is ROADMAP Queue A item 8; a block served through
+:class:`..serving.InferenceEngine` already replays one graph per
+batch-size bucket).  A block may define the
 reference's ``hybrid_forward(F, x, *args, **params)`` over NDArrays
 instead of ``forward``; ``F`` is :mod:`..ndarray`."""
 from __future__ import annotations

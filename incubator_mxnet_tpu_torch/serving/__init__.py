@@ -1,11 +1,13 @@
-"""Generation serving of the PyTorch port: the paged KV-cache pool, the
-sampling plane, the generation engine, the continuous batcher with its
-fault domains (``lifecycle``), SLO accounting (``slo``) and metrics, the
+"""Serving of the PyTorch port: the one-shot engine
+(``InferenceEngine``, batch-size buckets) behind its dynamic batcher, the
+paged KV-cache pool, the sampling plane, the generation engine, the
+continuous batcher with its fault domains (``lifecycle``), SLO accounting (``slo``) and metrics, the
 HTTP front (``server.ModelServer``), and the fleet above it: the router
 (``router.Router``) and the supervisor (``supervisor.Supervisor``), which
 run no model and never touch the card."""
-from .batcher import ContinuousBatcher, QueueFullError
-from .engine import GenerationEngine, derive_prefill_buckets
+from .batcher import ContinuousBatcher, DynamicBatcher, QueueFullError
+from .engine import (GenerationEngine, InferenceEngine, derive_buckets,
+                     derive_prefill_buckets)
 from .kvcache import NULL_BLOCK, BlockPool, blocks_for
 from .lifecycle import (BreakerOpen, Cancelled, CircuitBreaker,
                         DeadlineExceeded, Draining, RequestAborted,
@@ -17,7 +19,8 @@ from .supervisor import (AutoscalePolicy, FlapBreaker, ScaleAction,
                          ScaleSignals, Supervisor, scale_decision)
 
 __all__ = ["BlockPool", "blocks_for", "NULL_BLOCK", "SamplingParams",
-           "MASK_OFF", "GenerationEngine", "derive_prefill_buckets",
+           "MASK_OFF", "InferenceEngine", "derive_buckets",
+           "DynamicBatcher", "GenerationEngine", "derive_prefill_buckets",
            "ContinuousBatcher", "QueueFullError", "Cancelled",
            "RequestAborted", "DeadlineExceeded", "BreakerOpen", "Draining",
            "CircuitBreaker", "Watchdog", "ModelServer", "Router", "Replica",

@@ -1,7 +1,10 @@
-"""Continuous batching over one :class:`~.engine.GenerationEngine`
-(counterpart of ``incubator_mxnet_tpu/serving/batcher.py``'s
-``ContinuousBatcher``, with the operational tiers of its
-``DynamicBatcher`` base folded in).
+"""The serving batchers (counterpart of
+``incubator_mxnet_tpu/serving/batcher.py``): :class:`DynamicBatcher`
+coalesces concurrent one-shot requests into one bucketed dispatch of an
+:class:`~.engine.InferenceEngine` (described on its class), and
+:class:`ContinuousBatcher` runs continuous batching over one
+:class:`~.engine.GenerationEngine`, with the same operational tiers; the
+rest of this docstring is the continuous batcher's.
 
 A worker thread runs step boundaries: free the slots of cancelled and
 expired requests, admit queued requests into free slots (one ``prefill``
@@ -56,11 +59,12 @@ import threading
 import time
 from collections import deque
 from dataclasses import replace
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as _np
+import torch
 
-from ..base import MXNetError, getenv_int
+from ..base import MXNetError, getenv_float, getenv_int
 from .. import fault as _fault
 from .. import health as _health
 from .. import telemetry as _telemetry
@@ -68,12 +72,13 @@ from .. import telemetry_device as _tdev
 from . import lifecycle as _lc
 from . import metrics as _m
 from . import slo as _slo
+from .engine import _as_tensor
 from .lifecycle import Cancelled, RequestAborted
 from .sampling import (JsonMaskMachine, SamplingParams,
                        derive_candidate_seed, stop_trim)
 
-__all__ = ["ContinuousBatcher", "QueueFullError", "Cancelled",
-           "RequestAborted"]
+__all__ = ["DynamicBatcher", "ContinuousBatcher", "QueueFullError",
+           "Cancelled", "RequestAborted"]
 
 
 class QueueFullError(MXNetError):
@@ -83,6 +88,530 @@ class QueueFullError(MXNetError):
     def __init__(self, msg: str, retry_after: float = 1.0):
         super().__init__(msg)
         self.retry_after = float(retry_after)
+
+
+# ===========================================================================
+# DynamicBatcher — one-shot requests coalesced into one bucketed dispatch
+# ===========================================================================
+
+def _dtype_name(a) -> str:
+    """A request array's dtype by its numpy name (``float32``) for numpy
+    arrays, NDArrays and tensors alike, so that they coalesce."""
+    return str(getattr(a, "dtype", "?")).replace("torch.", "")
+
+
+class _Request:
+    """One submitted batch: arrays and a latch the caller waits on."""
+
+    __slots__ = ("arrays", "n", "sig", "event", "outputs", "error",
+                 "t_submit", "deadline", "model", "request_id",
+                 "trace_ctx")
+
+    def __init__(self, arrays, n, sig, deadline=None, model="?",
+                 request_id=None, trace_ctx=None):
+        self.arrays = arrays
+        self.n = n
+        self.sig = sig
+        self.event = threading.Event()
+        self.outputs = None
+        self.error = None
+        self.t_submit = time.monotonic()
+        self.deadline = deadline        # absolute monotonic, or None
+        self.model = model
+        self.request_id = request_id or _telemetry.new_request_id()
+        self.trace_ctx = trace_ctx      # the submitter's span
+
+    def fail(self, err: Exception) -> None:
+        """Finish this request with ``err`` (idempotent): the one way the
+        worker, the watchdog and the drain fail a request."""
+        if self.event.is_set():
+            return
+        self.error = err
+        self.event.set()
+
+    def result(self, timeout: Optional[float] = None) -> List:
+        """Block for the scattered outputs; re-raises a dispatch error.
+        The wait is also bounded by the request's own deadline: crossing
+        it raises ``lifecycle.DeadlineExceeded`` (HTTP 504), a
+        caller-supplied ``timeout`` alone ``TimeoutError``."""
+        wait = timeout
+        if self.deadline is not None:
+            remaining = max(0.0, self.deadline - time.monotonic())
+            wait = remaining if timeout is None else min(timeout, remaining)
+        if not self.event.wait(wait):
+            if self.deadline is not None \
+                    and time.monotonic() >= self.deadline:
+                _m.DEADLINE_EXCEEDED.inc(model=self.model, stage="wait")
+                _telemetry.FAULT.publish(
+                    site="serving.deadline", event="deadline", kind="wait",
+                    model=self.model, request_id=self.request_id)
+                raise _lc.DeadlineExceeded(
+                    f"{self.model}: request {self.request_id} deadline "
+                    f"exceeded after "
+                    f"{time.monotonic() - self.t_submit:.3f}s")
+            raise TimeoutError("inference request timed out")
+        if self.error is not None:
+            raise self.error
+        return self.outputs
+
+
+class DynamicBatcher:
+    """Batch-coalescing front over one :class:`~.engine.InferenceEngine`
+    (counterpart of the JAX batcher of the same name).
+
+    Requests land in a bounded FIFO queue; one worker thread pops the
+    head and gathers the requests behind it that share its per-example
+    shapes and dtypes (never reordering past an incompatible head) until
+    the group reaches ``max_batch_size`` rows or the head's
+    ``max_delay_ms`` window closes.  The group is concatenated, run as
+    ONE ``engine.predict`` (one bucket's graph on the card) and each
+    caller gets its own rows.  The tiers are the reference's:
+    backpressure (:class:`QueueFullError`), deadlines at admission, in
+    the queue and at the caller's wait (``lifecycle.DeadlineExceeded``),
+    the ``serving.queue`` and ``serving.infer`` fault sites with retries
+    and then one dispatch per request (``mxtpu_serve_fallbacks``), the
+    circuit breaker, the generation-counted watchdog
+    (:meth:`check_worker`), drain on :meth:`close`, ``serve.request`` /
+    ``serve.batch`` spans whose ``links`` name every rider, and SLO
+    records.
+
+    Defaults come from ``MXNET_SERVE_MAX_BATCH`` (32, capped by the
+    engine's largest bucket), ``MXNET_SERVE_MAX_DELAY_MS`` (5.0),
+    ``MXNET_SERVE_QUEUE`` (128) and ``MXNET_SERVE_TIMEOUT_MS`` (0: no
+    deadline)."""
+
+    def __init__(self, engine, *, max_batch_size: Optional[int] = None,
+                 max_delay_ms: Optional[float] = None,
+                 queue_size: Optional[int] = None,
+                 name: Optional[str] = None, retry_policy=None,
+                 breaker: Optional[_lc.CircuitBreaker] = None,
+                 default_timeout_ms: Optional[float] = None):
+        self.engine = engine
+        self.name = str(name or engine.name)
+        if max_batch_size is None:
+            max_batch_size = getenv_int("MXNET_SERVE_MAX_BATCH", 32)
+        if engine.max_batch_size:
+            max_batch_size = min(int(max_batch_size),
+                                 int(engine.max_batch_size))
+        self.max_batch_size = max(1, int(max_batch_size))
+        if max_delay_ms is None:
+            max_delay_ms = getenv_float("MXNET_SERVE_MAX_DELAY_MS", 5.0)
+        self.max_delay = max(0.0, float(max_delay_ms)) / 1000.0
+        if queue_size is None:
+            queue_size = getenv_int("MXNET_SERVE_QUEUE", 128)
+        self.queue_size = max(1, int(queue_size))
+        if default_timeout_ms is None:
+            default_timeout_ms = _lc.default_timeout_ms()
+        self.default_timeout_ms = float(default_timeout_ms)
+        self.retry_policy = retry_policy
+        self.breaker = breaker if breaker is not None \
+            else _lc.CircuitBreaker(self.name)
+        self._queue: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        # worker health (guarded by _cv): a watchdog restart bumps the
+        # generation; the old thread exits when it next looks
+        self._worker_gen = 0
+        self._heartbeat = time.monotonic()
+        self._busy_since: Optional[float] = None
+        self._inflight: Optional[list] = None
+        self._restarts = 0
+        self._degraded = False
+        self._avg_batch_seconds = 0.0
+        self._thread = self._start_worker()
+
+    def _start_worker(self) -> threading.Thread:
+        t = threading.Thread(
+            target=self._worker, args=(self._worker_gen,),
+            name=f"mxtorch-serve-{self.name}-g{self._worker_gen}",
+            daemon=True)
+        t.start()
+        return t
+
+    # -- submit ---------------------------------------------------------
+    @staticmethod
+    def _signature(arrays):
+        return tuple((tuple(a.shape[1:]), _dtype_name(a)) for a in arrays)
+
+    def _estimate_wait_locked(self) -> float:
+        """Queue-wait estimate for a newly admitted request from the rows
+        queued and the EWMA batch time (``_cv`` held); 0 until a batch has
+        been measured, so admission sheds only on evidence."""
+        if self._avg_batch_seconds <= 0.0:
+            return 0.0
+        rows = sum(r.n for r in self._queue)
+        batches_ahead = rows // self.max_batch_size
+        if self._busy_since is not None:    # current dispatch first
+            batches_ahead += 1
+        return batches_ahead * self._avg_batch_seconds
+
+    def submit_async(self, arrays: Sequence,
+                     timeout_ms: Optional[float] = None,
+                     request_id: Optional[str] = None) -> _Request:
+        """Enqueue one request batch; returns a latch whose ``result()``
+        blocks for the outputs.  Raises :class:`QueueFullError` under
+        backpressure, ``lifecycle.BreakerOpen`` while the breaker is
+        OPEN, ``lifecycle.DeadlineExceeded`` when the queue-wait estimate
+        already busts the request's budget, and ``MXNetError`` after
+        :meth:`close`."""
+        if request_id is None:
+            request_id = _telemetry.new_request_id()
+        _fault.inject("serving.queue", model=self.name,
+                      request_id=request_id)
+        self.breaker.allow()
+        arrays = list(arrays)
+        n = int(arrays[0].shape[0])
+        if timeout_ms is None:
+            timeout_ms = self.default_timeout_ms
+        req = _Request(arrays, n, self._signature(arrays),
+                       deadline=_lc.deadline_from_ms(timeout_ms),
+                       model=self.name, request_id=request_id,
+                       trace_ctx=_telemetry.tracer.current())
+        with self._cv:
+            if self._closed:
+                raise MXNetError(f"batcher {self.name!r} is closed")
+            if len(self._queue) >= self.queue_size:
+                _m.REJECTED.inc(model=self.name)
+                raise QueueFullError(
+                    f"{self.name}: queue full ({self.queue_size} "
+                    "pending) — backpressure")
+            if req.deadline is not None:
+                est = self._estimate_wait_locked()
+                if time.monotonic() + est > req.deadline:
+                    _m.DEADLINE_EXCEEDED.inc(model=self.name,
+                                             stage="admission")
+                    _telemetry.FAULT.publish(
+                        site="serving.deadline", event="deadline",
+                        kind="admission", model=self.name,
+                        request_id=req.request_id)
+                    raise _lc.DeadlineExceeded(
+                        f"{self.name}: estimated queue wait {est:.3f}s "
+                        "already exceeds the deadline of request "
+                        f"{req.request_id}")
+            self._queue.append(req)
+            _m.QUEUE_DEPTH.set(len(self._queue), model=self.name)
+            self._cv.notify_all()
+        _m.REQUESTS.inc(model=self.name)
+        return req
+
+    def submit(self, arrays: Sequence,
+               timeout: Optional[float] = None,
+               timeout_ms: Optional[float] = None,
+               request_id: Optional[str] = None) -> List:
+        """Synchronous request: enqueue, wait, return this request's rows
+        of every output.  ``timeout_ms`` is the end-to-end deadline
+        (default ``MXNET_SERVE_TIMEOUT_MS``); ``timeout`` bounds only the
+        wait.  Every outcome lands in the model's SLO window."""
+        if request_id is None:
+            request_id = _telemetry.new_request_id()
+        t0 = time.monotonic()
+        with _telemetry.trace_span("serve.request", cat="serving",
+                                   model=self.name,
+                                   request_id=request_id):
+            try:
+                out = self.submit_async(
+                    arrays, timeout_ms=timeout_ms,
+                    request_id=request_id).result(timeout)
+            except Exception:
+                _slo.tracker.record(self.name,
+                                    time.monotonic() - t0, ok=False)
+                raise
+            _slo.tracker.record(self.name, time.monotonic() - t0, ok=True)
+            return out
+
+    # -- worker ---------------------------------------------------------
+    def _current_gen(self) -> int:
+        with self._cv:
+            return self._worker_gen
+
+    def _worker(self, gen: int):
+        while True:
+            if self._current_gen() != gen:
+                return                  # replaced by the watchdog
+            group = self._gather(gen)
+            if group is None:
+                return
+            with self._cv:
+                if gen == self._worker_gen:
+                    self._busy_since = time.monotonic()
+                    self._inflight = group
+            self._run_group(group)
+            with self._cv:
+                if gen == self._worker_gen:
+                    self._busy_since = None
+                    self._inflight = None
+
+    def _expire_locked(self, req: _Request) -> None:
+        """Shed one request that expired while queued (``_cv`` held)."""
+        _m.DEADLINE_EXCEEDED.inc(model=self.name, stage="queue")
+        _telemetry.FAULT.publish(site="serving.deadline", event="deadline",
+                                 kind="queue", model=self.name,
+                                 request_id=req.request_id)
+        req.fail(_lc.DeadlineExceeded(
+            f"{self.name}: request {req.request_id} expired in queue "
+            f"after {time.monotonic() - req.t_submit:.3f}s"))
+
+    def _gather(self, gen: int):
+        """Block for the head request, then coalesce until the batch is
+        full, the head's delay window closes or the next request is
+        shape-incompatible (FIFO kept).  Expired requests are shed here,
+        never dispatched.  None when closed and drained or when this
+        worker generation was replaced."""
+        with self._cv:
+            while True:
+                self._heartbeat = time.monotonic()
+                while self._queue and self._queue[0].deadline is not None \
+                        and self._queue[0].deadline <= self._heartbeat:
+                    self._expire_locked(self._queue.popleft())
+                if self._queue:
+                    break
+                if self._closed:
+                    return None
+                if gen != self._worker_gen:
+                    return None
+                self._cv.wait(0.05)
+            head = self._queue.popleft()
+            group, total = [head], head.n
+            deadline = time.monotonic() + self.max_delay
+            while total < self.max_batch_size:
+                if self._queue:
+                    nxt = self._queue[0]
+                    if nxt.deadline is not None \
+                            and nxt.deadline <= time.monotonic():
+                        self._expire_locked(self._queue.popleft())
+                        continue
+                    if nxt.sig != head.sig \
+                            or total + nxt.n > self.max_batch_size:
+                        break
+                    group.append(self._queue.popleft())
+                    total += nxt.n
+                    continue
+                if self._closed:        # drain fast: no delay window
+                    break
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cv.wait(remaining)
+            _m.QUEUE_DEPTH.set(len(self._queue), model=self.name)
+        return group
+
+    def _run_group(self, group):
+        t0 = time.monotonic()
+        for r in group:
+            _m.QUEUE_WAIT.observe(t0 - r.t_submit)
+        total = sum(r.n for r in group)
+        _m.BATCH_SIZE.observe(total)
+        _m.BATCHES.inc(model=self.name)
+        rids = [r.request_id for r in group]
+        # the batch span nests under the head rider's request span and
+        # links every rider's id
+        head_ctx = group[0].trace_ctx
+        attach = _telemetry.tracer.attach(head_ctx) \
+            if head_ctx is not None else contextlib.nullcontext()
+        with attach, \
+                _telemetry.trace_span("serve.batch", cat="serving",
+                                      model=self.name,
+                                      requests=len(group), rows=total,
+                                      links=rids):
+            try:
+                if len(group) == 1:
+                    ins = group[0].arrays
+                else:
+                    dev = self.engine.device
+                    ins = [torch.cat([_as_tensor(r.arrays[i]).to(dev)
+                                      for r in group])
+                           for i in range(len(group[0].arrays))]
+
+                def run():
+                    _fault.inject("serving.infer", model=self.name,
+                                  request_ids=rids)
+                    return self.engine.predict(ins)
+
+                try:
+                    outs = _fault.retry_call(run, site="serving.infer",
+                                             policy=self.retry_policy)
+                except Exception as e:
+                    self._fallback(group, e)
+                    return
+                off = 0
+                for r in group:
+                    r.outputs = [o[off:off + r.n] for o in outs]
+                    off += r.n
+                dt = time.monotonic() - t0
+                self._avg_batch_seconds = dt \
+                    if self._avg_batch_seconds <= 0.0 \
+                    else 0.8 * self._avg_batch_seconds + 0.2 * dt
+                self._degraded = False
+                self.breaker.record_success()
+            except Exception as e:      # the worker survives anything
+                _telemetry.FAULT.publish(
+                    site="serving.worker", event="crash",
+                    kind=type(e).__name__, model=self.name,
+                    request_ids=rids)
+                for r in group:
+                    r.error = e
+            finally:
+                done = time.monotonic()
+                for r in group:
+                    # the watchdog may already have failed this rider
+                    if not r.event.is_set():
+                        _m.LATENCY.observe(done - r.t_submit)
+                        r.event.set()
+
+    def _fallback(self, group, err):
+        """The batched dispatch failed after retries: run each request on
+        its own, so one poisoned batch cannot fail every rider (the
+        ``serving.infer`` site already fired on the batch attempts).
+        Counts one failure on the breaker."""
+        _telemetry.FAULT.publish(site="serving.infer", event="fallback",
+                                 kind=type(err).__name__,
+                                 requests=len(group), model=self.name,
+                                 request_ids=[r.request_id
+                                              for r in group])
+        _m.FALLBACKS.inc(model=self.name)
+        self.breaker.record_failure(f"batch dispatch failed: "
+                                    f"{type(err).__name__}")
+        for r in group:
+            try:
+                r.outputs = self.engine.predict(r.arrays)
+            except Exception as e:
+                r.error = e
+
+    # -- watchdog plane -------------------------------------------------
+    def check_worker(self, hang_seconds: Optional[float] = None):
+        """Detect a dead or hung worker (driven by ``lifecycle.Watchdog``).
+        On detection: fail the in-flight group's riders with
+        ``RequestAborted``, start a worker of a new generation, trip the
+        breaker and mark the model DEGRADED.  Returns ``"died"`` /
+        ``"hung"`` when a restart happened, else None;
+        ``hang_seconds <= 0`` disables hang detection."""
+        if hang_seconds is None:
+            hang_seconds = _lc.default_hang_seconds()
+        now = time.monotonic()
+        with self._cv:
+            if self._closed:
+                return None
+            if not self._thread.is_alive():
+                reason = "died"
+            elif hang_seconds > 0 and self._busy_since is not None \
+                    and now - self._busy_since > float(hang_seconds):
+                reason = "hung"
+            else:
+                return None
+            failed = self._inflight or []
+            self._inflight = None
+            self._busy_since = None
+            self._worker_gen += 1
+            self._restarts += 1
+            self._degraded = True
+            self._thread = self._start_worker()
+            self._cv.notify_all()
+        for r in failed:
+            r.fail(RequestAborted(
+                f"{self.name}: batcher worker {reason}; request "
+                f"{r.request_id} failed by the watchdog — retry on "
+                "another replica"))
+        # the watchdog event goes out before the breaker trip: the
+        # flight recorder dumps on both, and the restart is the incident
+        _m.WATCHDOG_RESTARTS.inc(model=self.name)
+        _telemetry.FAULT.publish(site="serving.worker", event="watchdog",
+                                 kind=reason, model=self.name,
+                                 riders=len(failed),
+                                 request_ids=[r.request_id for r in failed])
+        self.breaker.trip(f"worker {reason}")
+        return reason
+
+    @property
+    def state(self) -> str:
+        """This model's serving state (``lifecycle.SERVING`` /
+        ``DEGRADED`` / ``UNHEALTHY`` / ``DRAINING``)."""
+        with self._cv:
+            if self._closed:
+                return _lc.DRAINING
+            worker_dead = not self._thread.is_alive()
+        bs = self.breaker.state
+        if worker_dead or bs == _lc.OPEN:
+            return _lc.UNHEALTHY
+        if self._degraded or bs == _lc.HALF_OPEN:
+            return _lc.DEGRADED
+        return _lc.SERVING
+
+    @property
+    def restarts(self) -> int:
+        with self._cv:
+            return self._restarts
+
+    # -- lifecycle ------------------------------------------------------
+    @property
+    def pending(self) -> int:
+        """Requests queued or riding the in-flight dispatch."""
+        with self._cv:
+            return len(self._queue) + len(self._inflight or ())
+
+    @property
+    def idle(self) -> bool:
+        with self._cv:
+            return not self._queue and self._busy_since is None
+
+    def active_request_ids(self) -> dict:
+        """Request ids queued and riding the in-flight dispatch (the
+        flight recorder's serving section)."""
+        with self._cv:
+            return {"queued": [r.request_id for r in self._queue],
+                    "inflight": [r.request_id
+                                 for r in (self._inflight or ())]}
+
+    def close(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Stop intake.  ``drain=True`` lets the worker finish everything
+        queued (coalescing without waiting out the delay window);
+        ``drain=False`` fails queued requests at once.  Requests still
+        pending when the worker cannot finish inside ``timeout`` seconds
+        are failed and that worker generation is retired.  Idempotent."""
+        with self._cv:
+            self._closed = True
+            dropped = []
+            if not drain:
+                dropped = list(self._queue)
+                self._queue.clear()
+            self._cv.notify_all()
+        for r in dropped:
+            r.fail(MXNetError(f"batcher {self.name!r} closed"))
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            with self._cv:
+                self._worker_gen += 1
+                stranded = list(self._queue)
+                self._queue.clear()
+                stranded.extend(self._inflight or ())
+                self._inflight = None
+                self._busy_since = None
+            for r in stranded:
+                r.fail(RequestAborted(
+                    f"batcher {self.name!r}: drain timed out after "
+                    f"{timeout}s; request {r.request_id} abandoned"))
+        with self._cv:
+            _m.QUEUE_DEPTH.set(0, model=self.name)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def stats(self) -> dict:
+        """The reference's key set."""
+        with self._cv:
+            depth = len(self._queue)
+            restarts = self._restarts
+        return {"model": self.name, "queue_depth": depth,
+                "queue_size": self.queue_size,
+                "max_batch_size": self.max_batch_size,
+                "max_delay_ms": self.max_delay * 1000.0,
+                "default_timeout_ms": self.default_timeout_ms,
+                "closed": self._closed,
+                "state": self.state,
+                "breaker": self.breaker.state,
+                "watchdog_restarts": restarts,
+                "buckets": list(self.engine.buckets),
+                "compiled_programs": self.engine.compiled_programs()}
 
 
 class _GenRequest:
@@ -269,8 +798,10 @@ class _MultiGenRequest:
         return out
 
 
-class ContinuousBatcher:
-    """Continuous-batching front-end over one generation engine.
+class ContinuousBatcher(DynamicBatcher):
+    """Continuous-batching front-end over one generation engine; its
+    queue, breaker, watchdog generations and worker thread are
+    :class:`DynamicBatcher`'s, as in the reference.
 
     Knobs come from the serving env variables: ``MXNET_SERVE_QUEUE``
     (128; or ``queue_size``) bounds the requests waiting for a slot,
@@ -278,25 +809,20 @@ class ContinuousBatcher:
     ``MXNET_SERVE_BREAKER_*`` set the breaker, ``MXNET_RETRY_*`` the
     dispatch retries, ``MXNET_SAMPLING_MAX_STOPS`` (4) the stop sequences
     per request, ``MXNET_SERVE_KV_STARVE_SWEEPS`` (3) the watchdog sweeps
-    of an exhausted KV pool that flip :attr:`kv_starved`."""
+    of an exhausted KV pool that flip :attr:`kv_starved`.  The
+    constructor takes :class:`DynamicBatcher`'s arguments (a server passes
+    its batcher defaults to either kind; ``max_batch_size`` defaults to
+    the slot count, ``max_delay_ms`` is kept but unused: slots join at
+    step boundaries) and ``token_strs``, JSON mode's token strings
+    (default byte-level)."""
 
-    def __init__(self, engine, *, queue_size: Optional[int] = None,
-                 name: Optional[str] = None):
-        self.engine = engine
-        self.name = str(name or engine.name)
-        self.max_batch_size = int(engine.max_slots)
-        if queue_size is None:
-            queue_size = getenv_int("MXNET_SERVE_QUEUE", 128)
-        self.queue_size = max(1, int(queue_size))
-        self.default_timeout_ms = _lc.default_timeout_ms()
-        self.breaker = _lc.CircuitBreaker(self.name)
-        self._token_strs = None
+    def __init__(self, engine, token_strs=None, **kw):
+        kw.setdefault("max_batch_size", engine.max_slots)
+        self._token_strs = list(token_strs) if token_strs is not None \
+            else None
         self._max_stops = max(1, getenv_int("MXNET_SAMPLING_MAX_STOPS", 4))
         self._slots: List[Optional[_GenRequest]] = \
             [None] * int(engine.max_slots)
-        self._queue: deque = deque()
-        self._cv = threading.Condition()
-        self._closed = False
         self._step = 0
         self._tokens_emitted = 0
         self._peak_slots = 0
@@ -319,28 +845,7 @@ class ContinuousBatcher:
             "MXNET_SERVE_KV_STARVE_SWEEPS", 3))
         self._decode_health_last: Optional[dict] = None
         self._nonfinite_generations = 0
-        # worker health (guarded by _cv): a watchdog restart bumps the
-        # generation; the old thread exits when it next looks
-        self._worker_gen = 0
-        self._heartbeat = time.monotonic()
-        self._busy_since: Optional[float] = None
-        self._inflight: Optional[list] = None
-        self._restarts = 0
-        self._degraded = False
-        self._avg_batch_seconds = 0.0
-        self._thread = self._start_worker()
-
-    def _start_worker(self) -> threading.Thread:
-        t = threading.Thread(
-            target=self._worker, args=(self._worker_gen,),
-            name=f"mxtorch-serve-{self.name}-g{self._worker_gen}",
-            daemon=True)
-        t.start()
-        return t
-
-    def _current_gen(self) -> int:
-        with self._cv:
-            return self._worker_gen
+        super().__init__(engine, **kw)      # starts the worker: last
 
     # -- submit ---------------------------------------------------------
     def _token_strings(self):
@@ -654,7 +1159,8 @@ class ContinuousBatcher:
 
         t0 = time.monotonic()
         try:
-            out = _fault.retry_call(run, site="serving.infer")
+            out = _fault.retry_call(run, site="serving.infer",
+                                    policy=self.retry_policy)
         except Exception as e:
             self._decode_failed(gen, live, e)
             return None
@@ -987,14 +1493,10 @@ class ContinuousBatcher:
 
     # -- watchdog plane -------------------------------------------------
     def check_worker(self, hang_seconds: Optional[float] = None):
-        """Detect a dead or hung worker (driven by ``lifecycle.Watchdog``).
-        On detection: fail the in-flight riders with ``RequestAborted``,
-        start a worker of a new generation, trip the breaker and mark the
-        model DEGRADED.  Returns ``"died"`` / ``"hung"`` when a restart
-        happened, else None; ``hang_seconds <= 0`` disables hang
-        detection.  The sweep also samples KV starvation: a paged pool
-        with no free block for ``MXNET_SERVE_KV_STARVE_SWEEPS``
-        consecutive sweeps sets :attr:`kv_starved`."""
+        """:meth:`DynamicBatcher.check_worker` (the riders failed are the
+        slots' requests), after sampling KV starvation: a paged pool with
+        no free block for ``MXNET_SERVE_KV_STARVE_SWEEPS`` consecutive
+        sweeps sets :attr:`kv_starved`."""
         pool = self.engine.pool
         if pool is not None:
             if pool.free_blocks == 0:
@@ -1006,65 +1508,13 @@ class ContinuousBatcher:
                         sweeps=self._kv_starved_sweeps)
             else:
                 self._kv_starved_sweeps = 0
-        if hang_seconds is None:
-            hang_seconds = _lc.default_hang_seconds()
-        now = time.monotonic()
-        with self._cv:
-            if self._closed:
-                return None
-            if not self._thread.is_alive():
-                reason = "died"
-            elif hang_seconds > 0 and self._busy_since is not None \
-                    and now - self._busy_since > float(hang_seconds):
-                reason = "hung"
-            else:
-                return None
-            failed = self._inflight or []
-            self._inflight = None
-            self._busy_since = None
-            self._worker_gen += 1
-            self._restarts += 1
-            self._degraded = True
-            self._thread = self._start_worker()
-            self._cv.notify_all()
-        for r in failed:
-            r.fail(RequestAborted(
-                f"{self.name}: batcher worker {reason}; request "
-                f"{r.request_id} failed by the watchdog — retry on "
-                "another replica"))
-        _m.WATCHDOG_RESTARTS.inc(model=self.name)
-        _telemetry.FAULT.publish(site="serving.worker", event="watchdog",
-                                 kind=reason, model=self.name,
-                                 riders=len(failed),
-                                 request_ids=[r.request_id for r in failed])
-        self.breaker.trip(f"worker {reason}")
-        return reason
+        return super().check_worker(hang_seconds)
 
     @property
     def kv_starved(self) -> bool:
         """True while the paged pool has been exhausted for
         ``MXNET_SERVE_KV_STARVE_SWEEPS`` consecutive watchdog sweeps."""
         return self._kv_starved_sweeps >= self._kv_starve_threshold
-
-    @property
-    def state(self) -> str:
-        """This model's serving state (``lifecycle.SERVING`` /
-        ``DEGRADED`` / ``UNHEALTHY`` / ``DRAINING``)."""
-        with self._cv:
-            if self._closed:
-                return _lc.DRAINING
-            worker_dead = not self._thread.is_alive()
-        bs = self.breaker.state
-        if worker_dead or bs == _lc.OPEN:
-            return _lc.UNHEALTHY
-        if self._degraded or bs == _lc.HALF_OPEN:
-            return _lc.DEGRADED
-        return _lc.SERVING
-
-    @property
-    def restarts(self) -> int:
-        with self._cv:
-            return self._restarts
 
     # -- lifecycle / introspection ---------------------------------------
     @property
@@ -1090,10 +1540,6 @@ class ContinuousBatcher:
     def slots_in_use(self) -> int:
         with self._cv:
             return sum(1 for r in self._slots if r is not None)
-
-    @property
-    def closed(self) -> bool:
-        return self._closed
 
     def close(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop intake.  ``drain=True`` lets the worker finish everything

@@ -1,5 +1,11 @@
-"""Autoregressive generation over a preallocated KV cache (counterpart of
-``incubator_mxnet_tpu/serving/engine.py``'s :class:`GenerationEngine`).
+"""The serving engines (counterpart of
+``incubator_mxnet_tpu/serving/engine.py``): :class:`InferenceEngine`, a
+one-shot model as one program per batch-size bucket, and
+:class:`GenerationEngine`, autoregressive generation over a preallocated
+KV cache.  On the card every program of either engine is a CUDA graph
+(:mod:`..cuda_graphs`); on the CPU the same bodies run eagerly.
+:class:`InferenceEngine` is described on its class; the rest of this
+docstring is the generation engine's.
 
 The JAX engine serves from a closed set of compiled programs: one prefill
 per prompt-length bucket (and one suffix prefill per bucket with the
@@ -66,7 +72,8 @@ from .kvcache import BlockPool, blocks_for
 from .sampling import (SamplingParams, root_key, sample_tokens, step_keys,
                        topn_logprobs)
 
-__all__ = ["GenerationEngine", "derive_prefill_buckets"]
+__all__ = ["InferenceEngine", "GenerationEngine", "derive_buckets",
+           "derive_prefill_buckets"]
 
 #: one capture at a time in the process (``cuda_graphs``' rules): two
 #: engines warming on two threads (the server's background warmups) wait
@@ -156,6 +163,490 @@ def _register_device_observers(engine) -> None:
             continue
         engine._ledger[kind] = _telemetry.ledger_site(
             f"serving:{engine.name}:{site}", ready(kind))
+
+
+# ===========================================================================
+# InferenceEngine — one-shot models as batch-size buckets
+# ===========================================================================
+
+#: a request's 64-bit dtypes and the 32-bit ones they become before they
+#: reach a program, as ``jnp.asarray`` narrows them in the JAX engine
+_CANON_DTYPES = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def derive_buckets(max_batch_size: int) -> Tuple[int, ...]:
+    """Powers of two up to (and always including) ``max_batch_size``:
+    ``derive_buckets(32) == (1, 2, 4, 8, 16, 32)``,
+    ``derive_buckets(24) == (1, 2, 4, 8, 16, 24)``."""
+    m = int(max_batch_size)
+    if m < 1:
+        raise MXNetError(f"max_batch_size must be >= 1, got {m}")
+    out, b = [], 1
+    while b < m:
+        out.append(b)
+        b *= 2
+    out.append(m)
+    return tuple(out)
+
+
+def _canon_specs(input_specs):
+    """[(per-example shape, numpy dtype)] with the batch dim EXCLUDED; a
+    bare shape means float32."""
+    if input_specs is None:
+        return None
+    out = []
+    for spec in input_specs:
+        if isinstance(spec, tuple) and len(spec) == 2 \
+                and isinstance(spec[0], (tuple, list)):
+            shape, dtype = spec
+        else:
+            shape, dtype = spec, _np.float32
+        out.append((tuple(int(d) for d in shape), _np.dtype(dtype)))
+    return out
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A request array (numpy, torch tensor or NDArray) as a tensor at the
+    JAX engine's canonical dtypes (64-bit floats and ints narrowed to 32
+    bits); numpy arrays are wrapped, not copied."""
+    from ..ndarray.ndarray import NDArray
+    if isinstance(a, NDArray):
+        a = a._data
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(_np.ascontiguousarray(_np.asarray(a)))
+    dt = _CANON_DTYPES.get(a.dtype)
+    return a if dt is None else a.to(dt)
+
+
+def _param_signature(tensors) -> tuple:
+    """What a captured graph assumes of the weights it reads: every
+    tensor's address, dtype and shape, in order."""
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape)) for t in tensors)
+
+
+def _register_oneshot_observers(engine) -> None:
+    """Enroll a one-shot engine in the device-observability plane, as
+    :func:`_register_device_observers` does a generation engine: its
+    program inventory, its weights as the ``params:<name>`` owner and its
+    dispatch-ledger site ``serving:<name>`` with its count of ready
+    programs.  All weak."""
+    wref = weakref.ref(engine)
+
+    def inventory():
+        eng = wref()
+        return eng.program_inventory() if eng is not None else {}
+
+    def param_bytes():
+        eng = wref()
+        if eng is None:
+            return 0
+        try:
+            pv, av = eng._param_fn()
+            return sum(t.numel() * t.element_size()
+                       for vals in (pv, av) for t in vals)
+        except Exception:
+            return 0
+
+    def ready():
+        eng = wref()
+        return eng.compiled_programs() if eng is not None else 0
+
+    _tdev.register_inventory(engine.name, inventory)
+    _tdev.register_owner("params:" + engine.name, param_bytes)
+    engine._ledger = _telemetry.ledger_site("serving:" + engine.name, ready)
+
+
+class _BucketProgram:
+    """One input signature's program on the card: static input buffers at
+    the signature's shapes and dtypes, refilled in place per dispatch; the
+    captured graph, its static outputs and the kernel launches one replay
+    makes; and the weights' signature the graph was captured over."""
+
+    __slots__ = ("ins", "graph", "out", "tally", "weights", "replays",
+                 "captures")
+
+    def __init__(self, signature, device):
+        self.ins = tuple(torch.zeros(shape, dtype=dt, device=device)
+                         for shape, dt in signature)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[tuple] = None
+        self.tally: Dict[str, int] = {}
+        self.weights: Optional[tuple] = None
+        self.replays = 0
+        self.captures = 0
+
+
+class InferenceEngine:
+    """A one-shot model (one forward per batch) as a bucketed set of
+    programs (counterpart of the JAX engine of the same name).
+
+    ``pure_fn(in_vals, param_vals, aux_vals, key) -> outputs`` computes
+    the model on a batch of input tensors; ``param_fn() -> (param_vals,
+    aux_vals)`` returns the CURRENT weight tensors.  The port draws no
+    random numbers in predict mode, so ``key`` is None.  Most callers
+    build engines through :meth:`from_block`.
+
+    A batch of ``n`` rows is zero-padded up to the smallest bucket that
+    holds it (declared ``buckets``, or :func:`derive_buckets` of
+    ``max_batch_size``), so a stream of mixed sizes meets one program per
+    bucket; past the largest bucket it is chunked.  On the card each
+    program is one CUDA graph, captured at :meth:`warmup` or at its first
+    dispatch: the padded batch is copied into the graph's static input
+    buffers (the declared dtypes are kept: int32 ids stay int32) and the
+    graph is replayed, then the first ``n`` rows of each output are copied
+    out, so a later replay never overwrites an answer already returned.
+    A graph reads the weights by address: at every dispatch the engine
+    compares ``param_fn()``'s tensors (address, dtype, shape) with those
+    the graph was captured over, so a weight copied in place
+    (``Parameter.set_data``, ``load_parameters``) is seen at no cost and
+    one given new storage (``cast``, ``reset_ctx``, a reassigned
+    ``nn.Parameter``) re-captures that program before it runs.  On the
+    CPU (or on the card inside :meth:`_eager_bodies`) ``pure_fn`` runs
+    eagerly on the padded batch.
+
+    Captures follow :mod:`..cuda_graphs`' rules (``CAPTURE_LOCK``, one
+    graph pool per engine) and every dispatch holds ``DISPATCH_GATE``
+    shared and the engine's lock, so a server's warmup thread and its
+    batcher threads never capture and replay over each other.  The
+    engine runs on ``ctx`` (default: the current context, ``gpu(0)``
+    outside a ``with mx.cpu():`` scope; without a card that raises
+    :class:`MXNetError`)."""
+
+    def __init__(self, pure_fn: Callable, input_names: Sequence[str],
+                 param_fn: Callable, *, name: str = "model",
+                 buckets: Optional[Sequence[int]] = None,
+                 max_batch_size: Optional[int] = None,
+                 input_specs=None, ctx=None):
+        from ..context import as_context
+        self.name = str(name)
+        self.input_names = [str(n) for n in input_names]
+        self._pure = pure_fn
+        self._param_fn = param_fn
+        self._ctx = as_context(ctx)
+        self.device = self._ctx.device          # raises without the card
+        self.input_specs = _canon_specs(input_specs)
+        if buckets:
+            self.buckets = tuple(sorted({int(b) for b in buckets}))
+            if self.buckets[0] < 1:
+                raise MXNetError(f"buckets must be >= 1: {self.buckets}")
+        elif max_batch_size:
+            self.buckets = derive_buckets(max_batch_size)
+        else:
+            self.buckets = ()       # exact-shape mode (run_exact)
+        self.max_batch_size = self.buckets[-1] if self.buckets else None
+        self._lock = threading.RLock()
+        self._programs: Dict[tuple, _BucketProgram] = {}
+        self._shapes_seen: set = set()
+        self._graph_pool = None
+        self._capture_seconds = 0.0
+        self._pool_bytes = 0
+        self._eager = False
+        self._warming = False
+        self._warmup_done = False
+        _register_oneshot_observers(self)
+
+    @property
+    def input_dtypes(self):
+        """Declared per-input dtypes (from ``input_specs``), or None: the
+        HTTP front decodes JSON tensors at these dtypes."""
+        if not self.input_specs:
+            return None
+        return [dtype for _, dtype in self.input_specs]
+
+    @property
+    def warm(self) -> bool:
+        """True once every declared bucket has a program (the readiness
+        gate); an exact-shape engine is always warm."""
+        if not self.buckets:
+            return True
+        if self._warmup_done:
+            return True
+        return self.compiled_programs() >= len(self.buckets)
+
+    # -- shape bucketing ------------------------------------------------
+    def bucket_for(self, n: int) -> Optional[int]:
+        """Smallest bucket that fits ``n`` rows (None past the largest:
+        the caller chunks)."""
+        for b in self.buckets:
+            if b >= int(n):
+                return b
+        return None
+
+    # -- dispatch -------------------------------------------------------
+    def _prepare(self, arrays, target: Optional[int]):
+        """The batch as tensors, each zero-padded along the batch dim up
+        to ``target`` rows (None: as given)."""
+        vals = []
+        for a in arrays:
+            v = _as_tensor(a)
+            if v.dim() == 0:
+                raise MXNetError(f"{self.name}: each input needs a "
+                                 "leading batch dim")
+            if target is not None and v.shape[0] != target:
+                pad = target - int(v.shape[0])
+                if pad < 0:
+                    raise MXNetError(
+                        f"{self.name}: batch {v.shape[0]} exceeds bucket "
+                        f"{target}")
+                v = torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+            vals.append(v)
+        return vals
+
+    def _body(self, vals, param_vals, aux_vals):
+        """``pure_fn`` in predict mode, as a tuple of output tensors."""
+        with torch.no_grad():
+            out = self._pure(tuple(vals), tuple(param_vals),
+                             tuple(aux_vals), None)
+        if isinstance(out, torch.Tensor):
+            return (out,)
+        return tuple(out)
+
+    def _dispatch(self, vals, n: int):
+        """Run one padded batch and return each output's first ``n``
+        rows.  The call lands in the dispatch ledger (outside warmup)
+        under a ``serve.infer`` span; an out-of-memory error is reported
+        (``telemetry_device``) and re-raised."""
+        t0 = time.perf_counter()
+        try:
+            with _telemetry.trace_span("serve.infer", cat="serving",
+                                       model=self.name,
+                                       batch=int(vals[0].shape[0])):
+                with self._lock, _graphs.DISPATCH_GATE.shared():
+                    outs = self._run(vals, n)
+        except Exception as e:
+            if _tdev.is_oom(e):
+                _tdev.report_oom("serving." + self.name, e, model=self.name)
+            raise
+        if not self._warming:
+            self._ledger.record(time.perf_counter() - t0)
+        return outs
+
+    def _run(self, vals, n: int):
+        signature = tuple((tuple(v.shape), v.dtype) for v in vals)
+        self._shapes_seen.add(tuple(s for s, _ in signature))
+        pv, av = self._param_fn()
+        if self.device.type != "cuda" or self._eager:
+            vals = [v.to(self.device) for v in vals]
+            outs = self._body(vals, pv, av)
+            if int(vals[0].shape[0]) == n:
+                return list(outs)
+            return [o[:n] for o in outs]
+        prog = self._programs.get(signature)
+        if prog is None:
+            prog = self._programs[signature] = _BucketProgram(signature,
+                                                              self.device)
+        for buf, v in zip(prog.ins, vals):
+            buf.copy_(v)
+        weights = _param_signature(tuple(pv) + tuple(av))
+        if prog.graph is None or prog.weights != weights:
+            self._capture(prog, pv, av, weights)
+        prog.graph.replay()
+        add_launches(prog.tally)
+        prog.replays += 1
+        return [o[:n].clone() for o in prog.out]
+
+    def _capture(self, prog: _BucketProgram, pv, av, weights) -> None:
+        """Warm the body on a side stream over ``prog``'s static inputs,
+        then capture it into a CUDA graph in this engine's pool.  A graph
+        captured over other weights is dropped first (never during a
+        capture: freeing a graph inside one invalidates it)."""
+        prog.graph = prog.out = None
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            try:
+                _graphs.on_side_stream(
+                    lambda: self._body(prog.ins, pv, av), self.device)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                graph, out, tally, grown = _graphs.capture(
+                    lambda: self._body(prog.ins, pv, av), self.device,
+                    self._graph_pool)
+            except Exception as e:
+                raise MXNetError(
+                    f"{self.name}: capture of the program for "
+                    f"{[tuple(b.shape) for b in prog.ins]} failed: "
+                    f"{e}") from e
+        prog.graph, prog.out, prog.tally = graph, out, tally
+        prog.weights = weights
+        prog.captures += 1
+        self._pool_bytes += grown
+        dt = time.perf_counter() - t0
+        self._capture_seconds += dt
+        self._ledger.record_compile(dt)
+
+    @contextlib.contextmanager
+    def _eager_bodies(self):
+        """Run the body uncaptured on the card inside this block: the
+        reference the graphs are held to."""
+        with self._lock:
+            self._eager = True
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._eager = False
+
+    def _check_inputs(self, arrays) -> list:
+        arrays = list(arrays)
+        if len(arrays) != len(self.input_names):
+            raise MXNetError(
+                f"{self.name}: got {len(arrays)} inputs, expected "
+                f"{len(self.input_names)} ({self.input_names})")
+        return arrays
+
+    def predict(self, arrays: Sequence) -> List[torch.Tensor]:
+        """Run one batch: pad up to the next bucket, dispatch ONE program,
+        slice the outputs back to the true row count.  A batch larger
+        than the biggest bucket is chunked.  Outputs are tensors on the
+        engine's device that no later dispatch writes."""
+        arrays = self._check_inputs(arrays)
+        if not self.buckets:
+            vals = self._prepare(arrays, None)
+            return self._dispatch(vals, int(vals[0].shape[0]))
+        shape = tuple(getattr(arrays[0], "shape", ()))
+        if not shape:
+            raise MXNetError(f"{self.name}: each input needs a leading "
+                             "batch dim")
+        n = int(shape[0])
+        bucket = self.bucket_for(n)
+        if bucket is None:          # chunk by the largest bucket
+            step = self.buckets[-1]
+            chunks = [self.predict([a[i:i + step] for a in arrays])
+                      for i in range(0, n, step)]
+            return [torch.cat([c[k] for c in chunks])
+                    for k in range(len(chunks[0]))]
+        return self._dispatch(self._prepare(arrays, bucket), n)
+
+    def run_exact(self, arrays: Sequence) -> List[torch.Tensor]:
+        """Dispatch at the exact input shapes, no bucketing: one program
+        per distinct shape."""
+        vals = self._prepare(self._check_inputs(arrays), None)
+        return self._dispatch(vals, int(vals[0].shape[0]))
+
+    def warmup(self) -> int:
+        """Make every declared bucket's program (on the card: capture its
+        graph) from zero batches built from ``input_specs``; returns the
+        number of buckets warmed."""
+        if not self.buckets:
+            return 0
+        if not self.input_specs:
+            raise MXNetError(
+                f"{self.name}: warmup needs input_specs (per-example "
+                "shapes) to synthesize bucket batches")
+        self._warming = True
+        try:
+            for b in self.buckets:
+                self.predict([_np.zeros((b,) + shape, dtype)
+                              for shape, dtype in self.input_specs])
+        finally:
+            self._warming = False
+        self._warmup_done = True
+        return len(self.buckets)
+
+    def compiled_programs(self) -> int:
+        """Programs ready to run: captured graphs on the card; on the
+        CPU the distinct input shapes run so far, as the JAX engine
+        counts them when it cannot read its jit cache.  Bounded by the
+        bucket count for bucketed serving."""
+        if self.device.type == "cuda":
+            return sum(p.graph is not None
+                       for p in list(self._programs.values()))
+        return len(self._shapes_seen)
+
+    def program_inventory(self) -> dict:
+        """Expected against compiled programs, and this engine's
+        dispatch-ledger row, under the JAX engine's keys (``GET
+        /programs``, flight dumps)."""
+        site = "serving:" + self.name
+        ledger = _telemetry.dispatch_ledger(prefix=site)
+        return {
+            "model": self.name,
+            "expected_programs": len(self.buckets) or None,
+            "compiled_programs": self.compiled_programs(),
+            "warm": self.warm,
+            "programs": {k: v for k, v in ledger.items() if k == site},
+        }
+
+    def graph_stats(self) -> dict:
+        """Capture cost on the card: programs expected and captured,
+        captures made (re-captures after a weight changed storage
+        included), the seconds spent warming and capturing, and the bytes
+        the engine's graph pool reserved (0 on the CPU)."""
+        progs = list(self._programs.values())
+        return {"expected": len(self.buckets),
+                "captured": sum(p.graph is not None for p in progs),
+                "captures": sum(p.captures for p in progs),
+                "capture_seconds": self._capture_seconds,
+                "pool_bytes": self._pool_bytes}
+
+    def __repr__(self):
+        return (f"<InferenceEngine {self.name!r}: inputs="
+                f"{self.input_names}, buckets={list(self.buckets)}, "
+                f"programs={self.compiled_programs()}>")
+
+    # -- constructors ---------------------------------------------------
+    @classmethod
+    def from_block(cls, block, input_specs, *, name: Optional[str] = None,
+                   buckets=None, max_batch_size: Optional[int] = None,
+                   ctx=None):
+        """Wrap a block (a Gluon ``Block``/``HybridBlock`` or any
+        ``torch.nn.Module`` whose forward takes the inputs as tensors).
+        ``input_specs`` are per-example shapes (batch dim excluded), e.g.
+        ``[(784,)]`` or ``[((128,), "int32"), ...]``.  The block runs in
+        predict mode (no gradient, ``training`` off for the call).  Its
+        weights must be on the engine's device: the port settles every
+        shape at construction, so no probe forward is needed."""
+        from ..context import as_context
+        specs = _canon_specs(input_specs)
+        if not specs:
+            raise MXNetError("from_block: input_specs is required")
+        ctx = as_context(ctx)
+        dev = ctx.device
+        for t in list(block.parameters()) + list(block.buffers()):
+            if t.device != dev:
+                raise MXNetError(
+                    f"from_block: the block's weights are on {t.device}, "
+                    f"the engine runs on {dev}; move the block "
+                    "(reset_ctx) or pass its context")
+
+        def param_fn():
+            return tuple(block.parameters()), tuple(block.buffers())
+
+        def pure(in_vals, param_vals, aux_vals, key):
+            was = block.training
+            if was:
+                block.train(False)
+            try:
+                return block(*in_vals)
+            finally:
+                if was:
+                    block.train(True)
+
+        names = ["data"] if len(specs) == 1 else \
+            [f"data{i}" for i in range(len(specs))]
+        return cls(pure, names, param_fn,
+                   name=name or getattr(block, "name", "block"),
+                   buckets=buckets, max_batch_size=max_batch_size or 32,
+                   input_specs=specs, ctx=ctx)
+
+    @classmethod
+    def from_symbol(cls, *args, **kwargs):
+        raise MXNetError(_SYMBOL_FORMATS.format("from_symbol"))
+
+    @classmethod
+    def from_module(cls, *args, **kwargs):
+        raise MXNetError(_SYMBOL_FORMATS.format("from_module"))
+
+    @classmethod
+    def from_export(cls, *args, **kwargs):
+        raise MXNetError(_SYMBOL_FORMATS.format("from_export"))
+
+
+#: what the symbol-based constructors answer until they are ported
+_SYMBOL_FORMATS = ("InferenceEngine.{}: the symbol and export formats "
+                   "(symbol/, Module, HybridBlock.export artifacts) are not "
+                   "ported; ROADMAP Queue A item 17")
+
 
 
 class _Program:

@@ -1,9 +1,10 @@
 """ModelServer — the HTTP front of the port's serving plane (counterpart
-of ``incubator_mxnet_tpu/serving/server.py``, generation models only).
+of ``incubator_mxnet_tpu/serving/server.py``).
 
 A stdlib ``ThreadingHTTPServer`` (one handler thread per connection: the
-threads are the concurrent clients the batcher coalesces) over a
-registry of generation models, each a :class:`GenerationEngine` behind a
+threads are the concurrent clients the batchers coalesce) over a
+registry of models: a one-shot :class:`InferenceEngine` behind a
+:class:`DynamicBatcher`, or a :class:`GenerationEngine` behind a
 :class:`ContinuousBatcher`.  The wire protocol is the reference's where
 it is deterministic — routes, status codes, headers (``X-Request-Id``,
 ``Retry-After``, ``X-Trace-Id``), JSON keys and SSE frames — so the
@@ -11,6 +12,12 @@ reference's router can front a port replica.
 
 Routes:
 
+* ``POST /v1/models/<name>:predict`` — ``{"inputs": [...]}`` (positional
+  tensors as nested lists with a leading batch dim) or ``{"inputs":
+  {"data": [...]}}`` (keyed by the engine's input names), plus an
+  optional ``"timeout_ms"``; answers ``{"outputs": [...], "shapes":
+  [...]}``.  Inputs decode at the engine's declared dtypes.  The error
+  ladder is ``:generate``'s below.
 * ``POST /v1/models/<name>:generate`` — ``{"tokens": [...],
   "max_new_tokens": 32, "timeout_ms": ..., "eos_id": ..., "stream":
   false}`` plus the sampling fields (``temperature``, ``top_k``,
@@ -24,9 +31,9 @@ Routes:
   past the deadline, 503 (+ ``Retry-After``) while the breaker is open,
   after a watchdog abort, or while draining.  A client that disconnects
   mid-stream cancels its request; the slot frees at the next step.
-* ``POST /v1/models/<name>:unload`` — drain and remove.  ``:predict`` and
-  ``:load`` (one-shot models from exported artifacts) answer 400: the
-  port serves generation models only so far.
+* ``POST /v1/models/<name>:unload`` — drain and remove.  ``:load`` (a
+  model from an exported symbol and params pair) answers 400 (503 while
+  draining): the export format is not ported (ROADMAP Queue A item 17).
 * ``GET /v1/models``, ``/healthz`` (liveness), ``/readyz`` (200 only when
   every model is SERVING or DEGRADED, no ``slo:<model>`` or
   ``kv:<model>`` blocker stands and the server is not draining),
@@ -49,8 +56,10 @@ import contextlib
 import math
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 from urllib.parse import parse_qs, urlsplit
+
+import numpy as _np
 
 from ..base import MXNetError, getenv_int
 from ..http_util import (BaseJSONHandler, HTTPServerBase,
@@ -60,8 +69,8 @@ from .. import telemetry as _telemetry
 from .. import telemetry_device as _tdev
 from .. import telemetry_http as _thttp
 from .. import telemetry_ring as _ring
-from .batcher import ContinuousBatcher, QueueFullError
-from .engine import GenerationEngine
+from .batcher import ContinuousBatcher, DynamicBatcher, QueueFullError
+from .engine import GenerationEngine, InferenceEngine
 from .sampling import SamplingParams
 from . import lifecycle as _lc
 from . import metrics as _m
@@ -69,10 +78,10 @@ from . import slo as _slo
 
 __all__ = ["ModelServer"]
 
-#: what a verb of the one-shot inference path answers until it is ported
-_NOT_PORTED = ("the PyTorch port serves generation models only; one-shot "
-               "models (:predict, :load, --model) are ROADMAP Queue A "
-               "item 9")
+#: what ``:load`` answers until the export format is ported
+_LOAD_NOT_PORTED = (":load builds a model from an exported symbol and "
+                    "params pair (InferenceEngine.from_export); the export "
+                    "format is not ported: ROADMAP Queue A item 17")
 
 
 def _retry_after_header(seconds: float) -> dict:
@@ -172,15 +181,25 @@ class _Handler(BaseJSONHandler):
             err(400, {"error": str(e)})
             return
         try:
-            if verb == "generate":
+            if verb == "predict":
+                ms._http_enter()
+                try:
+                    with self._remote_trace():
+                        out = ms.predict_json(name, payload,
+                                              request_id=rid)
+                finally:
+                    ms._http_exit()
+                self.send_json(200, out)
+            elif verb == "generate":
                 ms._http_enter()
                 try:
                     with self._remote_trace():
                         self._generate(ms, name, payload, rid)
                 finally:
                     ms._http_exit()
-            elif verb in ("predict", "load"):
-                raise MXNetError(f":{verb}: {_NOT_PORTED}")
+            elif verb == "load":
+                ms.load_model(name, payload)
+                self.send_json(200, {"loaded": name})
             elif verb == "unload":
                 ms.remove_model(name)
                 self.send_json(200, {"unloaded": name})
@@ -298,18 +317,19 @@ class _Handler(BaseJSONHandler):
 
 
 class ModelServer:
-    """Multi-model generation server.  Programmatic use::
+    """Multi-model server.  Programmatic use::
 
         srv = ModelServer(port=0)
-        srv.add_model("gpt", engine, warmup=True)
+        srv.add_model("bert", engine, warmup=True)   # either engine kind
         srv.start()
         ... requests against srv.port ...
         srv.stop()                   # immediate teardown
         # or srv.shutdown() — the SIGTERM drain sequence
 
     Batcher knobs passed here or to :meth:`add_model` override the env
-    defaults (``MXNET_SERVE_QUEUE``, ``MXNET_SERVE_TIMEOUT_MS``); the port
-    default is ``MXNET_SERVE_PORT`` (8080)."""
+    defaults (``MXNET_SERVE_MAX_BATCH``, ``MXNET_SERVE_MAX_DELAY_MS``,
+    ``MXNET_SERVE_QUEUE``, ``MXNET_SERVE_TIMEOUT_MS``); the port default
+    is ``MXNET_SERVE_PORT`` (8080)."""
 
     def __init__(self, port: Optional[int] = None, host: str = "0.0.0.0",
                  **batcher_defaults):
@@ -317,7 +337,8 @@ class ModelServer:
             if port is None else int(port)
         self._host = host
         self._batcher_defaults = dict(batcher_defaults)
-        self._models: Dict[str, ContinuousBatcher] = {}
+        self._models: Dict[str, Union[DynamicBatcher,
+                                      ContinuousBatcher]] = {}
         self._lock = threading.Lock()
         self._http: Optional[_ServingHTTPServer] = None
         self._watchdog: Optional[_lc.Watchdog] = None
@@ -328,19 +349,26 @@ class ModelServer:
         self._last_http = time.monotonic()
 
     # -- registry -------------------------------------------------------
-    def add_model(self, name: str, engine: GenerationEngine,
-                  warmup: bool = False, async_warmup: bool = False,
-                  **batcher_kw) -> ContinuousBatcher:
-        """Register ``engine`` under ``name`` behind a fresh
-        :class:`ContinuousBatcher`.  ``warmup=True`` captures the engine's
-        closed program set before the model takes traffic;
-        ``async_warmup=True`` does so on a background thread: the model
-        registers at once as STARTING and ``/readyz`` stays 503 until its
-        programs exist.  On the card an engine that was never warmed
-        cannot serve (no eager path)."""
-        if not isinstance(engine, GenerationEngine):
-            raise MXNetError(f"add_model({name!r}): {_NOT_PORTED}; got "
-                             f"{type(engine).__name__}")
+    def add_model(self, name: str, engine, warmup: bool = False,
+                  async_warmup: bool = False, **batcher_kw):
+        """Register ``engine`` under ``name`` behind a fresh batcher: a
+        :class:`DynamicBatcher` for an :class:`InferenceEngine`, a
+        :class:`ContinuousBatcher` for a :class:`GenerationEngine`.
+        ``warmup=True`` makes the engine's programs (captures its graphs
+        on the card) before the model takes traffic; ``async_warmup=True``
+        does so on a background thread: the model registers at once as
+        STARTING and ``/readyz`` stays 503 until its programs exist.  On
+        the card a generation engine that was never warmed cannot serve
+        (no eager path); a one-shot engine captures a bucket's graph at
+        its first dispatch."""
+        if isinstance(engine, GenerationEngine):
+            kind = ContinuousBatcher
+        elif isinstance(engine, InferenceEngine):
+            kind = DynamicBatcher
+        else:
+            raise MXNetError(
+                f"add_model({name!r}): expected an InferenceEngine or a "
+                f"GenerationEngine, got {type(engine).__name__}")
         if self._draining:
             raise _lc.Draining(
                 f"server is draining; refusing to load {name!r}")
@@ -348,7 +376,7 @@ class ModelServer:
             engine.warmup()
         kw = dict(self._batcher_defaults)
         kw.update(batcher_kw)
-        batcher = ContinuousBatcher(engine, name=name, **kw)
+        batcher = kind(engine, name=name, **kw)
         with self._lock:
             if name in self._models:
                 batcher.close(drain=False)
@@ -364,7 +392,7 @@ class ModelServer:
                              daemon=True).start()
         return batcher
 
-    def _warm_async(self, name: str, engine: GenerationEngine) -> None:
+    def _warm_async(self, name: str, engine) -> None:
         try:
             engine.warmup()
         except Exception as e:          # readiness shows the model
@@ -373,6 +401,19 @@ class ModelServer:
         finally:
             with self._lock:
                 self._warm_pending.discard(name)
+
+    def load_model(self, name: str, payload: dict):
+        """The ``:load`` verb: the reference builds an engine from an
+        exported artifact named by ``{"prefix": ..., "epoch": 0}``.  The
+        port checks the request as the reference does (503 while
+        draining, 400 without a prefix) and then refuses it by name: the
+        export format is ROADMAP Queue A item 17."""
+        if self._draining:
+            raise _lc.Draining(
+                f"server is draining; refusing to load {name!r}")
+        if not isinstance(payload, dict) or "prefix" not in payload:
+            raise ValueError(':load needs {"prefix": ..., "epoch": 0}')
+        raise MXNetError(f"load_model({name!r}): {_LOAD_NOT_PORTED}")
 
     def remove_model(self, name: str) -> None:
         """Drain the model's batcher and drop it from the registry."""
@@ -383,7 +424,7 @@ class ModelServer:
             _m.MODELS_LOADED.set(len(self._models))
         batcher.close(drain=True)
 
-    def get_model(self, name: str) -> ContinuousBatcher:
+    def get_model(self, name: str):
         with self._lock:
             return self._models[name]
 
@@ -411,13 +452,13 @@ class ModelServer:
 
     def health_report(self) -> dict:
         """``GET /health``: the health-plane summary plus each generation
-        model's latest decode-step stats."""
+        model's latest decode-step stats (a one-shot model has none)."""
         body = _health.report()
         with self._lock:
             batchers = dict(self._models)
         models = {}
         for n, b in sorted(batchers.items()):
-            dh = b._decode_health_last
+            dh = getattr(b, "_decode_health_last", None)
             if dh is not None:
                 models[n] = {"decode_health": dict(dh),
                              "nonfinite_generations":
@@ -460,7 +501,7 @@ class ModelServer:
         with self._lock:
             batchers = dict(self._models)
         blockers += [f"kv:{n}" for n, b in batchers.items()
-                     if n in states and b.kv_starved]
+                     if n in states and getattr(b, "kv_starved", False)]
         blockers = sorted(blockers)
         ready = not draining and not blockers
         body = {"status": "ready" if ready else
@@ -474,6 +515,53 @@ class ModelServer:
     def draining(self) -> bool:
         return self._draining
 
+    # -- inference ------------------------------------------------------
+    def predict_json(self, name: str, payload: dict,
+                     request_id: Optional[str] = None) -> dict:
+        """Decode JSON tensors, run them through the model's batcher and
+        encode this request's outputs.  Inputs decode at the engine's
+        DECLARED dtypes when it has input specs (an int32 model gets int32
+        tensors, not a float32 cast); ``timeout_ms`` in the payload sets
+        the end-to-end deadline; ``request_id`` tags the request's span
+        and its FAULT events."""
+        if self._draining:
+            raise _lc.Draining(f"server is draining; model {name!r} is "
+                               "not accepting new work")
+        batcher = self.get_model(name)          # KeyError -> HTTP 404
+        if isinstance(batcher, ContinuousBatcher):
+            raise ValueError(f"model {name!r} is a generation model; use "
+                             ":generate")
+        timeout_ms = None
+        inputs = payload
+        if isinstance(payload, dict):
+            timeout_ms = payload.get("timeout_ms")
+            if timeout_ms is not None:
+                timeout_ms = float(timeout_ms)  # ValueError -> HTTP 400
+            inputs = payload.get("inputs", payload)
+        if isinstance(inputs, dict):
+            names = batcher.engine.input_names
+            missing = [n for n in names if n not in inputs]
+            if missing:
+                raise ValueError(f"missing inputs {missing}; "
+                                 f"{name!r} takes {names}")
+            inputs = [inputs[n] for n in names]
+        if not isinstance(inputs, (list, tuple)) or not inputs:
+            raise ValueError('"inputs" must be a non-empty list of '
+                             "tensors or a {name: tensor} object")
+        dtypes = batcher.engine.input_dtypes
+        arrays = []
+        for i, v in enumerate(inputs):
+            dt = dtypes[i] if dtypes and i < len(dtypes) else _np.float32
+            arrays.append(_np.asarray(v, dtype=dt))
+        for a in arrays:
+            if a.ndim == 0:
+                raise ValueError("each input needs a leading batch dim")
+        outs = batcher.submit(arrays, timeout_ms=timeout_ms,
+                              request_id=request_id)
+        outs = [o.detach().cpu().numpy() for o in outs]
+        return {"outputs": [o.tolist() for o in outs],
+                "shapes": [list(o.shape) for o in outs]}
+
     # -- generation -----------------------------------------------------
     def generate_request(self, name: str, payload: dict,
                          request_id: Optional[str] = None):
@@ -484,6 +572,9 @@ class ModelServer:
             raise _lc.Draining(f"server is draining; model {name!r} is "
                                "not accepting new work")
         batcher = self.get_model(name)          # KeyError -> HTTP 404
+        if not isinstance(batcher, ContinuousBatcher):
+            raise ValueError(f"model {name!r} is not a generation model; "
+                             "use :predict")
         if not isinstance(payload, dict):
             raise ValueError(':generate needs a JSON object body')
         tokens = payload.get("tokens", payload.get("inputs"))
@@ -547,8 +638,8 @@ class ModelServer:
 
     # -- lifecycle ------------------------------------------------------
     def preload(self) -> "ModelServer":
-        """Capture every registered model's whole program set before
-        :meth:`start` binds the port.  Idempotent."""
+        """Make every registered model's programs (capture its graphs on
+        the card) before :meth:`start` binds the port.  Idempotent."""
         with self._lock:
             batchers = sorted(self._models.items())
         for _, b in batchers:
@@ -601,7 +692,7 @@ class ModelServer:
 
     @property
     def inflight_http(self) -> int:
-        """HTTP requests inside a generate handler."""
+        """HTTP requests inside a predict or generate handler."""
         with self._lock:
             return self._inflight_http
 

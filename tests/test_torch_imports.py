@@ -2,8 +2,8 @@
 ``incubator_mxnet_tpu_torch`` (in a fresh interpreter) pulls in neither
 ``jax`` nor the JAX package, ``chip_smoke.py`` imports neither, and an
 entry point called without ``device`` on a host without a GPU raises
-instead of running on the CPU (the serving models, BERT and the
-one-device mesh).  The fleet's control plane (``serving.router``,
+instead of running on the CPU (the serving models, BERT, the one-device
+mesh and the one-shot engine).  The fleet's control plane (``serving.router``,
 ``serving.supervisor``) imports and builds its objects without touching
 CUDA: no call reaches ``torch.cuda``'s lazy initialisation."""
 import ast
@@ -29,9 +29,12 @@ from incubator_mxnet_tpu_torch.models.gpt import gpt_tiny
 from incubator_mxnet_tpu_torch.models.bert import bert_tiny
 from incubator_mxnet_tpu_torch.parallel import make_mesh
 from incubator_mxnet_tpu_torch import default_device
+from incubator_mxnet_tpu_torch.serving import InferenceEngine
 raised = []
 for fn in (default_device, lambda: gpt_tiny(dropout=0.0),
-           lambda: bert_tiny(dropout=0.0), lambda: make_mesh({"data": 1})):
+           lambda: bert_tiny(dropout=0.0), lambda: make_mesh({"data": 1}),
+           lambda: InferenceEngine(lambda *a: a[0], ("data",),
+                                   lambda: ((), ()), buckets=(1,))):
     try:
         fn()
         raised.append(False)
@@ -59,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
                 "telemetry_ring", "telemetry_device", "telemetry_http",
                 "http_util", "fault", "health", "_cli", "serving.server",
                 "serving.lifecycle", "serving.slo", "serving.metrics",
-                "serving.router", "serving.supervisor", "cuda_graphs"):
+                "serving.router", "serving.supervisor", "serving.batcher",
+                "cuda_graphs"):
         assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
@@ -67,7 +71,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
 
 
 def test_entry_points_without_device_raise_on_a_cpu_only_host(probe):
-    assert probe["raised"] == [True, True, True, True]
+    assert probe["raised"] == [True, True, True, True, True]
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

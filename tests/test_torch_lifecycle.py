@@ -275,10 +275,17 @@ def test_injected_infer_errors_open_the_breaker(server, monkeypatch):
 
 
 def test_verbs_the_port_does_not_serve_answer_400(server):
-    for verb in ("predict", "load"):
-        code, _, text = _post(server.port, {"inputs": [[1.0]]},
-                              path=f"/v1/models/g:{verb}")
-        assert code == 400 and "Queue A item 9" in json.loads(text)["error"]
+    # :predict of a generation model is refused by name; :load checks its
+    # request as the reference does, then refuses the export format
+    code, _, text = _post(server.port, {"inputs": [[1.0]]},
+                          path="/v1/models/g:predict")
+    assert code == 400 and "use :generate" in json.loads(text)["error"]
+    code, _, text = _post(server.port, {"inputs": [[1.0]]},
+                          path="/v1/models/g:load")
+    assert code == 400 and "prefix" in json.loads(text)["error"]
+    code, _, text = _post(server.port, {"prefix": "m"},
+                          path="/v1/models/g:load")
+    assert code == 400 and "Queue A item 17" in json.loads(text)["error"]
     # the profile route is served since the fleet slice; a bad window is
     # refused before any capture starts
     assert _post(server.port, {},

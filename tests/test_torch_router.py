@@ -1059,13 +1059,14 @@ def test_port_router_serves_port_replicas(fleet):
         st, raw = _get(router.port, f"/trace?request_id=aff-{i}")
         owners.add(json.loads(raw)["hops"][-1]["replica"])
     assert len(owners) == 1
-    # :predict is not ported: the replica's 400 passes through unchanged
+    # :predict of a generation model: the replica's 400 passes through
+    # unchanged
     conn, resp = _post(router.port, "/v1/models/g:predict",
                        {"inputs": [[1]]}, {"x-request-id": "pred-1"})
     pred = json.loads(resp.read())
     conn.close()
     assert resp.status == 400 and pred["request_id"] == "pred-1"
-    assert "generation models only" in pred["error"]
+    assert "use :generate" in pred["error"]
 
 
 class _StalledReplica:
