@@ -10,6 +10,8 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --fleet REF.json  # the fleet phase only
     python3 chip_smoke.py --gluon    # the Gluon training loop only
     python3 chip_smoke.py --oneshot  # one-shot BERT-large serving only
+    python3 chip_smoke.py --lamb     # BERT-large pretraining with LAMB only
+    python3 chip_smoke.py --resume   # the Gluon loop's checkpoint/resume only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -45,7 +47,18 @@ Phases, each of which raises (exit code 1) on any failure:
    over BERT-large's 399 leaf shapes, with every gradient stage off and
    on; it is timed against its bound (28 bytes per parameter) and
    against ``torch.optim.Adam(fused=True, capturable=True)`` over the
-   same leaves;
+   same leaves.  K9 multi_tensor_update (the elementwise rules sgd,
+   sgd_mom, nag, adamw, rmsprop, adagrad, one instance each) must equal
+   its plain version bit for bit over the same 399 leaves with the
+   gradient stages off and on; each instance is timed against its bound
+   (12, 20 or 28 bytes per parameter) and the PyTorch call for the rule
+   (``torch.optim.SGD``/``AdamW`` fused, ``RMSprop``/``Adagrad`` foreach;
+   their numerics differ where printed).  K10 multi_tensor_lamb (two
+   launches) must give m and v bit for bit its plain version and the
+   weights within ``K10_TOL`` of each leaf's largest magnitude, two runs
+   bit-equal, stages and bounds off and on; timed against its bound (28
+   bytes per parameter; this design moves 40); no PyTorch call computes
+   LAMB;
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -184,7 +197,32 @@ Phases, each of which raises (exit code 1) on any failure:
    solo predict (samples/s, latency p50 and p99); ``ModelServer``
    ``:predict`` from 8 concurrent HTTP clients answers within
    ``BATCH_TOL`` of the engine, ``/programs`` shows 6 of 6 captured and
-   ``/memory`` the owner ``params:bert``.
+   ``/memory`` the owner ``params:bert``;
+9. LAMB pretraining, the main path ("lamb:" lines): BERT-large as in
+   phase 6 with ``SPMDTrainer(net, BERTPretrainLoss(30522), "lamb",
+   {"learning_rate": 1e-3, "beta1": 0.9, "beta2": 0.999, "epsilon":
+   1e-6, "wd": 0.01, "lr_schedule": WarmupPoly(...)})``, the LAMB paper's
+   optimizer (arXiv 1904.00962) with a linear warm-up of 4 steps then
+   linear decay, the schedule a function of the step tensor on the card
+   that also logs each value it computes.  3 graph steps equal 3
+   eager-body steps of a second trainer bit for bit, and the lr each step
+   used, read back, equals the schedule's; then 5 timed graph steps in
+   their own launch-count window (K1, K6, K7 24 times per step, K10's two
+   launches once per step and nothing else) and one profiled step (host launches,
+   idle share), the loss falling;
+10. checkpoint and resume ("resume:" lines): ``train_gpt.py``'s Gluon
+   loop at ``gpt2_124m`` (B = 8, T = 1024) with ``gluon.Trainer`` SGD,
+   momentum 0.9, under ``FactorScheduler(step=2, factor=0.5)`` (K9's
+   ``sgd_mom``): 2 steps, ``AsyncCheckpointer.save(2, params,
+   trainer=trainer)`` into a temporary directory, 2 more steps; a fresh
+   net of another seed and a fresh trainer ``restore_into`` it and take
+   the same 2 steps: every parameter, loss and the lr bit for bit the
+   uninterrupted run's.  The checkpoint's bytes and its save-to-finished
+   seconds are printed; one launch-count window over the phase (K1, K6,
+   K7 12 per step and K9 once per step, 6 steps).  After the window, K9's
+   ``sgd_mom`` instance against its plain version over the net's own 196
+   leaves (copies of the weights, gradients and momenta after step 2),
+   one call per (lr, wd) group as the trainer makes them, bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``."""
@@ -941,6 +979,227 @@ def check_all_finite(fa, dev):
             "max_abs_err": 0.0, "ms": af_ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
             "eager_ms": af_eager,
+            "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
+                     "parameters"}
+
+
+# K9's rule instances: (rule, state slots, bytes per parameter, FLOP per
+# parameter with the stages off, the JAX rule it stands for)
+K9_RULES = [("sgd", 0, 12, 2, 65), ("sgd_mom", 1, 20, 4, 65),
+            ("nag", 1, 20, 5, 93), ("adamw", 2, 28, 15, 143),
+            ("rmsprop", 1, 20, 7, 170), ("adagrad", 1, 20, 7, 192)]
+K9_CONSTS = dict(momentum=0.9, beta1=0.9, beta2=0.999, gamma1=0.95,
+                 epsilon=1e-8)
+K10_TOL = 1e-6          # K10's weights against the plain loop, relative to
+                        # each leaf's largest magnitude: its norms sum in
+                        # another order than torch.linalg.vector_norm's
+
+
+def k9_library(rule, ws, gs, lr):
+    """The one PyTorch call for K9's ``rule`` over the same leaves, and
+    how it is timed: (callable, "graph" or "eager", what it is); its
+    numerics differ from the reference's rule where noted.  Every call is
+    timed from a replayed graph but Adagrad's, which has no capturable
+    mode."""
+    ps = [torch.nn.Parameter(x.clone()) for x in ws]
+    for p, g in zip(ps, gs):
+        p.grad = g
+    if rule == "sgd":
+        opt = torch.optim.SGD(ps, lr=lr, fused=True)
+        what = "torch.optim.SGD(fused=True)"
+    elif rule == "sgd_mom":
+        opt = torch.optim.SGD(ps, lr=lr, momentum=0.9, fused=True)
+        what = ("torch.optim.SGD(momentum=0.9, fused=True): its buffer is "
+                "momentum m + g, not momentum m - lr g")
+    elif rule == "nag":
+        opt = torch.optim.SGD(ps, lr=lr, momentum=0.9, nesterov=True,
+                              fused=True)
+        what = "torch.optim.SGD(nesterov=True, fused=True)"
+    elif rule == "adamw":
+        opt = torch.optim.AdamW(ps, lr=lr, weight_decay=0.0, fused=True,
+                                capturable=True)
+        what = ("torch.optim.AdamW(fused=True, capturable=True): its "
+                "bias correction folds into the step size")
+    elif rule == "rmsprop":
+        opt = torch.optim.RMSprop(ps, lr=lr, alpha=0.95, foreach=True,
+                                  capturable=True)
+        what = ("torch.optim.RMSprop(foreach=True, capturable=True): "
+                "epsilon outside the sqrt")
+    else:
+        opt = torch.optim.Adagrad(ps, lr=lr, foreach=True)
+        what = ("torch.optim.Adagrad(foreach=True), eager: it has no "
+                "capturable mode")
+    return opt.step, ("eager" if rule == "adagrad" else "graph"), what
+
+
+def check_k9(fa, dev):
+    """K9 multi_tensor_update, each rule instance against its plain
+    version (the per-leaf ``cores`` loop) over BERT-large's 399 leaf
+    shapes, bit for bit, with every gradient stage off and on; then each
+    instance's time on the card against its bound (12, 20 or 28 bytes
+    per parameter) and the one PyTorch call for the rule."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    shapes = bert_large_shapes()
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def leaves(scale, positive=False):
+        out = [torch.randn(s, device=dev, generator=gen) * scale
+               for s in shapes]
+        return [x.abs() for x in out] if positive else out
+
+    w, g = leaves(0.02), leaves(1e-3)
+    signed, squares = leaves(1e-4), leaves(1e-6, positive=True)
+    hp = torch.tensor([1e-3, 0.271, 0.00299], device=dev)
+    err, instances = 0.0, {}
+    for rule, slots, nbytes, flops, jax_line in K9_RULES:
+        # momenta and m are signed; v, rmsprop's n and adagrad's history
+        # are sums of squares
+        st = {"sgd": [], "adamw": [signed, squares], "rmsprop": [squares],
+              "adagrad": [squares]}.get(rule, [signed])
+        for stages in ((1.0, None, 0.0), (0.25, 0.004, 0.02)):
+            got = [[x.clone() for x in xs] for xs in [w] + st]
+            want = [[x.clone() for x in xs] for xs in [w] + st]
+            fused.multi_tensor_update(rule, got[0], g, got[1:], hp,
+                                      *_k9_args(stages))
+            fused._plain_update(rule, want[0], g, want[1:], hp,
+                                K9_CONSTS["momentum"], K9_CONSTS["beta1"],
+                                K9_CONSTS["beta2"], K9_CONSTS["gamma1"],
+                                K9_CONSTS["epsilon"], *stages)
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(got, want)):
+                for i, (x, y) in enumerate(zip(a, b)):
+                    err = max(err, max_err(x, y))
+                    check(torch.equal(x, y), f"K9 {rule}: slot {j} of leaf "
+                          f"{i} {tuple(x.shape)} differs from the plain "
+                          f"version (stages {stages})")
+            del got, want
+        work = [[x.clone() for x in xs] for xs in [w] + st]
+
+        def kernel(rule=rule, work=work):
+            fused.multi_tensor_update(rule, work[0], g, work[1:], hp,
+                                      *_k9_args((1.0, None, 0.0)))
+
+        k_ms, k_eager = device_ms(kernel, [()], 20), time_ms(kernel, [()], 20)
+        plain = time_ms(lambda: fused._plain_update(
+            rule, work[0], g, work[1:], hp, K9_CONSTS["momentum"],
+            K9_CONSTS["beta1"], K9_CONSTS["beta2"], K9_CONSTS["gamma1"],
+            K9_CONSTS["epsilon"], 1.0, None, 0.0), [()], 3)
+        lib, how, what = k9_library(rule, w, g, 1e-3)
+        lib_ms = (device_ms if how == "graph" else time_ms)(lib, [()], 20)
+        del work, lib
+        torch.cuda.empty_cache()
+        bnd, by = bound_ms(nbytes * n, flops * n)
+        instances[rule] = {"ms": k_ms, "eager_ms": k_eager,
+                           "plain_ms": plain, "bound_ms": bnd,
+                           "bound_by": by, "library_ms": lib_ms,
+                           "library": what, "library_timed": how,
+                           "replaces": "incubator_mxnet_tpu/parallel/"
+                                       f"optim.py:{jax_line}"}
+        print(f"time: K9 multi_tensor_update[{rule}], {len(shapes)} "
+              f"leaves, {n} parameters: {k_ms:.4f} ms on the card "
+              f"({k_eager:.4f} ms per eager call), bound {bnd:.4f} ms by "
+              f"{by} ({nbytes} bytes per parameter at 3.35 TB/s; "
+              f"{k_ms / bnd:.2f}x), plain {plain:.4f} ms, {what} "
+              f"{lib_ms:.4f} ms ({how}) [{CARD}]", flush=True)
+    print(f"K9 multi_tensor_update over {len(shapes)} leaves ({n} "
+          f"parameters): every rule bit for bit its plain version, stages "
+          f"off and on (max_abs_err {err})", flush=True)
+    del w, g, signed, squares
+    torch.cuda.empty_cache()
+    path = instances["sgd_mom"]          # the resume path's instance
+    return {"name": "multi_tensor_update",
+            "source": SOURCES + "multi_tensor_update.cu",
+            "replaces": path["replaces"], "max_abs_err": err,
+            "ms": path["ms"], "plain_ms": path["plain_ms"],
+            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+            "library_ms": path["library_ms"], "eager_ms": path["eager_ms"],
+            "instances": instances,
+            "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
+                     "parameters; the timed instance sgd_mom"}
+
+
+def _k9_args(stages):
+    return (K9_CONSTS["momentum"], K9_CONSTS["beta1"], K9_CONSTS["beta2"],
+            K9_CONSTS["gamma1"], K9_CONSTS["epsilon"]) + tuple(stages)
+
+
+def check_k10(fa, dev):
+    """K10 multi_tensor_lamb over BERT-large's 399 leaf shapes: m and v
+    bit for bit the plain version (the per-leaf ``lamb_direction`` +
+    ``lamb_apply`` loop), the weights within ``K10_TOL`` of each leaf's
+    largest magnitude, with the stages and bounds off and on; two runs
+    bit-equal; then its time against the bound (28 bytes per parameter,
+    the data the function must move; this two-launch design moves 40)."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    shapes = bert_large_shapes()
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def leaves(scale):
+        return [torch.randn(s, device=dev, generator=gen) * scale
+                for s in shapes]
+
+    w, g, m = leaves(0.02), leaves(1e-3), leaves(1e-4)
+    v = [x * x for x in leaves(1e-3)]
+    hp = torch.tensor([1e-3, 0.271, 0.00299], device=dev)
+    err = rel = 0.0
+    for stages in ((1.0, None, 0.01, None, None),
+                   (0.25, 0.004, 0.01, 0.5, 4.0)):
+        runs = []
+        for _ in range(2):
+            got = [[x.clone() for x in xs] for xs in (w, m, v)]
+            fused.lamb_update(got[0], g, got[1], got[2], hp, 0.9, 0.999,
+                              1e-6, *stages)
+            runs.append(got)
+        want = [[x.clone() for x in xs] for xs in (w, m, v)]
+        fused._plain_lamb_update(want[0], g, want[1], want[2], hp, 0.9,
+                                 0.999, 1e-6, *stages)
+        torch.cuda.synchronize()
+        for a, b in zip(runs[0], runs[1]):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"K10: two runs differ (stages {stages})")
+        for what, a, b in (("m", runs[0][1], want[1]),
+                           ("v", runs[0][2], want[2])):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"K10 {what} differs from the plain version")
+        for i, (x, y) in enumerate(zip(runs[0][0], want[0])):
+            e = max_err(x, y)
+            err = max(err, e)
+            r = e / max(float(y.abs().max()), 1e-30)
+            rel = max(rel, r)
+            check(r <= K10_TOL, f"K10 weights of leaf {i} {tuple(x.shape)}:"
+                  f" {r:.3g} of its largest magnitude from the plain "
+                  f"version (tolerance {K10_TOL}; stages {stages})")
+        del runs, want
+    print(f"K10 multi_tensor_lamb over {len(shapes)} leaves ({n} "
+          f"parameters): m, v bit for bit the plain version, weights within "
+          f"{rel:.3g} of each leaf's largest (tolerance {K10_TOL}; "
+          f"max_abs_err {err}), two runs bit-equal, stages and bounds off "
+          f"and on", flush=True)
+
+    def kernel():
+        fused.lamb_update(w, g, m, v, hp, 0.9, 0.999, 1e-6, 1.0, None, 0.01)
+
+    k_ms, k_eager = device_ms(kernel, [()], 20), time_ms(kernel, [()], 20)
+    plain = time_ms(lambda: fused._plain_lamb_update(
+        w, g, m, v, hp, 0.9, 0.999, 1e-6, 1.0, None, 0.01, None, None),
+        [()], 3)
+    bnd, by = bound_ms(28 * n, 20 * n)
+    print(f"time: K10 multi_tensor_lamb, {len(shapes)} leaves, {n} "
+          f"parameters: {k_ms:.4f} ms on the card ({k_eager:.4f} ms per "
+          f"eager call), bound {bnd:.4f} ms by {by} (28 bytes per "
+          f"parameter at 3.35 TB/s; {k_ms / bnd:.2f}x; the two launches "
+          f"move 40), plain {plain:.4f} ms, no PyTorch call computes LAMB "
+          f"[{CARD}]", flush=True)
+    del w, g, m, v
+    torch.cuda.empty_cache()
+    return {"name": "multi_tensor_lamb",
+            "source": SOURCES + "multi_tensor_lamb.cu",
+            "replaces": "incubator_mxnet_tpu/parallel/optim.py:215",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "eager_ms": k_eager,
             "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
                      "parameters"}
 
@@ -3415,6 +3674,316 @@ def drive_oneshot(fa, card):
     return counts
 
 
+# ------------------------------------------------------------ phase 9
+# BERT-large pretraining as the LAMB paper runs it (You et al., arXiv
+# 1904.00962): LAMB, beta 0.9 / 0.999, epsilon 1e-6, wd 0.01, linear
+# warm-up then polynomial decay.
+LAMB_LR, LAMB_WD = 1e-3, 0.01
+LAMB_WARMUP, LAMB_MAX_UPDATE, LAMB_POWER = 4, 1000, 1.0
+
+
+class WarmupPoly:
+    """The LAMB main path's ``lr_schedule``: a function of the step tensor
+    on the device, lr * t / W for t <= W, then lr * (1 - (t - W) / (T -
+    W))^p; each value it computes is also written to ``log[t - 1]`` on the
+    device, so the lr each replayed step used can be read back."""
+
+    def __init__(self, lr, warmup, max_update, power, dev, capacity=64):
+        self.lr, self.warmup = lr, warmup
+        self.max_update, self.power = max_update, power
+        self.log = torch.zeros(capacity, dtype=torch.float32, device=dev)
+
+    def value(self, step):
+        t = step.to(torch.float32)
+        warm = self.lr * t / self.warmup
+        frac = torch.clamp(1.0 - (t - self.warmup)
+                           / (self.max_update - self.warmup), min=0.0)
+        return torch.where(t <= self.warmup, warm,
+                           self.lr * frac ** self.power)
+
+    def __call__(self, step):
+        lr = self.value(step)
+        self.log.scatter_(0, (step.long() - 1).reshape(1), lr.reshape(1))
+        return lr
+
+    def host(self, t):
+        """The schedule in Python doubles (the formula, for comparison)."""
+        if t <= self.warmup:
+            return self.lr * t / self.warmup
+        frac = max(0.0, 1.0 - (t - self.warmup)
+                   / (self.max_update - self.warmup))
+        return self.lr * frac ** self.power
+
+
+def drive_lamb(fa, card):
+    """BERT-large pretraining with LAMB through ``SPMDTrainer`` (the main
+    path): 3 graph steps held bit for bit to 3 eager-body steps of a
+    second trainer over a copy of the net, the lr each step used read back
+    against the schedule; then ``TRAIN_STEPS`` timed graph steps in their
+    own launch-count window (K1, K6, K7 24 times per step, K10's two
+    launches once) and one profiled step.  Returns the window's counts."""
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    V, B, T = BERT_VOCAB, TRAIN_B, TRAIN_T
+    dev = make_mesh({"data": 1}).device
+    t0 = time.perf_counter()
+    net = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
+                                   vocab_size=V)
+    net.initialize(init.Normal(0.02), seed=SEED)
+    ref_net = copy.deepcopy(net)
+    scheds = []
+
+    def trainer_of(n):
+        sched = WarmupPoly(LAMB_LR, LAMB_WARMUP, LAMB_MAX_UPDATE, LAMB_POWER,
+                           dev)
+        scheds.append(sched)
+        return SPMDTrainer(n, bert_mod.BERTPretrainLoss(V), "lamb",
+                           {"learning_rate": LAMB_LR, "beta1": 0.9,
+                            "beta2": 0.999, "epsilon": 1e-6,
+                            "wd": LAMB_WD, "lr_schedule": sched},
+                           mesh=make_mesh({"data": 1}))
+
+    ref, trainer = trainer_of(ref_net), trainer_of(net)
+    ref_sched, sched = scheds
+    torch.cuda.synchronize()
+    print(f"lamb: bert_large + pretrain heads, {len(trainer.params)} leaves,"
+          f" Normal(0.02) seed {SEED}, built in "
+          f"{time.perf_counter() - t0:.1f} s; B={B} T={T} fp32, LAMB lr "
+          f"{LAMB_LR} beta 0.9/0.999 eps 1e-6 wd {LAMB_WD}, linear warm-up "
+          f"{LAMB_WARMUP} steps then power-{LAMB_POWER} decay to step "
+          f"{LAMB_MAX_UPDATE} [{card}]", flush=True)
+    batch = bert_batch(V, B, T)
+    with ref._eager_steps():
+        eager = [ref.step(*batch) for _ in range(TRAIN_CHECK)]
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses += [trainer.step(*batch) for _ in range(TRAIN_CHECK - 1)]
+    torch.cuda.synchronize()
+    check([float(x) for x in losses] == [float(x) for x in eager],
+          f"lamb: graph losses {[float(x) for x in losses]} != eager "
+          f"{[float(x) for x in eager]}")
+    for (name, a), b in zip(ref.params.items(), trainer.params.values()):
+        check(torch.equal(a, b), f"lamb: parameter {name} of the graph "
+              f"step differs from the eager body's after {TRAIN_CHECK} "
+              "steps")
+    used = sched.log[:TRAIN_CHECK].tolist()
+    check(torch.equal(sched.log, ref_sched.log), "lamb: the graph's lr log "
+          "differs from the eager body's")
+    for t, lr in enumerate(used, 1):
+        want = float(sched.value(torch.tensor(t, dtype=torch.int32,
+                                              device=dev)))
+        check(lr == want and abs(lr - sched.host(t)) <= 1e-6 * sched.host(t),
+              f"lamb: step {t} used lr {lr}, the schedule gives {want} "
+              f"({sched.host(t)} in doubles)")
+    print(f"lamb: {TRAIN_CHECK} steps through the graph equal "
+          f"{TRAIN_CHECK} through the eager body bit for bit (losses and "
+          f"all {len(trainer.params)} parameters); lr read back per step "
+          f"{used} == the schedule's; first step + capture {first_s:.2f} s,"
+          f" graph pool {trainer.graph_pool_bytes() / 2 ** 20:.1f} MiB "
+          f"[{card}]", flush=True)
+    del ref, ref_net, eager
+    torch.cuda.empty_cache()
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()                 # --- the LAMB main path
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.step(*batch))
+    end.record()
+    end.synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the LAMB path
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof, _ = profile_window(lambda: None, lambda: trainer.step(*batch))
+    losses = [float(x) for x in losses]
+    print(f"lamb: {ms:.2f} ms per step, {B * 1e3 / ms:.2f} samples/s over "
+          f"{TRAIN_STEPS} graph steps (B={B} T={T}, CUDA events); one "
+          f"profiled step: wall {prof['wall_ms']:.2f} ms (median of 3), "
+          f"device {prof['device_ms']:.2f} ms in {prof['device_ops']} "
+          f"kernels and copies, {prof['host_launches']} host launches, idle "
+          f"share {prof['idle_share']:.3f}; peak {peak:.2f} GiB allocated "
+          f"[{card}]", flush=True)
+    print(f"lamb: losses {[round(x, 5) for x in losses]}; lr log "
+          f"{sched.log[:len(losses) + 4].tolist()}", flush=True)
+    print(f"lamb: launches in the {TRAIN_STEPS}-step window {counts} (one "
+          f"multi_tensor_lamb call makes two launches)", flush=True)
+    check(all(math.isfinite(x) for x in losses), "lamb: a non-finite loss")
+    check(losses[-1] < losses[0], f"lamb: loss did not fall: {losses[0]} "
+          f"-> {losses[-1]}")
+    per_step = {"flash_fwd": BERT_LAYERS, "flash_bwd_dq": BERT_LAYERS,
+                "flash_bwd_dkv": BERT_LAYERS, "multi_tensor_lamb": 2}
+    for name, n in counts.items():
+        expect = per_step.get(name, 0) * TRAIN_STEPS
+        check(n == expect, f"lamb path: kernel {name} launched {n} times, "
+              f"expected {expect}")
+    check(prof["host_launches"] <= 8, f"a LAMB graph step made "
+          f"{prof['host_launches']} host launches")
+    del trainer, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------------------ phase 10
+RESUME_LR, RESUME_B, RESUME_T = 1e-3, 8, 1024
+
+
+def drive_resume(fa, card):
+    """``train_gpt.py``'s Gluon loop at ``gpt2_124m`` width with SGD +
+    momentum under a ``FactorScheduler`` (K9's ``sgd_mom`` instance): 2
+    steps, a full-state ``AsyncCheckpointer.save(..., trainer=...)`` into
+    a temporary directory, 2 more steps; then a fresh net (another seed)
+    and trainer, ``restore_into`` and the same 2 steps: every parameter
+    bit for bit the uninterrupted run's.  One launch-count window over the
+    whole phase.  Returns its counts."""
+    import tempfile
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd as ag
+    from incubator_mxnet_tpu_torch.checkpoint import AsyncCheckpointer
+    from incubator_mxnet_tpu_torch.lr_scheduler import FactorScheduler
+    from incubator_mxnet_tpu_torch.models import gpt
+    V, B, T = GPT_VOCAB, RESUME_B, RESUME_T
+
+    def build(seed):
+        # a fixed prefix: the checkpoint's names must match across nets
+        mx.random.seed(seed)
+        net = gpt.gpt2_124m(vocab_size=V, dropout=0.0, prefix="gpt_")
+        net.initialize(init=mx.init.Normal(0.02))
+        params = net.collect_params()
+        tr = mx.gluon.Trainer(params, "sgd", {
+            "learning_rate": RESUME_LR, "momentum": 0.9,
+            "lr_scheduler": FactorScheduler(step=2, factor=0.5)})
+        return net, params, tr
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(net, tr, x, y):
+        with ag.record():
+            out = net(mx.nd.array(x, dtype="int32"))
+            L = loss_fn(out.reshape((-1, V)),
+                        mx.nd.array(y.reshape(-1).astype(np.float32))).mean()
+        L.backward()
+        tr.step(1)
+        return float(L.asnumpy())
+
+    rng = np.random.RandomState(SEED + 5)
+    batches = [gpt_batch(rng, B, T, V) for _ in range(4)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        net, params, tr = build(SEED)
+        fa.reset_launch_counts()             # --- the resume path
+        losses = [step(net, tr, *b) for b in batches[:2]]
+        k9_leaves = resume_leaves(params, tr)   # copies: no launch
+        ck = AsyncCheckpointer(os.path.join(tmp, "gpt"), keep=2)
+        t0 = time.perf_counter()
+        ck.save(2, {k: p.data() for k, p in params.items()}, trainer=tr)
+        saved = time.perf_counter() - t0
+        ck.wait_until_finished()
+        done = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        losses += [step(net, tr, *b) for b in batches[2:]]
+        want = [p.data()._data.clone() for p in params.values()]
+        lr_end = tr.learning_rate
+        del net, params, tr
+        torch.cuda.empty_cache()
+        net2, params2, tr2 = build(SEED + 1)
+        restored = AsyncCheckpointer(os.path.join(tmp, "gpt")).restore_into(
+            params=params2, trainer=tr2)
+        resumed = [step(net2, tr2, *b) for b in batches[2:]]
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)      # --- end of the resume path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(restored == 2, f"resume: restore_into returned {restored}")
+    for (name, p), w in zip(params2.items(), want):
+        check(torch.equal(p.data()._data, w), f"resume: parameter {name} "
+              "of the resumed run differs from the uninterrupted run's")
+    check(resumed == losses[2:], f"resume: resumed losses {resumed} != "
+          f"{losses[2:]}")
+    check(tr2.learning_rate == lr_end, f"resume: lr {tr2.learning_rate} "
+          f"!= {lr_end}")
+    print(f"resume: gpt2_124m ({GPT_LAYERS} x 768, vocab {V}), {len(want)} "
+          f"leaves, B={B} T={T}, SGD momentum 0.9 lr {RESUME_LR} under "
+          f"FactorScheduler(step=2, factor=0.5): 2 steps, a full-state "
+          f"checkpoint of {nbytes} bytes ({nbytes / 2 ** 20:.1f} MiB; save "
+          f"returned in {saved:.3f} s, finished in {done:.3f} s), 2 steps; "
+          f"a fresh net (seed {SEED + 1}) restored from step {restored} and "
+          f"the same 2 steps: every parameter bit for bit, losses {resumed}"
+          f" == {losses[2:]}, lr {lr_end} [{card}]", flush=True)
+    print(f"resume: launches over the phase {counts}", flush=True)
+    resume_k9_check(k9_leaves, card)
+    del k9_leaves
+    per_step = {"flash_fwd": GPT_LAYERS, "flash_bwd_dq": GPT_LAYERS,
+                "flash_bwd_dkv": GPT_LAYERS, "multi_tensor_update": 1}
+    for name, n in counts.items():
+        expect = per_step.get(name, 0) * 6
+        check(n == expect, f"resume path: kernel {name} launched {n} times, "
+              f"expected {expect}")
+    del net2, params2, tr2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resume_leaves(params, trainer):
+    """Copies of the Gluon net's weights, gradients and momenta, and the
+    (lr, wd) group of each leaf as the trainer's next fused update would
+    read them, with the optimizer's momentum, rescale and clip."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    opt, states = trainer.optimizer, trainer._updaters.states
+    keys = [fused.FusedUpdater._group_key(opt, "sgd_mom", i)
+            for i in range(len(params))]
+    with torch.no_grad():
+        w = [p.data()._data.clone() for p in params.values()]
+        g = [p.grad()._data.clone() for p in params.values()]
+        m = [fused._state_list(states[i])[0]._data.clone()
+             for i in range(len(w))]
+    clip = opt.clip_gradient if opt.clip_gradient else None
+    return w, g, m, keys, (opt.momentum, opt.rescale_grad, clip)
+
+
+def resume_k9_check(leaves, card):
+    """K9's ``sgd_mom`` instance against its plain version over the Gluon
+    net's own leaves (GPT-2's 196, from the resume run's second step), one
+    call per (lr, wd) group as the trainer makes them: every weight and
+    momentum bit for bit.  Run after the phase's launch-count window."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    w, g, m, keys, (momentum, rescale, clip) = leaves
+    groups = {}
+    for k, key in enumerate(keys):
+        groups.setdefault(key, []).append(k)
+    dev = w[0].device
+    got = [[x.clone() for x in w], [x.clone() for x in m]]
+    want = [[x.clone() for x in w], [x.clone() for x in m]]
+    for (lr, wd), ks in groups.items():
+        hp = torch.tensor([lr], dtype=torch.float32, device=dev)
+        sub = [[xs[k] for k in ks] for xs in (g,) + tuple(got + want)]
+        gs, gw, gm, ww, wm = sub
+        fused.multi_tensor_update("sgd_mom", gw, gs, [gm], hp,
+                                  momentum=momentum, rescale=rescale,
+                                  clip=clip, wd=wd)
+        fused._plain_update("sgd_mom", ww, gs, [wm], hp, momentum, 0.9,
+                            0.999, 0.9, 1e-8, rescale, clip, wd)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, a, b in (("weight", got[0], want[0]),
+                       ("momentum", got[1], want[1])):
+        for i, (x, y) in enumerate(zip(a, b)):
+            err = max(err, max_err(x, y))
+            check(torch.equal(x, y), f"resume: K9 sgd_mom {what} of leaf "
+                  f"{i} {tuple(x.shape)} differs from the plain version")
+    n = sum(x.numel() for x in w)
+    print(f"resume: K9 sgd_mom == plain bit for bit over the net's "
+          f"{len(w)} leaves ({n} parameters) in {len(groups)} (lr, wd) "
+          f"group(s), momentum {momentum}, rescale {rescale}, clip {clip} "
+          f"(max_abs_err {err}) [{card}]", flush=True)
+    del got, want
+
+
 def batcher_counts():
     """(batches, requests) the one-shot batchers counted so far."""
     from incubator_mxnet_tpu_torch.serving import metrics as smetrics
@@ -3441,6 +4010,12 @@ def main():
                     help="only run the Gluon training loop (phase 7)")
     ap.add_argument("--oneshot", action="store_true",
                     help="only run one-shot BERT-large serving (phase 8)")
+    ap.add_argument("--lamb", action="store_true",
+                    help="only run BERT-large pretraining with LAMB (phase "
+                         "9, the main path)")
+    ap.add_argument("--resume", action="store_true",
+                    help="only run the Gluon loop's checkpoint and resume "
+                         "(phase 10)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -3473,6 +4048,12 @@ def main():
     if args.oneshot:
         drive_oneshot(fa, card)
         return                               # a phase, no result
+    if args.lamb:
+        drive_lamb(fa, card)
+        return                               # a phase, no result
+    if args.resume:
+        drive_resume(fa, card)
+        return                               # a phase, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -3490,7 +4071,8 @@ def main():
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e_lse)
     rows += bwd_rows
     k8_row = check_k8(fa, dev)
-    rows += [k8_row, check_all_finite(fa, dev)]
+    rows += [k8_row, check_all_finite(fa, dev), check_k9(fa, dev),
+             check_k10(fa, dev)]
     for r in rows:
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms on the "
               f"card ({r['eager_ms']:.4f} ms per eager call, host "
@@ -3516,6 +4098,8 @@ def main():
         check_cell_grads(fa, dev)
         _, guard = drive_gluon(fa, card)
         drive_oneshot(fa, card)
+        lamb = drive_lamb(fa, card)
+        resume = drive_resume(fa, card)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
@@ -3524,12 +4108,15 @@ def main():
                     "flash_bwd_dq": train["flash_bwd_dq"],
                     "flash_bwd_dkv": train["flash_bwd_dkv"],
                     "multi_tensor_adam": train["multi_tensor_adam"],
-                    "all_finite": guard["all_finite"]}
+                    "all_finite": guard["all_finite"],
+                    "multi_tensor_update": resume["multi_tensor_update"],
+                    "multi_tensor_lamb": lamb["multi_tensor_lamb"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **({"instances": r["instances"]} if "instances" in r else {})}
                for r in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

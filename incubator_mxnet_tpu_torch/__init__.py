@@ -15,8 +15,9 @@ behind a router, with their telemetry, fault, lifecycle, SLO and health
 planes, speculative decoding; one BERT pretraining step
 (``parallel.SPMDTrainer``); and the imperative training surface that
 MXNet users write — ``nd`` arrays, ``autograd``, ``gluon`` parameters,
-blocks, layers, losses and ``Trainer`` — with the kernels they run
-(``kernels``)."""
+blocks, layers, losses and ``Trainer`` with every optimizer and
+``lr_scheduler`` — with the kernels they run (``kernels``), and
+``checkpoint`` to resume a run."""
 from .base import MXNetError
 from .context import Context, cpu, current_context, default_device, gpu
 from . import ndarray as nd

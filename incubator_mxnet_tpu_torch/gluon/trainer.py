@@ -3,11 +3,15 @@ on one device.
 
 ``step(batch_size)`` rescales the gradients by ``1/batch_size`` and
 applies the optimizer to every parameter whose ``grad_req`` is not
-'null'.  By default (``fused``, or ``MXNET_FUSED_OPTIMIZER``) that is
-:class:`..optimizer.fused.FusedUpdater`: for Adam one K8 launch per
-(lr, wd) group on the card; otherwise the per-parameter ``Updater``
-loop.  With ``skip_nonfinite`` (or ``MXNET_SKIP_NONFINITE``) a step whose
-gradients hold a NaN or an Inf changes no parameter or state and zeroes
+'null', with any registered optimizer (an ``lr_scheduler`` in the
+optimizer's parameters is called with its update count at every step).
+By default (``fused``, or ``MXNET_FUSED_OPTIMIZER``) that is
+:class:`..optimizer.fused.FusedUpdater` for the seven rules the JAX
+package fuses: on the card one launch of K8 (Adam), K9 (SGD, NAG,
+AdamW, RMSProp, AdaGrad) or K10 (LAMB) per group of parameters sharing
+their lr and wd; otherwise the per-parameter ``Updater`` loop.  With
+``skip_nonfinite`` (or ``MXNET_SKIP_NONFINITE``) a step whose gradients
+hold a NaN or an Inf changes no parameter or state and zeroes
 the gradients; on the fused path the check and the gating run on the
 device, and the skipped step is counted (``mxtpu_skipped_steps``) when
 its flag's asynchronous copy has landed, or at

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every header a source includes: they feed each library's digest
 HEADERS = ("common.cuh", "decode_common.cuh", "flash_bwd_common.cuh",
-           "tf32_mma.cuh")
+           "multi_tensor_common.cuh", "tf32_mma.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
@@ -37,10 +37,13 @@ KERNELS = {"flash_fwd": "flash_fwd.cu",
            "verify": "verify.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
            "flash_bwd_dkv": "flash_bwd_dkv.cu",
-           "multi_tensor_adam": "multi_tensor_adam.cu"}
+           "multi_tensor_adam": "multi_tensor_adam.cu",
+           "multi_tensor_update": "multi_tensor_update.cu",
+           "multi_tensor_lamb": "multi_tensor_lamb.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel's C entry point ``mx_<name>``: its arguments in order, the
-# last being the stream
+# last being the stream (the whole-tree updates' last but one: an int the
+# entry point adds its launches to)
 ARGTYPES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -54,8 +57,12 @@ ARGTYPES = {
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _P],
     "multi_tensor_adam": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I,
-                          _P, _P],
-    "all_finite": [_P, _I, _P, _P],
+                          _P, _P, _P],
+    "all_finite": [_P, _I, _P, _P, _P],
+    "multi_tensor_update": [_I, _P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F,
+                            _I, _P, _P, _P],
+    "multi_tensor_lamb": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F,
+                          _F, _F, _I, _P, _P, _P],
 }
 # the C entry points of each kernel's library: its own, and beside K8 the
 # skip_nonfinite guard's all-finite check over the same leaf table

@@ -85,16 +85,17 @@ def reset_launch_counts() -> None:
             launch_counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name``."""
     tally = getattr(_capturing, "tally", None)
     if tally is None and _open_tally is not None \
             and torch.cuda.is_current_stream_capturing():
         tally = _open_tally
     if tally is not None:
-        tally[name] = tally.get(name, 0) + 1
+        tally[name] = tally.get(name, 0) + n
         return
     with _counts_lock:
-        launch_counts[name] += 1
+        launch_counts[name] += n
 
 
 @contextlib.contextmanager

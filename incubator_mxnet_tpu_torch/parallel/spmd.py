@@ -15,15 +15,15 @@ and the loss is the mean of the k losses.  The step returns the loss as a
 
 On the card the JAX step's one program is one CUDA graph per batch key
 (the shapes and dtypes of the batch arrays): the step counter, every
-microbatch's forward and backward and the whole-tree update (one launch
-of kernel K8).  A key's first step runs eagerly on a side stream (the
-real step, and the warm-up the capture needs); the graph is captured
-right after it, which runs nothing, and every later step of the key
-refills the key's static input buffers in place (from pinned host memory)
-and replays the graph.  A failed capture raises :class:`MXNetError`
-naming the key; there is no eager path on the card after a key's first
-step.  All of a trainer's graphs share one memory pool.  The CPU runs the
-same body uncaptured.
+microbatch's forward and backward and the whole-tree update (one call of
+kernel K8, K9 or K10, by the rule).  A key's first step runs eagerly on
+a side stream (the real step, and the warm-up the capture needs); the
+graph is captured right after it, which runs nothing, and every later
+step of the key refills the key's static input buffers in place (from
+pinned host memory) and replays the graph.  A failed capture raises
+:class:`MXNetError` naming the key; there is no eager path on the card
+after a key's first step.  All of a trainer's graphs share one memory
+pool.  The CPU runs the same body uncaptured.
 
 Pipelining, ZeRO-1, sharding rules and the health plane are not ported:
 asking for any of them raises :class:`MXNetError`."""

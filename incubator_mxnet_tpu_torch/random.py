@@ -6,9 +6,15 @@ seeded from the last :func:`seed` (``MXNET_SEED`` at import, else 0).
 (weight initializers) draws from the CPU generator through
 :func:`numpy_rng`, so a seed gives the same weights on the CPU and on the
 card.  JAX's threefry stream is not reproduced: a seed gives other
-numbers here than in the JAX package."""
+numbers here than in the JAX package.
+
+:func:`get_state`/:func:`set_state` snapshot and restore every device's
+generator, the seed new generators take, and numpy's global generator
+(``np.random``, which data pipelines draw from) in a JSON-safe form: the
+checkpoint manifest's ``rng``."""
 from __future__ import annotations
 
+import base64
 import threading
 
 import numpy as _np
@@ -17,7 +23,7 @@ import torch
 from .base import getenv_int
 from .context import as_context
 
-__all__ = ["seed", "generator", "numpy_rng"]
+__all__ = ["seed", "generator", "numpy_rng", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _seed = getenv_int("MXNET_SEED", 0)
@@ -56,3 +62,54 @@ def numpy_rng() -> _np.random.RandomState:
     s = int(torch.randint(0, 2 ** 31 - 1, (1,),
                           generator=generator("cpu")))
     return _np.random.RandomState(s)
+
+
+def _device_name(dev: torch.device) -> str:
+    return f"{dev.type}:{dev.index or 0}"
+
+
+def get_state() -> dict:
+    """A JSON-safe snapshot of the random state: the seed new generators
+    take, each device generator's state (base64 of its bytes, keyed
+    ``"cpu:0"``/``"cuda:i"``) and numpy's global generator."""
+    with _lock:
+        gens = {_device_name(dev): base64.b64encode(
+            g.get_state().numpy().tobytes()).decode("ascii")
+            for dev, g in _gens.items()}
+        seed_now = _seed
+    kind, keys, pos, has_gauss, cached = _np.random.get_state()
+    return {"format": "torch", "seed": seed_now, "generators": gens,
+            "numpy": {"kind": kind, "keys": [int(k) for k in keys],
+                      "pos": int(pos), "has_gauss": int(has_gauss),
+                      "cached_gaussian": float(cached)}}
+
+
+def set_state(state: dict) -> None:
+    """Restore a :func:`get_state` snapshot: generators absent from it are
+    dropped (the captured picture comes back exactly).  A snapshot of the
+    JAX package's key streams is refused by name."""
+    from .base import MXNetError
+    if not isinstance(state, dict) or state.get("format") != "torch":
+        raise MXNetError(
+            "random.set_state: not a state of the PyTorch port (a JAX "
+            "package key-stream snapshot holds threefry keys, which the "
+            "port's generators cannot take)")
+    global _seed
+    gens = {}
+    for name, data in state["generators"].items():
+        kind, _, idx = name.partition(":")
+        dev = torch.device(kind, int(idx or 0)) if kind == "cuda" \
+            else torch.device("cpu")
+        g = torch.Generator(device=dev)
+        g.set_state(torch.frombuffer(bytearray(base64.b64decode(data)),
+                                     dtype=torch.uint8))
+        gens[dev] = g
+    np_state = state["numpy"]
+    _np.random.set_state((np_state["kind"],
+                          _np.array(np_state["keys"], dtype=_np.uint32),
+                          np_state["pos"], np_state["has_gauss"],
+                          np_state["cached_gaussian"]))
+    with _lock:
+        _seed = int(state["seed"])
+        _gens.clear()
+        _gens.update(gens)

@@ -63,7 +63,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
                 "http_util", "fault", "health", "_cli", "serving.server",
                 "serving.lifecycle", "serving.slo", "serving.metrics",
                 "serving.router", "serving.supervisor", "serving.batcher",
-                "cuda_graphs"):
+                "cuda_graphs", "lr_scheduler", "checkpoint", "random",
+                "ndarray.optimizer_ops", "optimizer.optimizer",
+                "optimizer.fused"):
         assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
@@ -117,3 +119,24 @@ def test_router_and_supervisor_never_touch_cuda():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"lazy_init_calls": 0, "initialized": False}
+
+
+@pytest.mark.parametrize("name", ["lr_scheduler.py", "checkpoint.py",
+                                  "ndarray/optimizer_ops.py",
+                                  "optimizer/optimizer.py",
+                                  "optimizer/fused.py", "random.py"])
+def test_copied_modules_import_only_the_port(name):
+    """``lr_scheduler.py`` and ``checkpoint.py`` (and the optimizer
+    modules) are the port's own copies: every import is the standard
+    library, numpy, torch or the port itself (relative), never the JAX
+    package."""
+    tree = ast.parse((ROOT / "incubator_mxnet_tpu_torch" / name).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & set(FORBIDDEN), roots
+    assert roots <= {"__future__", "base64", "json", "math", "os", "pickle",
+                     "re", "threading", "typing", "numpy", "torch"}, roots

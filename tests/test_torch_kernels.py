@@ -332,7 +332,8 @@ def test_cuda_decode_kernels_match_plain(D):
                                  "decode": 1, "paged_verify": 0,
                                  "verify": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "multi_tensor_adam": 0,
-                                 "all_finite": 0}
+                                 "all_finite": 0, "multi_tensor_update": 0,
+                                 "multi_tensor_lamb": 0}
 
 
 # ------------------------------------- K2/K3 split geometry (host helpers)

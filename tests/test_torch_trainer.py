@@ -404,10 +404,14 @@ def test_trainer_refuses_what_is_not_ported(kwargs, what):
 
 @pytest.mark.parametrize("name", ["sgd", "adamw", "lamb"])
 def test_other_optimizers_are_refused_by_name(name):
+    """Every optimizer is ported; what stays refused by name is
+    multi-precision (fp32 master weights, ROADMAP Queue A item 13)."""
     with mx.cpu():
         net = _net()
-    with pytest.raises(MXNetError, match="not ported"):
-        mx.gluon.Trainer(net.collect_params(), name, {})
+    mx.gluon.Trainer(net.collect_params(), name, {})
+    with pytest.raises(MXNetError, match="item 13"):
+        mx.gluon.Trainer(net.collect_params(), name,
+                         {"multi_precision": True})
 
 
 def test_step_publishes_spans_and_the_trainer_topic():

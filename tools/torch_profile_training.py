@@ -50,8 +50,14 @@ from chip_smoke import (BERT_VOCAB, TRAIN_B, TRAIN_T,  # noqa: E402
                         bert_batch, card_line)
 from torch_profile_serving import measure, kernel_times  # noqa: E402
 
-KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-           "multi_tensor_adam_kernel")
+# each kernel's label and the substrings of its profiler names: K8 is
+# ``multi_tensor_adam_kernel`` in older checkouts and the Adam instance
+# ``rule_kernel<6>`` of the shared update body in newer ones
+KERNELS = {"flash_fwd_kernel": ("flash_fwd_kernel",),
+           "flash_bwd_dq_kernel": ("flash_bwd_dq_kernel",),
+           "flash_bwd_dkv_kernel": ("flash_bwd_dkv_kernel",),
+           "multi_tensor_adam_kernel": ("multi_tensor_adam_kernel",
+                                        "rule_kernel<6>")}
 
 
 def main():
@@ -125,9 +131,10 @@ def main():
         torch.cuda.synchronize()
     kt = kernel_times(prof)
     busy = sum(t for t, _ in kt.values())
-    for k in KERNELS:
-        t = sum(t for n, (t, _) in kt.items() if k in n)
-        c = sum(c for n, (_, c) in kt.items() if k in n)
+    for k, subs in KERNELS.items():
+        mine = [v for n, v in kt.items() if any(x in n for x in subs)]
+        t = sum(t for t, _ in mine)
+        c = sum(c for _, c in mine)
         summary.setdefault("kernels", {})[k] = {"ms": t / 1e3, "count": c}
         print(f"step: {k} {t / 1e3:.3f} ms x{c} "
               f"({100 * t / busy if busy else 0.0:.1f}% of the step's "
