@@ -11,6 +11,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --gluon    # the Gluon training loop only
     python3 chip_smoke.py --oneshot  # one-shot BERT-large serving only
     python3 chip_smoke.py --lamb     # BERT-large pretraining with LAMB only
+    python3 chip_smoke.py --loop     # the compiled loop on the main path only
     python3 chip_smoke.py --resume   # the Gluon loop's checkpoint/resume only
 
 Phases, each of which raises (exit code 1) on any failure:
@@ -198,7 +199,7 @@ Phases, each of which raises (exit code 1) on any failure:
    ``:predict`` from 8 concurrent HTTP clients answers within
    ``BATCH_TOL`` of the engine, ``/programs`` shows 6 of 6 captured and
    ``/memory`` the owner ``params:bert``;
-9. LAMB pretraining, the main path ("lamb:" lines): BERT-large as in
+9. LAMB pretraining through single-step graphs ("lamb:" lines): BERT-large as in
    phase 6 with ``SPMDTrainer(net, BERTPretrainLoss(30522), "lamb",
    {"learning_rate": 1e-3, "beta1": 0.9, "beta2": 0.999, "epsilon":
    1e-6, "wd": 0.01, "lr_schedule": WarmupPoly(...)})``, the LAMB paper's
@@ -210,7 +211,26 @@ Phases, each of which raises (exit code 1) on any failure:
    their own launch-count window (K1, K6, K7 24 times per step, K10's two
    launches once per step and nothing else) and one profiled step (host launches,
    idle share), the loss falling;
-10. checkpoint and resume ("resume:" lines): ``train_gpt.py``'s Gluon
+10. the compiled loop, the main path ("loop:" lines): a fresh BERT-large
+   + heads (seed 0) under ``CompiledLoop`` with phase 9's LAMB,
+   ``loop_steps`` 4, ``skip_nonfinite=True`` and ``MXNET_HEALTH_PLANE=1``:
+   8 distinct batches as 2 chunks from a host list through
+   ``run(prefetch=True)``, in their own launch-count window (K1, K6, K7
+   24 times per step, all-finite once, K10's two launches once, nothing
+   else), equal bit for bit in every loss, parameter and lr to 8
+   ``SPMDTrainer`` graph steps of a copy with the plane off; the graph
+   pool beside the single step's; ms per chunk and per step (CUDA
+   events, median of 5 chunks), one profiled chunk (at most 10 host
+   launches, idle share), ``mxtpu_mfu`` in (0, 1.05] with
+   ``mxtpu_step_flops`` and the fp32 peak; a NaN sample weight in batch
+   6 (inner step 2 of chunk 2) skipped exactly once, one FAULT
+   ``skipped_step``, the health plane's non-finite anomaly naming the
+   first leaf, every parameter bit for bit a run without that batch's
+   update; a plane-off loop bit for bit the same and the plane's cost per
+   step; an ``AsyncCheckpointer`` checkpoint at step 6 (mid-chunk)
+   restored into a fresh net and loop, 2 more steps bit for bit the
+   uninterrupted run; the phase's wall;
+11. checkpoint and resume ("resume:" lines): ``train_gpt.py``'s Gluon
    loop at ``gpt2_124m`` (B = 8, T = 1024) with ``gluon.Trainer`` SGD,
    momentum 0.9, under ``FactorScheduler(step=2, factor=0.5)`` (K9's
    ``sgd_mom``): 2 steps, ``AsyncCheckpointer.save(2, params,
@@ -3829,6 +3849,349 @@ def drive_lamb(fa, card):
 
 
 # ------------------------------------------------------------ phase 10
+LOOP_K, LOOP_STEPS, LOOP_TIMED = 4, 8, 5   # loop_steps, steps, timed chunks
+LOOP_POISON = 5         # the poisoned batch: inner step 2 of chunk 2
+MFU_MAX = 1.05          # a reading above this is a fault of the count
+
+
+class WeightedPretrainLoss(torch.nn.Module):
+    """``BERTPretrainLoss`` times the mean of a per-sample weight carried
+    as the labels' last column (1.0 in every clean batch): a NaN weight
+    poisons every gradient, as a corrupt sample does."""
+
+    def __init__(self, V):
+        super().__init__()
+        from incubator_mxnet_tpu_torch.models import bert as bert_mod
+        self.base = bert_mod.BERTPretrainLoss(V)
+
+    def forward(self, mlm, nsp, labels):
+        return self.base(mlm, nsp, labels[:, :-1]) * labels[:, -1].mean()
+
+
+def loop_batches(V, B, T):
+    """``LOOP_STEPS`` distinct batches drawn as ``bench.py`` draws one
+    (seeds SEED .. SEED + 7)."""
+    return [bert_batch(V, B, T, seed=SEED + i) for i in range(LOOP_STEPS)]
+
+
+def weighted(batches, poison=None):
+    """The batches with a weight column of 1.0 appended to the labels;
+    sample 0's weight NaN in batch ``poison``."""
+    out = []
+    for i, (ids, types, labels) in enumerate(batches):
+        w = np.ones((labels.shape[0], 1), np.float32)
+        if i == poison:
+            w[0, 0] = np.nan
+        out.append((ids, types, np.concatenate([labels, w], axis=1)))
+    return out
+
+
+def chunk_times(loop, batches):
+    """ms of ``LOOP_TIMED`` chunks of ``LOOP_K`` host batches through
+    ``step_chunk`` (one staged copy each), CUDA events around each."""
+    timed = []
+    for i in range(LOOP_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.step_chunk(batches[(i % 2) * LOOP_K:(i % 2 + 1) * LOOP_K])
+        end.record()
+        timed.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in timed]
+
+
+def plane_ops_ms(loop, dev, reps=5):
+    """The card's ms for the health plane's ops of one step over the
+    loop's leaves (``StepStats.before`` and ``after``: a copy of every
+    leaf, four norms over the tree), captured as one graph and replayed,
+    as they run inside a step.  The gradients are zeros of the leaves'
+    shapes; the weights are not written."""
+    from incubator_mxnet_tpu_torch import cuda_graphs
+    ws = loop._param_list()
+    gs = [torch.zeros_like(w) for w in ws]
+    loss0 = torch.zeros((), device=dev)
+    stats = loop._stats
+
+    def ops():
+        stats.before(0, ws, gs)
+        stats.after(0, ws, loss0)
+    with cuda_graphs.CAPTURE_LOCK:
+        cuda_graphs.on_side_stream(ops, dev)
+        graph, _, _, _ = cuda_graphs.capture(
+            ops, dev, torch.cuda.graph_pool_handle())
+    out = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    del graph, gs
+    return out
+
+
+def resume_loop(ck, make, batches):
+    """A fresh net and loop (weights halved: not the saved ones) restored
+    from ``ck``'s step-6 checkpoint, then run over the last 2 batches.
+    Returns ((the loop, its losses), the restored step, restore
+    seconds)."""
+    from incubator_mxnet_tpu_torch.parallel.loop import CompiledLoop
+    net5, loop5, _ = make(CompiledLoop, loop_steps=LOOP_K,
+                          skip_nonfinite=True)
+    with torch.no_grad():
+        for p in loop5.params.values():
+            p.mul_(0.5)
+    t0 = time.perf_counter()
+    got = ck.restore_into(params=net5.collect_params(), trainer=loop5)
+    restore_s = time.perf_counter() - t0
+    loop5.reload_params()
+    return (loop5, loop5.run(batches[6:], prefetch=True)), got, restore_s
+
+
+def drive_loop(fa, card):
+    """The compiled training loop on the main path ("loop:" lines): a fresh
+    BERT-large + heads (seed 0) under ``CompiledLoop`` with LAMB as phase 9
+    sets it up, ``loop_steps`` 4, ``skip_nonfinite=True`` and
+    ``MXNET_HEALTH_PLANE=1``: 8 steps as 2 chunks from a host list through
+    ``run(prefetch=True)`` in their own launch-count window, held bit for
+    bit to 8 ``SPMDTrainer`` graph steps of a copy (plane off); ms per
+    chunk (median of ``LOOP_TIMED``), one profiled chunk, the MFU gauges;
+    a poisoned batch at inner step 2 of chunk 2 skipped once and held to
+    a run without its update; the plane's cost against a plane-off loop;
+    a checkpoint at step 6 resumed into a fresh net and loop.  Returns the
+    main path's launch counts."""
+    import tempfile
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import health, telemetry
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.checkpoint import AsyncCheckpointer
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    from incubator_mxnet_tpu_torch.parallel.loop import CompiledLoop
+    V, B, T = BERT_VOCAB, TRAIN_B, TRAIN_T
+    t_phase = time.perf_counter()
+    dev = make_mesh({"data": 1}).device
+    base = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
+                                    vocab_size=V)
+    base.initialize(init.Normal(0.02), seed=SEED)
+    scheds = []
+
+    def make(cls, loss=None, **kw):
+        sched = WarmupPoly(LAMB_LR, LAMB_WARMUP, LAMB_MAX_UPDATE, LAMB_POWER,
+                           dev)
+        scheds.append(sched)
+        net = copy.deepcopy(base)
+        tr = cls(net, loss or bert_mod.BERTPretrainLoss(V), "lamb",
+                 {"learning_rate": LAMB_LR, "beta1": 0.9, "beta2": 0.999,
+                  "epsilon": 1e-6, "wd": LAMB_WD, "lr_schedule": sched},
+                 mesh=make_mesh({"data": 1}), **kw)
+        return net, tr, sched
+
+    def params_of(tr):
+        return [p.detach().clone() for p in tr.params.values()]
+
+    def same_params(a, b, what):
+        for (name, x), y in zip(a.params.items(), b):
+            check(torch.equal(x, y), f"loop: parameter {name} {what}")
+
+    batches = loop_batches(V, B, T)
+    # --- the reference: 8 graph steps of SPMDTrainer, plane off
+    _, ref, ref_sched = make(SPMDTrainer)
+    want_losses = [float(ref.step(*b)) for b in batches]
+    torch.cuda.synchronize()
+    want = params_of(ref)
+    step_pool = ref.graph_pool_bytes()
+    del ref
+    torch.cuda.empty_cache()
+
+    # --- the main path: CompiledLoop, guard and plane on, prefetched
+    saved_env = os.environ.get("MXNET_HEALTH_PLANE")
+    os.environ["MXNET_HEALTH_PLANE"] = "1"
+    telemetry.reset()
+    health.reset()
+    telemetry.start()
+    skipped_events = []
+    sub = telemetry.FAULT.subscribe(
+        lambda **kw: skipped_events.append(kw)
+        if kw.get("event") == "skipped_step" else None)
+    try:
+        _, loop, sched = make(CompiledLoop, loop_steps=LOOP_K,
+                              skip_nonfinite=True)
+        leaves = len(loop.params)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()             # --- the loop path
+        t0 = time.perf_counter()
+        losses = loop.run(batches, prefetch=True)
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)      # --- end of the loop path
+        run_s = time.perf_counter() - t0
+        check(losses.tolist() == want_losses, f"loop: losses "
+              f"{losses.tolist()} != the graph steps' {want_losses}")
+        same_params(loop, want, f"differs from {LOOP_STEPS} SPMDTrainer "
+                    "graph steps")
+        check(torch.equal(sched.log, ref_sched.log), "loop: the lr each "
+              "inner step used differs from the graph steps'")
+        ring = telemetry.health_ring.entries()
+        check([r["step"] for r in ring] == list(range(1, LOOP_STEPS + 1))
+              and all(r["finite"] and r["src"] == "loop" for r in ring),
+              f"loop: health records {ring}")
+        print(f"loop: bert_large + pretrain heads, {leaves} leaves, "
+              f"Normal(0.02) seed {SEED}, LAMB as lamb:, CompiledLoop "
+              f"loop_steps {LOOP_K}, skip_nonfinite, MXNET_HEALTH_PLANE=1: "
+              f"{LOOP_STEPS} steps as 2 chunks from a host list through "
+              f"run(prefetch=True) in {run_s:.2f} s (the first chunk eager "
+              f"+ capture) equal {LOOP_STEPS} SPMDTrainer graph steps "
+              f"(plane off) bit for bit: losses, all {leaves} parameters, "
+              f"the lr per inner step {sched.log[:LOOP_STEPS].tolist()}; "
+              f"graph pool {loop.graph_pool_bytes() / 2 ** 20:.1f} MiB "
+              f"(chunk of {LOOP_K}) against {step_pool / 2 ** 20:.1f} MiB "
+              f"(one step) [{card}]", flush=True)
+        per_step = {"flash_fwd": BERT_LAYERS, "flash_bwd_dq": BERT_LAYERS,
+                    "flash_bwd_dkv": BERT_LAYERS, "multi_tensor_lamb": 2,
+                    "all_finite": 1}
+        for name, n in counts.items():
+            expect = per_step.get(name, 0) * LOOP_STEPS
+            check(n == expect, f"loop path: kernel {name} launched {n} "
+                  f"times, expected {expect}")
+        print(f"loop: launches over the {LOOP_STEPS} steps {counts}",
+              flush=True)
+
+        # --- timing and MFU (the windows close at chunk boundaries)
+        chunk_ms = chunk_times(loop, batches)
+        ms_chunk = float(np.median(chunk_ms))
+        snap = telemetry.snapshot(include_memory=False)
+        gauges = snap["gauges"]
+        mfu, step_flops = gauges["mxtpu_mfu"], gauges["mxtpu_step_flops"]
+        peak = gauges["mxtpu_device_peak_flops"]
+        peak = max(peak.values()) if isinstance(peak, dict) else peak
+        wall = telemetry.registry.get("mxtpu_step_seconds").stats()
+        prof, _ = profile_window(lambda: None, lambda: loop.step_chunk(
+            batches[:LOOP_K]))
+        rounded = [round(x, 2) for x in chunk_ms]
+        print(f"loop: {ms_chunk:.2f} ms per chunk of {LOOP_K}, "
+              f"{ms_chunk / LOOP_K:.2f} ms per step (median of "
+              f"{LOOP_TIMED} chunks, CUDA events: {rounded}); "
+              f"one profiled chunk: wall {prof['wall_ms']:.2f} ms (median "
+              f"of 3), device {prof['device_ms']:.2f} ms in "
+              f"{prof['device_ops']} kernels and copies, "
+              f"{prof['host_launches']} host launches per chunk, idle share "
+              f"{prof['idle_share']:.3f} [{card}]", flush=True)
+        print(f"loop: mxtpu_mfu {mfu:.4f}, mxtpu_step_flops "
+              f"{step_flops / 1e12:.4f} TFLOP per step (counted from "
+              f"shapes), the fp32 peak {peak / 1e12:.1f} TFLOP/s, "
+              f"mxtpu_step_seconds p50 {wall['p50']} s [{card}]", flush=True)
+        check(0 < mfu <= MFU_MAX, f"loop: mxtpu_mfu {mfu} outside (0, "
+              f"{MFU_MAX}]")
+        check(prof["host_launches"] <= 10, f"a chunk of {LOOP_K} made "
+              f"{prof['host_launches']} host launches")
+
+        # --- the plane's own ops over the 399 leaves, timed apart: one
+        # graph of them, replayed (the card's time, as inside the step)
+        plane_ms = plane_ops_ms(loop, dev)
+        on_ms = ms_chunk / LOOP_K
+        del loop
+        torch.cuda.empty_cache()
+
+        # --- a poisoned batch at inner step 2 of chunk 2
+        skipped_events.clear()
+        wloss = WeightedPretrainLoss(V)
+        _, loop2, _ = make(CompiledLoop, loss=wloss, loop_steps=LOOP_K,
+                           skip_nonfinite=True)
+        loop2.run(weighted(batches, poison=LOOP_POISON), prefetch=True)
+        skipped = loop2.sync_nonfinite_guard()
+        loop2.sync_health()
+        anom = health.last_anomaly()
+        first = next(iter(loop2.params))
+        check(skipped == 1 and len(skipped_events) == 1
+              and skipped_events[0]["site"] == "loop.step",
+              f"loop: poisoned run skipped {skipped}, FAULT events "
+              f"{skipped_events}")
+        check(anom is not None and anom["kind"] == "nonfinite"
+              and anom["step"] == LOOP_POISON + 1 and anom["leaf"] == first,
+              f"loop: the anomaly {anom} does not name step "
+              f"{LOOP_POISON + 1} and the first leaf {first}")
+        _, ref2, _ = make(SPMDTrainer, loss=wloss)
+        clean = weighted(batches)
+        for i, b in enumerate(clean):
+            if i == LOOP_POISON:
+                # the skipped step: its count advances, nothing else
+                ref2._step_count += 1
+                ref2._step_dev.add_(1)
+                continue
+            ref2.step(*b)
+        torch.cuda.synchronize()
+        same_params(loop2, params_of(ref2), "of the poisoned run differs "
+                    "from a run without that batch's update")
+        print(f"loop: a NaN sample weight in batch {LOOP_POISON + 1} "
+              f"(inner step 2 of chunk 2): skipped exactly once "
+              f"(sync_nonfinite_guard {skipped}, one FAULT skipped_step at "
+              f"{skipped_events[0]['site']}), every parameter bit for bit a "
+              f"run without that batch's update; the health plane's "
+              f"anomaly {anom['kind']} at step {anom['step']} names the "
+              f"first leaf {anom['leaf']!r} [{card}]", flush=True)
+        del loop2, ref2
+        torch.cuda.empty_cache()
+    finally:
+        telemetry.FAULT.unsubscribe(sub)
+        telemetry.stop()
+        if saved_env is None:
+            os.environ.pop("MXNET_HEALTH_PLANE", None)
+        else:
+            os.environ["MXNET_HEALTH_PLANE"] = saved_env
+
+    # --- plane off: a checkpoint at step 6 (mid-chunk: chunks of 4 and
+    # 2), the run on to step 8 bit for bit the plane-on loop's; then the
+    # plane's cost per step
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        net3, loop3, _ = make(CompiledLoop, loop_steps=LOOP_K,
+                              skip_nonfinite=True)
+        loop3.run(batches[:6], prefetch=True)
+        ck = AsyncCheckpointer(os.path.join(tmp, "bert"), keep=1)
+        t0 = time.perf_counter()
+        ck.save_sync(6, {k: p.data() for k, p in
+                         net3.collect_params().items()}, trainer=loop3)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        loop3.run(batches[6:], prefetch=True)
+        same_params(loop3, want, "of the plane-off loop differs from the "
+                    "plane-on loop's")
+        resumed, got, restore_s = resume_loop(ck, make, batches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    off_ms = float(np.median(chunk_times(loop3, batches))) / LOOP_K
+    print(f"loop: health plane on == off bit for bit ({LOOP_STEPS} steps, "
+          f"every parameter); {on_ms:.2f} ms per step on, {off_ms:.2f} off: "
+          f"the plane costs {on_ms - off_ms:+.2f} ms per step; its ops "
+          f"alone (a copy of every leaf, four norms over the tree, one "
+          f"graph replayed) {float(np.median(plane_ms)):.2f} ms (median of "
+          f"5) [{card}]", flush=True)
+    del loop3, net3
+    torch.cuda.empty_cache()
+
+    loop5 = resumed[0]
+    check(got == 6 and loop5._step_count == LOOP_STEPS, f"loop: restored "
+          f"step {got}, step count {loop5._step_count}")
+    check(resumed[1].tolist() == want_losses[6:], f"loop: resumed losses "
+          f"{resumed[1].tolist()} != {want_losses[6:]}")
+    same_params(loop5, want, "of the resumed run differs from the "
+                "uninterrupted run's")
+    print(f"loop: a checkpoint at step 6 (mid-chunk: chunks of 4 and 2) of "
+          f"{nbytes} bytes ({nbytes / 2 ** 30:.2f} GiB, save_sync "
+          f"{save_s:.2f} s, restore_into {restore_s:.2f} s), resumed into a "
+          f"fresh net and loop: 2 more steps, every parameter and loss bit "
+          f"for bit the uninterrupted run's [{card}]", flush=True)
+    del loop5, resumed, base, want
+    torch.cuda.empty_cache()
+    print(f"loop: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
+# ------------------------------------------------------------ phase 11
 RESUME_LR, RESUME_B, RESUME_T = 1e-3, 8, 1024
 
 
@@ -4013,9 +4376,12 @@ def main():
     ap.add_argument("--lamb", action="store_true",
                     help="only run BERT-large pretraining with LAMB (phase "
                          "9, the main path)")
+    ap.add_argument("--loop", action="store_true",
+                    help="only run the compiled training loop on the main "
+                         "path (phase 10)")
     ap.add_argument("--resume", action="store_true",
                     help="only run the Gluon loop's checkpoint and resume "
-                         "(phase 10)")
+                         "(phase 11)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -4051,6 +4417,9 @@ def main():
     if args.lamb:
         drive_lamb(fa, card)
         return                               # a phase, no result
+    if args.loop:
+        drive_loop(fa, card)
+        return                               # a phase, no result
     if args.resume:
         drive_resume(fa, card)
         return                               # a phase, no result
@@ -4081,9 +4450,10 @@ def main():
               f"[{card}]", flush=True)
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
-    # main path, K3 on the dense engine's run, K4 on the paged spec path,
-    # K5 on the dense spec run, K6, K7 and K8 on the training path, the
-    # all-finite check on the Gluon loop's guarded run
+    # serving path, K3 on the dense engine's run, K4 on the paged spec
+    # path, K5 on the dense spec run, K8 on the Adam training path, K9 on
+    # the resume path, K6, K7, K10 and the all-finite check on the main
+    # path (the compiled loop)
     launches = {r["name"]: 0 for r in rows}
     if not args.kernels:
         counts, dense_counts, net, eng, prompts, budgets, plain = \
@@ -4098,19 +4468,20 @@ def main():
         check_cell_grads(fa, dev)
         _, guard = drive_gluon(fa, card)
         drive_oneshot(fa, card)
-        lamb = drive_lamb(fa, card)
+        drive_lamb(fa, card)
+        loop = drive_loop(fa, card)
         resume = drive_resume(fa, card)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
                     "paged_verify": spec["paged_verify"],
                     "verify": dense_spec["verify"],
-                    "flash_bwd_dq": train["flash_bwd_dq"],
-                    "flash_bwd_dkv": train["flash_bwd_dkv"],
+                    "flash_bwd_dq": loop["flash_bwd_dq"],
+                    "flash_bwd_dkv": loop["flash_bwd_dkv"],
                     "multi_tensor_adam": train["multi_tensor_adam"],
-                    "all_finite": guard["all_finite"],
+                    "all_finite": loop["all_finite"],
                     "multi_tensor_update": resume["multi_tensor_update"],
-                    "multi_tensor_lamb": lamb["multi_tensor_lamb"]}
+                    "multi_tensor_lamb": loop["multi_tensor_lamb"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -16,8 +16,10 @@ planes, speculative decoding; one BERT pretraining step
 (``parallel.SPMDTrainer``); and the imperative training surface that
 MXNet users write — ``nd`` arrays, ``autograd``, ``gluon`` parameters,
 blocks, layers, losses and ``Trainer`` with every optimizer and
-``lr_scheduler`` — with the kernels they run (``kernels``), and
-``checkpoint`` to resume a run."""
+``lr_scheduler`` — with the kernels they run (``kernels``),
+``checkpoint`` to resume a run, and the compiled k-step loop
+(``parallel.CompiledLoop``, ``io.DevicePrefetcher``) with the training
+health plane (``health``) and the MFU collector (``telemetry``)."""
 from .base import MXNetError
 from .context import Context, cpu, current_context, default_device, gpu
 from . import ndarray as nd

@@ -23,7 +23,12 @@ CUPTI traced them (``tools/torch_profile_capture.py``).
 The kernel launches made while capturing (on this thread, or on the
 autograd engine's device thread during a captured backward) are the
 graph's tally, not launches: pass it to
-:func:`.kernels.flash_attention.add_launches` at each replay."""
+:func:`.kernels.flash_attention.add_launches` at each replay.
+
+:func:`counted` runs a program's body eagerly and counts its FLOPs from
+shapes, the MFU collector's numerator: ``torch.utils.flop_counter.
+FlopCounterMode`` for the aten ops, plus what the attention kernels report
+for themselves (a hand-written kernel is invisible to the counter)."""
 from __future__ import annotations
 
 import contextlib
@@ -32,10 +37,10 @@ import threading
 
 import torch
 
-from .kernels.flash_attention import captured_launches
+from .kernels.flash_attention import captured_launches, counted_flops
 
 __all__ = ["CAPTURE_LOCK", "DISPATCH_GATE", "DispatchGate",
-           "on_side_stream", "capture"]
+           "on_side_stream", "capture", "counted", "HostCopy"]
 
 CAPTURE_LOCK = threading.Lock()
 
@@ -127,3 +132,48 @@ def capture(fn, device, pool):
         if collecting:
             gc.enable()
     return graph, out, dict(tally), grown
+
+
+def counted(fn):
+    """Run ``fn()`` eagerly and count its FLOPs from shapes: the aten ops
+    through ``FlopCounterMode`` (matrix products, convolutions, SDPA) and
+    the attention kernels' own counts (:func:`.kernels.flash_attention.
+    counted_flops`).  Returns (``fn``'s result, FLOPs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with counted_flops() as extra:
+        with FlopCounterMode(display=False) as mode:
+            out = fn()
+    return out, float(mode.get_total_flops() + extra[0])
+
+
+class HostCopy:
+    """Device tensors on their way to the host without a sync: each is
+    copied into pinned memory with a non-blocking copy behind one recorded
+    event (CPU tensors are cloned).  ``ready()`` polls the event (the
+    counterpart of JAX's ``is_ready()``); ``wait()`` waits for it and
+    returns the host tensors.  A captured program's static outputs may be
+    overwritten by its next replay: the copy is ordered before it on the
+    stream."""
+
+    def __init__(self, *tensors):
+        self._event = None
+        self._host = []
+        for t in tensors:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+            else:
+                h = t.detach().clone()
+            self._host.append(h)
+        if any(t.is_cuda for t in tensors):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def wait(self):
+        """The host copies, in the order given."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host

@@ -15,7 +15,10 @@ hold a NaN or an Inf changes no parameter or state and zeroes
 the gradients; on the fused path the check and the gating run on the
 device, and the skipped step is counted (``mxtpu_skipped_steps``) when
 its flag's asynchronous copy has landed, or at
-:meth:`sync_nonfinite_guard`.
+:meth:`sync_nonfinite_guard`.  With ``MXNET_HEALTH_PLANE=1`` the fused
+update also computes the health plane's per-leaf stats (gradient norms,
+update ratios, the first non-finite leaf), folded asynchronously
+(:meth:`sync_health` waits for them).
 
 On one device there is nothing to aggregate: kvstore ``"device"``,
 ``"local"`` and None are accepted and ``allreduce_grads`` does nothing.
@@ -62,9 +65,6 @@ class Trainer:
             _not_ported("gradient compression")
         if zero1 or (zero1 is None and getenv_bool("MXNET_ZERO1")):
             _not_ported("ZeRO-1 (zero1 / MXNET_ZERO1)")
-        if getenv_bool("MXNET_HEALTH_PLANE"):
-            raise MXNetError("Trainer: the health plane (MXNET_HEALTH_PLANE) "
-                             "is not ported yet (ROADMAP Queue A item 13)")
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p!r}")
@@ -147,6 +147,14 @@ class Trainer:
         """Wait for every pending guard flag, so ``mxtpu_skipped_steps``
         is exact.  The training loop never needs it; a monitor does."""
         self._drain_nonfinite(block=True)
+
+    def sync_health(self):
+        """Wait until the health plane's pending stats are folded into the
+        StepHealth ring (``health.py``): exact records and anomalies for a
+        monitor about to read them.  A no-op with ``MXNET_HEALTH_PLANE``
+        off or when the fused update never ran."""
+        if self._fused is not None and self._fused._health is not None:
+            self._fused._health.sync()
 
     def _grads_nonfinite(self) -> bool:
         grads = [p.grad()._data for _, p in self._updatable]

@@ -42,16 +42,16 @@ KERNELS = {"flash_fwd": "flash_fwd.cu",
            "multi_tensor_lamb": "multi_tensor_lamb.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel's C entry point ``mx_<name>``: its arguments in order, the
-# last being the stream (the whole-tree updates' last but one: an int the
-# entry point adds its launches to)
+# last being the stream (K2-K5's and the whole-tree updates' last but one:
+# an int the entry point adds its launches to)
 ARGTYPES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                     _P],
-    "decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+                     _P, _P],
+    "decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "paged_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _P],
-    "verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+                     _F, _P, _P],
+    "verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                      _P],
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

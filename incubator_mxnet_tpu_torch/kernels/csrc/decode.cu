@@ -12,8 +12,9 @@
 
 extern "C" int mx_decode(const float* q, const float* k, const float* v,
                          const int* positions, float* part, float* o, int S,
-                         int H, int T, int D, float scale, void* stream) {
+                         int H, int T, int D, float scale, int* launches,
+                         void* stream) {
   const mxdec::DenseKV kv{k, v, H, T};
   return mxdec::launch(q, kv, positions, part, o, S, H, T, D, scale,
-                       static_cast<cudaStream_t>(stream));
+                       static_cast<cudaStream_t>(stream), launches);
 }

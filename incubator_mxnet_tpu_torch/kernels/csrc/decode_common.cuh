@@ -262,29 +262,33 @@ merge_kernel(const float* __restrict__ part,
 template <int D, class KV>
 int launch_d(const float* q, KV kv, const int* positions, float* part,
              float* o, int S, int H, int L, int Q, float scale,
-             cudaStream_t stream) {
+             cudaStream_t stream, int* launches) {
   const int n_split = (L + kChunkKeys - 1) / kChunkKeys;
   split_kernel<D, KV><<<dim3(H, S, n_split), kSplitThreads, 0, stream>>>(
       q, kv, positions, part, H, Q, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
   merge_kernel<D><<<dim3(H, S, Q), D, 0, stream>>>(part, positions, o, H, L,
                                                    Q, n_split);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return static_cast<int>(err);
 }
 
 // Q query rows per slot (K4, K5).  part: the (S, H, Q, ceil(L /
 // kChunkKeys), D + 2) fp32 scratch, L the cache's length in keys (MB * bs
-// paged, T dense)
+// paged, T dense).  The launches made (the split, then the merge) are
+// added to *launches.
 template <class KV>
 int launch(const float* q, KV kv, const int* positions, float* part,
            float* o, int S, int H, int L, int Q, int D, float scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, int* launches) {
   switch (D) {
-    case 16: return launch_d<16>(q, kv, positions, part, o, S, H, L, Q, scale, stream);
-    case 32: return launch_d<32>(q, kv, positions, part, o, S, H, L, Q, scale, stream);
-    case 64: return launch_d<64>(q, kv, positions, part, o, S, H, L, Q, scale, stream);
-    case 128: return launch_d<128>(q, kv, positions, part, o, S, H, L, Q, scale, stream);
+    case 16: return launch_d<16>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
+    case 32: return launch_d<32>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
+    case 64: return launch_d<64>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
+    case 128: return launch_d<128>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
     default: return MX_ERR_UNSUPPORTED_D;
   }
 }
@@ -294,8 +298,9 @@ int launch(const float* q, KV kv, const int* positions, float* part,
 template <class KV>
 int launch(const float* q, KV kv, const int* positions, float* part,
            float* o, int S, int H, int L, int D, float scale,
-           cudaStream_t stream) {
-  return launch(q, kv, positions, part, o, S, H, L, 1, D, scale, stream);
+           cudaStream_t stream, int* launches) {
+  return launch(q, kv, positions, part, o, S, H, L, 1, D, scale, stream,
+                launches);
 }
 
 }  // namespace mxdec

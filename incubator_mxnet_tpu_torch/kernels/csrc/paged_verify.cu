@@ -17,8 +17,9 @@ extern "C" int mx_paged_verify(const float* q, const float* k_pages,
                                const float* v_pages, const int* tables,
                                const int* positions, float* part, float* o,
                                int S, int H, int NB, int bs, int MB, int Q,
-                               int D, float scale, void* stream) {
+                               int D, float scale, int* launches,
+                               void* stream) {
   const mxdec::PagedKV kv{k_pages, v_pages, tables, H, NB, bs, MB};
   return mxdec::launch(q, kv, positions, part, o, S, H, MB * bs, Q, D, scale,
-                       static_cast<cudaStream_t>(stream));
+                       static_cast<cudaStream_t>(stream), launches);
 }

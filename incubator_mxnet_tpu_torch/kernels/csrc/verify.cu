@@ -16,8 +16,8 @@
 extern "C" int mx_verify(const float* q, const float* k, const float* v,
                          const int* positions, float* part, float* o, int S,
                          int H, int T, int Q, int D, float scale,
-                         void* stream) {
+                         int* launches, void* stream) {
   const mxdec::DenseKV kv{k, v, H, T};
   return mxdec::launch(q, kv, positions, part, o, S, H, T, Q, D, scale,
-                       static_cast<cudaStream_t>(stream));
+                       static_cast<cudaStream_t>(stream), launches);
 }

@@ -40,13 +40,19 @@ oracle, which masks the diagonal with -1e30.  The backward recomputes
 P = exp(S - lse) as the Pallas kernels do; for a row whose every key is
 masked the fp32 lse is -1e30 itself, so that row's P is 1 per key (not
 1/T) there, exactly as in ``_flash_bwd_impl``.  ``MXNET_FLASH_BWD=xla``
-is not ported: the backward raises under it."""
+(read at each backward) selects the reference's recompute oracle
+instead: autograd through the plain attention, on any device, for
+:func:`flash_attention` and :func:`flash_attention_lse` alike.
+
+K1, K6 and K7 make one launch per call; K2-K5 two (the split and the
+merge), which their entry points report and :func:`_launch` counts."""
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, getenv
@@ -55,7 +61,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
            "paged_decode_attention", "verify_decode_attention",
            "paged_verify_decode_attention", "launch_counts",
-           "reset_launch_counts", "captured_launches", "add_launches"]
+           "reset_launch_counts", "captured_launches", "add_launches",
+           "counted_flops", "launched"]
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -114,6 +121,35 @@ def captured_launches():
         yield tally
     finally:
         _capturing.tally, _open_tally = prev, prev_open
+
+
+# the FLOPs the attention kernels report while a count is open
+# (:func:`counted_flops`); global, not per thread: a backward runs on the
+# autograd engine's device thread
+_flop_sink = None
+
+
+@contextlib.contextmanager
+def counted_flops():
+    """Yields a one-element list that, at the block's end, holds the
+    FLOPs of the attention kernels launched inside it, by their shapes:
+    K1 4·BH·T²·D (halved when causal), K6 and K7 together 2.5 times that.
+    ``FlopCounterMode`` cannot see a hand-written kernel; the plain
+    versions (CPU) are aten ops it counts itself, so they add nothing
+    here."""
+    global _flop_sink
+    prev, sink = _flop_sink, [0.0]
+    _flop_sink = sink
+    try:
+        yield sink
+    finally:
+        _flop_sink = prev
+
+
+def _add_flops(BH, T, D, causal, factor=1.0) -> None:
+    sink = _flop_sink
+    if sink is not None:
+        sink[0] += factor * 4.0 * BH * T * T * D * (0.5 if causal else 1.0)
 
 
 def add_launches(tally) -> None:
@@ -300,21 +336,38 @@ def _check(name, dev, **tensors):
             raise MXNetError(f"{name}: {tname} is not 16-byte aligned")
 
 
+# the kernels whose entry point reports its launches through an int
+# out-argument (the last but one): K2-K5, two launches per call
+SPLIT_KERNELS = ("paged_decode", "decode", "paged_verify", "verify")
+
+
+def launched(name, lib, rc, launches=None, what=None) -> None:
+    """Raise on a nonzero return code ``rc`` of kernel ``name``'s entry
+    point, else count its launches: ``launches[0]`` as the entry point
+    reported them (a 1-element int32 array), or one launch."""
+    if rc != 0:
+        raise MXNetError(f"{what or name} kernel launch failed: "
+                         f"{lib.mx_error_string(rc).decode()} (code {rc})")
+    _count(name, 1 if launches is None else int(launches[0]))
+
+
 def _launch(name, *args):
     """Call kernel ``name``'s C entry on the current stream of the device
-    of the first tensor argument; raise on a nonzero return code."""
+    of the first tensor argument; raise on a nonzero return code, else
+    count the launches it made."""
     lib = _build.library(name)
     fn = getattr(lib, "mx_" + name)
     dev = args[0].device
+    launches = np.zeros(1, dtype=np.int32) if name in SPLIT_KERNELS \
+        else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
+        if launches is not None:
+            conv.append(launches.ctypes.data)   # the entry point adds to it
         rc = fn(*conv, stream)
-    if rc != 0:
-        raise MXNetError(f"{name} kernel launch failed: "
-                         f"{lib.mx_error_string(rc).decode()} (code {rc})")
-    _count(name)
+    launched(name, lib, rc, launches)
 
 
 def _head_dim_ok(name, D):
@@ -355,6 +408,7 @@ def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads, with_lse=False):
     if T:
         _launch("flash_fwd", q, k, v, bias, o, lse,
                 BH, n_heads, T, D, float(scale), int(bool(causal)))
+        _add_flops(BH, T, D, causal)
     return (o, lse) if with_lse else o
 
 
@@ -377,6 +431,7 @@ def _flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
         _launch("flash_bwd_dq", q, k, v, bias, g, lse, dd, dq, *args)
         _launch("flash_bwd_dkv", q, k, v, bias, g, lse, dd, dk, dv, dbs,
                 *args)
+        _add_flops(BH, T, D, causal, 2.5)
     return dq, dk, dv, dbs
 
 
@@ -404,11 +459,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        if (getenv("MXNET_FLASH_BWD") or "pallas").lower() == "xla":
-            raise MXNetError("MXNET_FLASH_BWD=xla is not ported: the "
-                             "backward is kernels K6 and K7 on the card and "
-                             "their plain version on the CPU")
         q, k, v, bias, out, lse = ctx.saved_tensors
+        if (getenv("MXNET_FLASH_BWD") or "pallas").lower() == "xla":
+            return _recompute_bwd(ctx, q, k, v, bias, g_out, g_lse)
         g = torch.zeros_like(out) if g_out is None else g_out.contiguous()
         dd = _bwd_dd(out, g, g_lse)
         args = (ctx.scale, ctx.causal, ctx.n_heads)
@@ -420,6 +473,32 @@ class _FlashAttention(torch.autograd.Function):
         dbias = _dbias(dbs, ctx.n_heads) \
             if bias is not None and ctx.needs_input_grad[3] else None
         return dq, dk, dv, dbias, None, None, None
+
+
+def _recompute_bwd(ctx, q, k, v, bias, g_out, g_lse):
+    """``MXNET_FLASH_BWD=xla``: the reference's recompute oracle (JAX
+    ``_flash_bwd``/``_flash_lse_bwd``), autograd through
+    :func:`_plain_attention_lse` with the (B, 1, T) bias broadcast over
+    the heads, the gradient of both outputs at once.  An explicit choice
+    of the user on any device, not a fallback."""
+    need = ctx.needs_input_grad
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(n))
+                  for x, n in zip((q, k, v), need[:3])]
+        b = None
+        if bias is not None:
+            b = bias.detach().requires_grad_(bool(need[3]))
+        outs = _plain_attention_lse(*leaves, ctx.scale, ctx.causal,
+                                    _per_head(b, ctx.n_heads))
+        pairs = [(o, g) for o, g in zip(outs, (g_out, g_lse))
+                 if g is not None]
+        wrt = [t for t in leaves + [b] if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs and wrt else ())
+    got = [next(grads) if t is not None and t.requires_grad else None
+           for t in leaves + [b]]
+    return (*got, None, None, None)
 
 
 def _decode_scratch_shape(S, H, length, D):
@@ -461,7 +540,7 @@ def _decode_checks(name, q, positions, S, H, D):
 def _decode_cuda(q, k, v, positions, scale):
     """K3 on CUDA tensors: q (S, H, D), k/v (S, H, T, D) fp32, positions
     (S,) int32 read by the kernel on the device.  Two launches, the split
-    over 64-key chunks and the merge, counted as one."""
+    over 64-key chunks and the merge, both counted."""
     S, H, T, D = k.shape
     _decode_checks("decode", q, positions, S, H, D)
     _check("decode", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -479,7 +558,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     """K2 on CUDA tensors: q (S, H, D), pages (NB, H, bs, D) fp32, tables
     (S, MB) and positions (S,) int32, both read by the kernel on the
     device.  Two launches, the split over 64-key chunks and the merge,
-    counted as one."""
+    both counted."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _decode_checks("paged_decode", q, positions, S, H, D)
@@ -514,7 +593,7 @@ def _verify_checks(name, q, positions, S, H, D):
 def _verify_cuda(q, k, v, positions, scale):
     """K5 on CUDA tensors: q (S, H, Q, D), k/v (S, H, T, D) fp32, positions
     (S,) int32 read by the kernel on the device.  Two launches, the split
-    over 64-key chunks and the merge, counted as one."""
+    over 64-key chunks and the merge, both counted."""
     S, H, T, D = k.shape
     _verify_checks("verify", q, positions, S, H, D)
     _check("verify", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -534,7 +613,7 @@ def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
     """K4 on CUDA tensors: q (S, H, Q, D), pages (NB, H, bs, D) fp32,
     tables (S, MB) and positions (S,) int32, both read by the kernel on
     the device.  Two launches, the split over 64-key chunks and the merge,
-    counted as one."""
+    both counted."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _verify_checks("paged_verify", q, positions, S, H, D)

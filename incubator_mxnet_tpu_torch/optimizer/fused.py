@@ -31,7 +31,10 @@ before any write (no host sync); a per-leaf ``isfinite().all()`` loop on
 the CPU.
 
 :class:`FusedUpdater` is the Gluon ``Trainer``'s whole-tree update (the
-JAX package's, without ZeRO-1) for the seven rules the JAX package fuses;
+JAX package's, without ZeRO-1) for the seven rules the JAX package fuses,
+with the health plane's per-leaf stats around it under
+``MXNET_HEALTH_PLANE=1`` (``health.StepStats``; the weights come out bit
+for bit as with the plane off);
 :func:`functional_twin` maps an eager optimizer onto its
 ``parallel.optim`` rule."""
 from __future__ import annotations
@@ -42,8 +45,9 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from .. import health as _health
 from ..kernels import _build
-from ..kernels.flash_attention import _count
+from ..kernels.flash_attention import launched as _launched
 from .. import telemetry as _telemetry
 from . import cores
 from .optimizer import (NAG, SGD, AdaGrad, Adam, AdamW, LAMB, RMSProp)
@@ -78,15 +82,6 @@ def _plain_adam_update(params, grads, ms, vs, lr_t, beta1, beta2, epsilon,
         for w, g, m, v in zip(params, grads, ms, vs):
             cores.adam(w, cores.prep_grad(g, r, c, d, w), m, v, lr_t,
                        beta1, beta2, epsilon)
-
-
-def _launched(name, lib, rc, launches, what=None):
-    """Raise on a failed launch, else count the launches the entry point
-    made."""
-    if rc != 0:
-        raise MXNetError(f"{what or name} kernel launch failed: "
-                         f"{lib.mx_error_string(rc).decode()} (code {rc})")
-    _count(name, int(launches[0]))
 
 
 def _check_tree(what, dev, params, grads, states):
@@ -457,27 +452,19 @@ def all_finite(grads: Sequence[torch.Tensor],
 # FusedUpdater: the Gluon Trainer's whole-tree update
 # ---------------------------------------------------------------------------
 class _Flag:
-    """A guarded step's skip flag on its way to the host: a non-blocking
-    copy into pinned memory and an event behind it (on the CPU, the value
-    itself)."""
+    """A guarded step's skip flag on its way to the host
+    (``cuda_graphs.HostCopy``: a non-blocking copy behind an event)."""
 
     def __init__(self, flag: torch.Tensor):
-        if flag.is_cuda:
-            self._host = torch.empty(1, dtype=torch.int32, pin_memory=True)
-            self._host.copy_(flag, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host, self._event = flag.clone(), None
+        from ..cuda_graphs import HostCopy
+        self._copy = HostCopy(flag)
 
     def is_ready(self) -> bool:
-        return self._event is None or self._event.query()
+        return self._copy.ready()
 
     def skipped(self) -> bool:
         """Whether the step was skipped (waits for the copy)."""
-        if self._event is not None:
-            self._event.synchronize()
-        return bool(int(self._host[0]))
+        return bool(int(self._copy.wait()[0][0]))
 
 
 class FusedUpdater:
@@ -507,6 +494,24 @@ class FusedUpdater:
         self._updater = updater
         self._hp: Optional[torch.Tensor] = None     # (groups, 3) per step
         self._flag: Optional[torch.Tensor] = None   # the guard's flag
+        # the health plane: per-leaf stats around the update, drained by a
+        # monitor created at the first step (names from the leaves)
+        self._health = None
+        self._stats = None
+
+    def _health_of(self, updatable, ws):
+        """(monitor, stats buffers) for ``updatable``, or (None, None) with
+        the plane off; the buffers are rebuilt when the leaves change."""
+        if not _health.enabled():
+            return None, None
+        if self._health is None:
+            self._health = _health.HealthMonitor(
+                [p.name for _, p in updatable], src="fused")
+        shapes = [tuple(w.shape) for w in ws]
+        if self._stats is None or self._stats.shapes != shapes \
+                or self._stats.buffer.device != ws[0].device:
+            self._stats = _health.StepStats(ws, rows=1, loss=False)
+        return self._health, self._stats
 
     def _buffers(self, dev, groups):
         if self._hp is None or self._hp.device != dev \
@@ -578,6 +583,10 @@ class FusedUpdater:
             all_finite(gs, flag)
         else:
             flag = None
+        monitor, stats = self._health_of(updatable, ws)
+        if stats is not None:
+            # the raw gradients, before a skipped step's kernel zeroes them
+            stats.before(0, ws, gs)
         clip = opt.clip_gradient
         clip = clip if clip is not None and clip > 0 else None
         with torch.no_grad():
@@ -609,6 +618,10 @@ class FusedUpdater:
                                  else getattr(opt, "epsilon", 1e-8)),
                         rescale=opt.rescale_grad, clip=clip, wd=wd,
                         nonfinite=flag)
+        if stats is not None:
+            stats.after(0, ws)
+            # the fused path never sees the loss: grad and update stats
+            monitor.submit(opt.num_update - 1, 1, stats.rows_of(1))
         _telemetry.counter(
             "mxtpu_optimizer_fused_updates",
             "whole-tree fused optimizer updates").inc(site="fused_update")

@@ -3,7 +3,9 @@
 ``adamw``, ``rmsprop``, ``adagrad`` and ``lamb``.  ``init(params)`` builds
 the state; ``update(params, grads, state, step)`` applies one step in
 place, ``step`` 1-based, a 0-d int32 tensor on the device (the JAX
-update's traced step).
+update's traced step); with ``nonfinite`` (``fused.all_finite``'s device
+flag) a set flag skips the step (the gradients are zeroed, nothing else
+is written), the guard of ``CompiledLoop(skip_nonfinite=True)``.
 
 Every learning rate, bias correction and ``lr_schedule(step)`` is computed
 on the device from the step tensor, as the JAX update computes them from
@@ -89,13 +91,14 @@ def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, lr_schedule=None,
             return {}
         return {"mom": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
         rule, slots = ("sgd", []) if momentum == 0.0 \
             else ("sgd_mom", [state["mom"]])
         fused.multi_tensor_update(rule, params, grads, slots, hp,
                                   momentum=momentum, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd)
+                                  clip=clip_gradient, wd=wd,
+                                  nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -107,11 +110,12 @@ def nag(learning_rate=0.01, momentum=0.9, wd=0.0, lr_schedule=None,
     def init(params):
         return {"mom": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
         fused.multi_tensor_update("nag", params, grads, [state["mom"]], hp,
                                   momentum=momentum, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd)
+                                  clip=clip_gradient, wd=wd,
+                                  nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -125,12 +129,12 @@ def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         lr_t = bias_corrected_lr(learning_rate, beta1, beta2, step,
                                  lr_schedule)
         fused.adam_update(params, grads, state["m"], state["v"], lr_t,
                           beta1, beta2, epsilon, rescale_grad,
-                          clip_gradient, wd)
+                          clip_gradient, wd, nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -143,14 +147,14 @@ def adamw(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         lr = scheduled_lr(learning_rate, step, lr_schedule)
         hp = torch.stack([lr, *_coefs(step, beta1, beta2)])
         fused.multi_tensor_update("adamw", params, grads,
                                   [state["m"], state["v"]], hp, beta1=beta1,
                                   beta2=beta2, epsilon=epsilon,
                                   rescale=rescale_grad, clip=clip_gradient,
-                                  wd=wd)
+                                  wd=wd, nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -162,12 +166,12 @@ def rmsprop(learning_rate=0.001, gamma1=0.9, epsilon=1e-8, wd=0.0,
     def init(params):
         return {"n": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
         fused.multi_tensor_update("rmsprop", params, grads, [state["n"]],
                                   hp, gamma1=gamma1, epsilon=epsilon,
                                   rescale=rescale_grad, clip=clip_gradient,
-                                  wd=wd)
+                                  wd=wd, nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -180,11 +184,12 @@ def adagrad(learning_rate=0.01, epsilon=1e-7, wd=0.0, lr_schedule=None,
     def init(params):
         return {"h": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
         fused.multi_tensor_update("adagrad", params, grads, [state["h"]],
                                   hp, epsilon=epsilon, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd)
+                                  clip=clip_gradient, wd=wd,
+                                  nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update)
 
@@ -197,11 +202,12 @@ def lamb(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-6, wd=0.0,
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(params, grads, state, step):
+    def update(params, grads, state, step, nonfinite=None):
         lr = scheduled_lr(learning_rate, step, lr_schedule)
         hp = torch.stack([lr, *_coefs(step, beta1, beta2)])
         fused.lamb_update(params, grads, state["m"], state["v"], hp, beta1,
-                          beta2, epsilon, rescale_grad, clip_gradient, wd)
+                          beta2, epsilon, rescale_grad, clip_gradient, wd,
+                          nonfinite=nonfinite)
         return params, state
     return FunctionalOptimizer(init, update, elementwise=False)
 

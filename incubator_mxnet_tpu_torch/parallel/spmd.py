@@ -25,8 +25,22 @@ pinned host memory) and replays the graph.  A failed capture raises
 after a key's first step.  All of a trainer's graphs share one memory
 pool.  The CPU runs the same body uncaptured.
 
-Pipelining, ZeRO-1, sharding rules and the health plane are not ported:
-asking for any of them raises :class:`MXNetError`."""
+With ``MXNET_HEALTH_PLANE=1`` the step also writes the health plane's
+statistics (``health.StepStats``: per-leaf gradient norms, the finite
+mask, update ratios, the global norm and the loss) into static device
+buffers as extra outputs of the captured step; at the step boundary the
+trainer's ``HealthMonitor`` queues a non-blocking copy of them and folds
+whatever copy has landed (a recorded event's ``query()``), so the hot
+path never waits.  The parameters come out bit for bit as with the plane
+off.
+
+Each program's FLOPs are counted from shapes once, on the eager run that
+precedes its capture (``cuda_graphs.counted``), and every later dispatch
+publishes the stored count on the telemetry ``COST`` topic: the MFU
+collector's feed.
+
+Pipelining, ZeRO-1 and sharding rules are not ported: asking for any of
+them raises :class:`MXNetError`."""
 from __future__ import annotations
 
 import contextlib
@@ -38,11 +52,13 @@ import numpy as _np
 import torch
 
 from .. import cuda_graphs as _graphs
+from .. import health as _health
 from .. import telemetry as _telemetry
 from .. import telemetry_device as _tdev
 from ..base import MXNetError, getenv_bool
 from ..gluon.nn import mx_named_parameters
 from ..kernels.flash_attention import add_launches
+from ..optimizer import fused as _fused
 from . import optim as fopt
 
 __all__ = ["SPMDTrainer"]
@@ -87,6 +103,7 @@ class _StepProgram:
         self.loss = None
         self.tally: Dict[str, int] = {}
         self.replays = 0
+        self.flops = 0.0        # per dispatch, counted on the eager run
 
     def stage(self, tensors) -> None:
         # the host buffers are rewritten only once the card has read them
@@ -128,8 +145,6 @@ class SPMDTrainer:
             _not_ported("shard_optimizer_state")
         if sharding_rules is not None or extra_input_shardings is not None:
             _not_ported("sharding rules")
-        if getenv_bool("MXNET_HEALTH_PLANE"):
-            _not_ported("the health plane (MXNET_HEALTH_PLANE)")
         if mesh is None:
             raise MXNetError("SPMDTrainer needs a mesh (parallel.make_mesh)")
         if data_axis not in mesh.axis_names:
@@ -153,6 +168,14 @@ class SPMDTrainer:
         self._graph_pool = None
         self._pool_bytes = 0
         self._eager = False
+        self._cpu_flops: Dict[tuple, float] = {}
+        # the health plane, read once here so programs never mix shapes
+        self._health = self._stats = None
+        if _health.enabled():
+            self._health = _health.HealthMonitor(
+                [n for n, _ in self._trainable], src=self._site)
+            self._stats = _health.StepStats(self._param_list(),
+                                            self._stat_rows())
         wref = weakref.ref(self)
 
         def captured():
@@ -164,7 +187,7 @@ class SPMDTrainer:
             tr = wref()
             return 0 if tr is None else tr.optimizer_state_bytes()
 
-        self._ledger = _telemetry.ledger_site("spmd", size_fn=captured)
+        self._ledger = _telemetry.ledger_site(self._site, size_fn=captured)
         # device-plane attribution: this trainer's live optimizer state,
         # through a weakref so a discarded trainer's state is not kept
         _tdev.register_owner("optimizer", state_bytes)
@@ -172,6 +195,14 @@ class SPMDTrainer:
             "mxtpu_optimizer_state_bytes",
             "optimizer-state bytes of the trainer (the whole tree: one "
             "device)").set(self.optimizer_state_bytes())
+
+    #: the dispatch-ledger row, COST site and health source of this kind
+    _site = "spmd"
+
+    def _stat_rows(self) -> int:
+        """Rows of the health plane's stat buffers: inner steps per
+        dispatch."""
+        return 1
 
     # ------------------------------------------------------------------
     @property
@@ -193,8 +224,9 @@ class SPMDTrainer:
                    for leaves in self._opt_state.values() for t in leaves)
 
     def graph_pool_bytes(self) -> int:
-        """Bytes the captured steps' shared pool added to the allocator's
-        reserve (activations and workspaces held between steps)."""
+        """Bytes the captured steps' (and a ``CompiledLoop``'s chunks')
+        shared pool added to the allocator's reserve (activations and
+        workspaces held between steps)."""
         return self._pool_bytes
 
     def _read_params(self) -> List[Tuple[str, torch.Tensor]]:
@@ -261,13 +293,26 @@ class SPMDTrainer:
         without the update (the reference tests and profiles read)."""
         return self._grad_of([self._place(b) for b in batch])
 
-    def _body(self, inputs):
-        """The whole step on device tensors: the step counter, the loss
-        and gradients, the update.  What a graph captures."""
+    def _train_step(self, inputs, row=0, guard=None):
+        """One step on device tensors: the step counter, the loss and
+        gradients, the health plane's stats (into row ``row``) around the
+        update, and the update.  With ``guard`` (a 1-element int32 device
+        flag) the all-finite check sets it where a gradient holds a NaN
+        or an Inf, and the update skips the step there.  What a step's
+        graph captures.  Returns the loss."""
         self._step_dev.add_(1)
         loss, grads = self._grad_of(inputs)
-        self._opt.update(self._param_list(), grads, self._opt_state,
-                         self._step_dev)
+        params = self._param_list()
+        if self._stats is not None:
+            self._stats.before(row, params, grads)
+        if guard is None:
+            self._opt.update(params, grads, self._opt_state, self._step_dev)
+        else:
+            _fused.all_finite(grads, guard)
+            self._opt.update(params, grads, self._opt_state, self._step_dev,
+                             nonfinite=guard)
+        if self._stats is not None:
+            self._stats.after(row, params, loss)
         return loss
 
     # ------------------------------------------------------------------
@@ -281,8 +326,42 @@ class SPMDTrainer:
             out = self._step_impl(*batch)
         if observe:
             _telemetry.TRAINER.publish(phase="step",
-                                       seconds=time.perf_counter() - t0)
+                                       seconds=time.perf_counter() - t0,
+                                       event=self._boundary_event())
         return out
+
+    def _boundary_event(self):
+        """A timing event recorded at a step boundary on the card (the MFU
+        window's device clock), None on the host."""
+        if self._mesh.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._mesh.device))
+        return ev
+
+    def _publish_cost(self, flops: float) -> None:
+        if flops and _telemetry.COST.subscribers:
+            _telemetry.COST.publish(where=self._site, flops=flops)
+
+    def _cpu_run(self, key, body):
+        """``body()`` on the host: the first run of a key counts its FLOPs
+        (the host has no capture; every run publishes the count)."""
+        flops = self._cpu_flops.get(key)
+        if flops is None:
+            out, flops = _graphs.counted(body)
+            self._cpu_flops[key] = flops
+        else:
+            out = body()
+        self._publish_cost(flops)
+        return out
+
+    def _replay(self, prog):
+        """One replay of ``prog``'s captured graph: its launches counted,
+        its FLOPs published."""
+        prog.graph.replay()
+        add_launches(prog.tally)
+        prog.replays += 1
+        self._publish_cost(prog.flops)
 
     def _build_key(self, arrs) -> tuple:
         return tuple((tuple(a.shape), a.dtype) for a in arrs)
@@ -316,48 +395,55 @@ class SPMDTrainer:
                 inputs = [self._place(a) for a in arrs]
         self._step_count += 1
         if not cuda:
-            loss = self._body(inputs)
+            loss = self._cpu_run(key, lambda: self._train_step(inputs))
         elif self._eager:
-            loss = self._body(prog.inputs)
+            loss = self._train_step(prog.inputs)
         elif prog.graph is None:
-            loss = self._first_step(prog)
+            loss = self._first_run(
+                prog, lambda: self._train_step(prog.inputs), "the step")
         else:
-            prog.graph.replay()
-            add_launches(prog.tally)
-            prog.replays += 1
+            self._replay(prog)
             # the graph's loss buffer is overwritten by the next replay
             loss = prog.loss.clone()
+        if self._health is not None:
+            # queued device stats, folded once their copy has landed
+            self._health.submit(self._step_count - 1, 1,
+                                self._stats.rows_of(1))
         self._ledger.record(time.perf_counter() - t0)
         # the whole step (forward, backward, update) is one program
         _telemetry.gauge("mxtpu_optimizer_dispatches_per_step").set(1)
         return loss
 
-    def _first_step(self, prog: _StepProgram):
-        """A batch key's first step on the card: the body runs eagerly on a
-        side stream (the real step, and the warm-up of cuBLAS and the
-        allocator the capture needs), then is captured into the key's
-        graph in the trainer's pool.  Capturing runs nothing, so the step
-        is applied once."""
+    def _first_run(self, prog, body, what):
+        """A program's first run on the card: ``body`` runs eagerly on a
+        side stream (the real step or chunk, the warm-up of cuBLAS and the
+        allocator the capture needs, and its FLOPs counted), then is
+        captured into the program's graph in the trainer's pool.
+        Capturing runs nothing, so the work is applied once.  A failed
+        capture raises, and so does every later dispatch of the
+        program."""
         dev = self._mesh.device
         with _graphs.CAPTURE_LOCK:
-            loss = _graphs.on_side_stream(lambda: self._body(prog.inputs),
-                                          dev)
+            out, prog.flops = _graphs.on_side_stream(
+                lambda: _graphs.counted(body), dev)
             t0 = time.perf_counter()
             try:
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
-                graph, out, tally, grown = _graphs.capture(
-                    lambda: self._body(prog.inputs), dev, self._graph_pool)
+                graph, cap_out, tally, grown = _graphs.capture(
+                    body, dev, self._graph_pool)
             except Exception as e:
                 # the card has no eager path after a key's first step:
                 # every later step of the key raises the same error
-                prog.error = (f"SPMDTrainer: capture of the step for batch "
-                              f"key {_key_text(prog.key)} failed: {e}")
+                prog.error = (f"{type(self).__name__}: capture of {what} "
+                              f"for batch key {_key_text(prog.key)} "
+                              f"failed: {e}")
                 raise MXNetError(prog.error) from e
-        prog.graph, prog.loss, prog.tally = graph, out, tally
+        prog.graph, prog.loss, prog.tally = graph, cap_out, tally
         self._pool_bytes += grown
         self._ledger.record_compile(time.perf_counter() - t0)
-        return loss
+        self._publish_cost(prog.flops)
+        return out
 
     @contextlib.contextmanager
     def _eager_steps(self):
@@ -386,9 +472,17 @@ class SPMDTrainer:
         self._graph_pool = None
         self._pool_bytes = 0
 
+    def sync_health(self):
+        """Wait until every queued health-plane record is folded into the
+        StepHealth ring (a no-op with the plane off)."""
+        if self._health is not None:
+            self._health.sync()
+
     def sync_to_block(self):
         """Nothing to copy: the step updates the net's parameters in
-        place (kept for the JAX package's API)."""
+        place (kept for the JAX package's API).  Folds the pending health
+        records, as the JAX trainer's does."""
+        self.sync_health()
 
 
 def _key_text(key) -> str:

@@ -39,7 +39,8 @@ from typing import Callable, Dict, List, Optional
 from .base import MXNetError, getenv_bool, getenv_int
 
 __all__ = [
-    "Topic", "EventBus", "bus", "SPAN", "FAULT", "HEALTH",
+    "Topic", "EventBus", "bus", "SPAN", "FAULT", "HEALTH", "TRAINER",
+    "COST", "TRANSFER", "DATALOADER",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
     "counter", "gauge", "histogram", "merge_states",
     "render_prometheus_state",
@@ -48,7 +49,7 @@ __all__ = [
     "snapshot", "render_prometheus", "counters_flat",
     "sample_device_memory", "device_peak_flops", "GPU_FP32_PEAK_FLOPS",
     "ledger_site", "dispatch_ledger", "reset_dispatch_ledger",
-    "StepHealthRing", "health_ring",
+    "StepHealthRing", "health_ring", "mfu_drain",
 ]
 
 
@@ -136,13 +137,27 @@ bus = EventBus()
 #                                       "fallback","watchdog","breaker",
 #                                       "deadline","oom","anomaly",...}
 #   HEALTH(kind=, step=, src=, ...)   — one anomaly of the health plane
-#   TRAINER(phase=, seconds=)         — phase "step": one SPMDTrainer or
-#                                       gluon.Trainer step, "update": one
+#   TRAINER(phase=, seconds=, steps=, event=)
+#                                     — phase "step": a step boundary of an
+#                                       SPMDTrainer or gluon.Trainer step
+#                                       (steps=k: a CompiledLoop chunk of
+#                                       k steps; event: a timing CUDA event
+#                                       recorded at the boundary on the
+#                                       card), "chunk": one CompiledLoop
+#                                       chunk, "update": one
 #                                       gluon.Trainer.update; host seconds
+#   COST(where=, flops=)              — one dispatch of a program whose
+#                                       FLOPs were counted from shapes (a
+#                                       captured step or chunk)
+#   TRANSFER(direction=, nbytes=)     — "h2d" | "d2h" host<->device bytes
+#   DATALOADER(seconds=)              — consumer-side batch fetch wait
 SPAN = bus.topic("span")
 FAULT = bus.topic("fault")
 HEALTH = bus.topic("health")
 TRAINER = bus.topic("trainer")
+COST = bus.topic("cost")
+TRANSFER = bus.topic("transfer")
+DATALOADER = bus.topic("dataloader")
 
 
 # ---------------------------------------------------------------------------
@@ -1021,8 +1036,8 @@ def reset_dispatch_ledger() -> None:
 # ---------------------------------------------------------------------------
 class StepHealthRing:
     """Bounded ring of per-step health records (``MXNET_HEALTH_RING``,
-    default 256).  The serving plane reports through ``health.report``;
-    the training monitor that fills this ring is not ported yet."""
+    default 256), filled by the training monitors of ``health.py`` and
+    read by ``health.report``."""
 
     def __init__(self, size: Optional[int] = None):
         self._size = size
@@ -1063,7 +1078,7 @@ _m: Dict[str, object] = {}
 
 
 def _metrics_init():
-    c = registry.counter
+    c, g, h = registry.counter, registry.gauge, registry.histogram
     _m["faults"] = c("mxtpu_faults_injected",
                      "deterministic faults injected, by site/kind")
     _m["retries"] = c("mxtpu_retries",
@@ -1073,9 +1088,49 @@ def _metrics_init():
     _m["skipped_steps"] = c("mxtpu_skipped_steps",
                             "optimizer steps skipped by the non-finite "
                             "gradient guard")
-    _m["peak_flops"] = registry.gauge(
+    _m["dl_fallbacks"] = c("mxtpu_dataloader_fallbacks",
+                           "prefetch worker failures absorbed by blocking "
+                           "in-order fetch on the consumer, by site")
+    _m["peak_flops"] = g(
         "mxtpu_device_peak_flops",
         "fp32 peak FLOP/s of the device, by device name")
+    _m["steps"] = c("mx_trainer_steps_total", "trainer optimization steps")
+    _m["step_seconds"] = h("mx_trainer_step_seconds",
+                           "trainer step dispatch seconds (host)")
+    _m["update_seconds"] = h("mx_trainer_update_seconds",
+                             "trainer update dispatch seconds (host)")
+    _m["batches"] = c("mx_dataloader_batches_total",
+                      "prefetched batches handed to the consumer")
+    _m["fetch_wait"] = h("mx_dataloader_fetch_wait_seconds",
+                         "consumer wait per prefetched batch")
+    _m["h2d"] = c("mx_transfer_h2d_bytes_total",
+                  "host->device transfer bytes")
+    _m["d2h"] = c("mx_transfer_d2h_bytes_total",
+                  "device->host transfer bytes")
+    _m["flops"] = c("mx_program_flops_total",
+                    "FLOPs of the programs dispatched (captured steps and "
+                    "chunks), counted from shapes, by site")
+    _m["step_wall"] = h("mxtpu_step_seconds",
+                        "wall seconds per step between consecutive trainer "
+                        "step boundaries (the MFU window; on the card the "
+                        "device's, between CUDA events at the boundaries)")
+    _m["step_flops"] = g("mxtpu_step_flops",
+                         "FLOPs per step in the last closed MFU window, "
+                         "counted from shapes")
+    _m["mfu"] = g("mxtpu_mfu",
+                  "model FLOPs utilization over the last step window: "
+                  "FLOPs counted from shapes / wall / the fp32 peak of "
+                  "mxtpu_device_peak_flops (by the card's name): the "
+                  "port's GEMMs run in fp32 with TF32 off")
+    _m["loop_chunks"] = c("mxtpu_loop_chunks",
+                          "CompiledLoop chunk dispatches (one CUDA graph "
+                          "replay per k-step chunk on the card)")
+    _m["loop_chunk_seconds"] = h("mxtpu_loop_chunk_seconds",
+                                 "CompiledLoop chunk dispatch seconds "
+                                 "(host)")
+    _m["loop_steps_per_chunk"] = g("mxtpu_loop_steps_per_chunk",
+                                   "train steps folded into the last "
+                                   "CompiledLoop chunk")
 
 
 def _on_fault(site="?", event="injected", kind=None, **_kw):
@@ -1087,11 +1142,111 @@ def _on_fault(site="?", event="injected", kind=None, **_kw):
         _m["giveups"].inc(site=site)
     elif event == "skipped_step":
         _m["skipped_steps"].inc()
+    elif event == "fallback":
+        _m["dl_fallbacks"].inc(site=site)
+
+
+# MFU accounting.  FLOPs accumulate from COST as programs are dispatched;
+# each trainer step boundary closes the window since the previous one:
+# mfu = window FLOPs / wall / peak.  On the card the wall is the device's:
+# the elapsed time between the timing events recorded at the two
+# boundaries, read once both have completed (``query()``, no host sync),
+# because a replay returns to the host long before the card is done.  On
+# the host (CPU tensors) it is the host's wall between the boundaries.
+_mfu = {"flops": 0.0, "last": None, "pending": deque(), "peak": None}
+_mfu_lock = threading.Lock()
+
+
+def _on_cost(where="?", flops=0.0, **_kw):
+    if flops:
+        _m["flops"].inc(flops, site=where)
+        with _mfu_lock:
+            _mfu["flops"] += flops
+
+
+def _peak() -> float:
+    peak = _mfu["peak"]
+    if peak is None:
+        info = device_peak_flops()
+        peak = _mfu["peak"] = float(info["flops"] or 0.0)
+        if peak:
+            _m["peak_flops"].set(peak, device=info["device"])
+    return peak
+
+
+def _close_window(last, cur, wall):
+    """Close the MFU window from boundary ``last`` to ``cur`` (each a
+    (marker, cumulative FLOPs, steps) triple) over ``wall`` seconds."""
+    n = max(int(cur[2]), 1)
+    dflops = cur[1] - last[1]
+    if wall <= 0:
+        return
+    _m["step_wall"].observe(wall / n)
+    _m["step_flops"].set(dflops / n)
+    peak = _peak()
+    if peak > 0 and dflops > 0:
+        _m["mfu"].set(dflops / wall / peak)
+
+
+def mfu_drain() -> None:
+    """Close every MFU window whose boundary events have completed (never
+    waits).  The trainer boundaries call it; so does :func:`snapshot`."""
+    with _mfu_lock:
+        pending = _mfu["pending"]
+        while pending and pending[0][0].query():
+            cur = pending.popleft()
+            last = _mfu["last"]
+            if last is not None and hasattr(last[0], "elapsed_time"):
+                _close_window(last, cur,
+                              last[0].elapsed_time(cur[0]) / 1e3)
+            _mfu["last"] = cur
+
+
+def _on_trainer(phase="step", seconds=0.0, steps=1, event=None, **_kw):
+    if phase == "step":
+        # steps > 1: a CompiledLoop chunk, k inner steps behind one
+        # boundary; the counters advance by k and the window divides
+        # evenly
+        n = max(int(steps), 1)
+        _m["steps"].inc(n)
+        _m["step_seconds"].observe(seconds / n)
+        if event is not None:
+            with _mfu_lock:
+                _mfu["pending"].append((event, _mfu["flops"], n))
+            mfu_drain()
+            return
+        now = time.perf_counter()
+        with _mfu_lock:
+            cur = (now, _mfu["flops"], n)
+            last, _mfu["last"] = _mfu["last"], cur
+        if last is not None and not hasattr(last[0], "elapsed_time"):
+            _close_window(last, cur, now - last[0])
+    elif phase == "chunk":
+        _m["loop_chunks"].inc()
+        _m["loop_chunk_seconds"].observe(seconds)
+        _m["loop_steps_per_chunk"].set(max(int(steps), 1))
+    else:
+        _m["update_seconds"].observe(seconds)
+
+
+def _on_dataloader(seconds=0.0, **_kw):
+    _m["batches"].inc()
+    _m["fetch_wait"].observe(seconds)
+
+
+def _on_transfer(direction="h2d", nbytes=0, **_kw):
+    _m["h2d" if direction == "h2d" else "d2h"].inc(nbytes)
+
+
+_HANDLERS = ((FAULT, _on_fault), (TRAINER, _on_trainer), (COST, _on_cost),
+             (DATALOADER, _on_dataloader), (TRANSFER, _on_transfer))
 
 
 def start() -> None:
-    """Begin collecting: subscribe the FAULT handler, turn the span
-    tracer on and start the flight recorder.  Idempotent."""
+    """Begin collecting: subscribe the metric handlers (faults, trainer
+    steps and the MFU window, program FLOPs, prefetch and transfers),
+    turn the span tracer on and start the flight recorder.
+    Idempotent."""
     global _started
     if _started:
         return
@@ -1099,7 +1254,8 @@ def start() -> None:
     peak = device_peak_flops()
     if peak["flops"] is not None:
         _m["peak_flops"].set(peak["flops"], device=peak["device"])
-    FAULT.subscribe(_on_fault)
+    for topic, fn in _HANDLERS:
+        topic.subscribe(fn)
     tracer.enable()
     _started = True
     from . import telemetry_ring     # imports this module
@@ -1109,7 +1265,8 @@ def start() -> None:
 def stop() -> None:
     """Detach the collector (metric values are kept; see reset())."""
     global _started
-    FAULT.unsubscribe(_on_fault)
+    for topic, fn in _HANDLERS:
+        topic.unsubscribe(fn)
     if _started:
         tracer.disable()
         from . import telemetry_ring
@@ -1122,12 +1279,14 @@ def enabled() -> bool:
 
 
 def reset() -> None:
-    """Zero all metric values, drop recorded spans, zero the ledger and
-    clear the health ring."""
+    """Zero all metric values, drop recorded spans, zero the ledger, clear
+    the health ring and restart the MFU window."""
     registry.reset()
     tracer.clear()
     reset_dispatch_ledger()
     health_ring.clear()
+    with _mfu_lock:
+        _mfu.update(flops=0.0, last=None, pending=deque(), peak=None)
 
 
 # ---------------------------------------------------------------------------
@@ -1135,7 +1294,9 @@ def reset() -> None:
 # ---------------------------------------------------------------------------
 def snapshot(include_memory: bool = True) -> dict:
     """JSON-ready dict of every metric (device-memory gauges refreshed
-    first)."""
+    first, every completed MFU window closed)."""
+    if _started:
+        mfu_drain()
     if include_memory:
         sample_device_memory()
     out = registry.snapshot()

@@ -360,9 +360,16 @@ def test_remat_gives_the_same_gradients(ref, monkeypatch):
     ({}, "MXNET_ZERO1"),
 ])
 def test_spmd_trainer_refuses_what_is_not_ported(kwargs, env, monkeypatch):
+    """Each option not ported raises by name.  The health plane is ported
+    now: ``MXNET_HEALTH_PLANE=1`` builds a trainer with its monitor."""
     net = Dense(2, 3, device="cpu")
     if env is not None:
         monkeypatch.setenv(env, "1")
+    if env == "MXNET_HEALTH_PLANE":
+        tr = SPMDTrainer(net, tbert.BERTPretrainLoss(2), "adam", {},
+                         mesh=make_mesh({"data": 1}, devices=["cpu"]))
+        assert tr._health is not None and tr._stats is not None
+        return
     with pytest.raises(MXNetError, match="not ported"):
         SPMDTrainer(net, tbert.BERTPretrainLoss(2), "adam", {},
                     mesh=make_mesh({"data": 1}, devices=["cpu"]), **kwargs)

@@ -241,11 +241,54 @@ def test_no_grad_keeps_the_forward_only_route():
 
 
 def test_flash_bwd_xla_switch_is_refused(monkeypatch):
+    """``MXNET_FLASH_BWD=xla`` is no longer refused: it selects the
+    recompute oracle (autograd through the plain attention), whose
+    gradients equal the JAX oracle (``jax.vjp`` of ``_xla_attention``,
+    what the reference's switch runs) and the default backward within
+    ``TOL``, with a key mask, causal."""
+    B, T = 2, 40
+    q, k, v, g, bias, scale = _inputs(21, B, T, masked=True)
+    mask = _t((bias.reshape(B, T) == 0).astype(np.float32))
+    dout = _t(g.reshape(B, H, T, D))
+
+    def grads():
+        xs = [_t(x.reshape(B, H, T, D)).requires_grad_() for x in (q, k, v)]
+        out = tfa.flash_attention(*xs, scale=scale, causal=True, mask=mask)
+        return torch.autograd.grad(out, xs, dout)
+
+    default = grads()
     monkeypatch.setenv("MXNET_FLASH_BWD", "xla")
-    q = torch.randn(1, 2, 8, 16, requires_grad=True)
-    out = tfa.flash_attention(q, q, q)
-    with pytest.raises(MXNetError, match="not ported"):
-        out.sum().backward()
+    got = grads()
+    want = _xla_bwd(q, k, v, g, bias, scale, True)
+    for a, b, c in zip(got, want, default):
+        _close(a.reshape(B * H, T, D), b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), **TOL)
+
+
+def test_flash_bwd_xla_switch_covers_the_lse_entry(monkeypatch):
+    """The same switch for ``flash_attention_lse``: the gradients of
+    sum(out * dO) + sum(lse * g_lse) through the recompute oracle equal
+    the JAX ``_flash_lse`` under ``MXNET_FLASH_BWD=xla`` (its recompute
+    oracle; the forward is Pallas in interpret mode) within ``TOL``, and
+    a key bias that needs a gradient gets the oracle's (B, 1, T)
+    cotangent."""
+    jfa, jax, jnp = _jax()
+    B, T = 2, 48
+    q, k, v, g, bias, scale = _inputs(23, B, T, masked=True)
+    g_lse = np.random.RandomState(24).randn(B * H, T).astype(np.float32)
+    monkeypatch.setenv("MXNET_FLASH_BWD", "xla")
+
+    def run(a, b, c, bb, dout, dlse):
+        _, vjp = jax.vjp(lambda x, y, z, w: jfa._flash_lse(
+            x, y, z, w, scale, False, True, H), a, b, c, bb)
+        return vjp((dout, dlse))
+    want = jax.jit(run)(*(jnp.asarray(x)
+                          for x in (q, k, v, bias, g, g_lse)))
+    flat = [_t(x).requires_grad_() for x in (q, k, v, bias)]
+    out, lse = tfa._FlashAttention.apply(*flat, scale, False, H)
+    got = torch.autograd.grad((out, lse), flat, (_t(g), _t(g_lse)))
+    for a, b in zip(got, want):
+        _close(a, b)
 
 
 def test_bwd_wrapper_refuses_cpu_tensors():

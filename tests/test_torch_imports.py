@@ -3,7 +3,8 @@
 ``jax`` nor the JAX package, ``chip_smoke.py`` imports neither, and an
 entry point called without ``device`` on a host without a GPU raises
 instead of running on the CPU (the serving models, BERT, the one-device
-mesh and the one-shot engine).  The fleet's control plane (``serving.router``,
+mesh, the one-shot engine, the device prefetcher and the compiled
+loop).  The fleet's control plane (``serving.router``,
 ``serving.supervisor``) imports and builds its objects without touching
 CUDA: no call reaches ``torch.cuda``'s lazy initialisation."""
 import ast
@@ -30,11 +31,17 @@ from incubator_mxnet_tpu_torch.models.bert import bert_tiny
 from incubator_mxnet_tpu_torch.parallel import make_mesh
 from incubator_mxnet_tpu_torch import default_device
 from incubator_mxnet_tpu_torch.serving import InferenceEngine
+from incubator_mxnet_tpu_torch.io import DevicePrefetcher
+from incubator_mxnet_tpu_torch.parallel.loop import CompiledLoop
 raised = []
 for fn in (default_device, lambda: gpt_tiny(dropout=0.0),
            lambda: bert_tiny(dropout=0.0), lambda: make_mesh({"data": 1}),
            lambda: InferenceEngine(lambda *a: a[0], ("data",),
-                                   lambda: ((), ()), buckets=(1,))):
+                                   lambda: ((), ()), buckets=(1,)),
+           lambda: DevicePrefetcher([]),
+           lambda: CompiledLoop(bert_tiny(dropout=0.0, device="cpu"),
+                                lambda *a: a[0], "sgd",
+                                mesh=make_mesh({"data": 1}))):
     try:
         fn()
         raised.append(False)
@@ -65,7 +72,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
                 "serving.router", "serving.supervisor", "serving.batcher",
                 "cuda_graphs", "lr_scheduler", "checkpoint", "random",
                 "ndarray.optimizer_ops", "optimizer.optimizer",
-                "optimizer.fused"):
+                "optimizer.fused", "parallel.loop", "io", "io.prefetch"):
         assert "incubator_mxnet_tpu_torch." + mod in probe["modules"]
     bad = [m for m in probe["loaded"]
            if m.split(".")[0] in FORBIDDEN]
@@ -73,7 +80,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(probe):
 
 
 def test_entry_points_without_device_raise_on_a_cpu_only_host(probe):
-    assert probe["raised"] == [True, True, True, True, True]
+    assert probe["raised"] == [True] * 7
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -328,8 +328,9 @@ def test_cuda_decode_kernels_match_plain(D):
     torch.cuda.synchronize()
     # one loop over two address computations: bitwise equal on the card
     np.testing.assert_array_equal(dense.cpu().numpy(), got.cpu().numpy())
-    assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 1,
-                                 "decode": 1, "paged_verify": 0,
+    # two launches per call: the split and the merge
+    assert tfa.launch_counts == {"flash_fwd": 0, "paged_decode": 2,
+                                 "decode": 2, "paged_verify": 0,
                                  "verify": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "multi_tensor_adam": 0,
                                  "all_finite": 0, "multi_tensor_update": 0,
@@ -536,7 +537,7 @@ def test_cuda_decode_split_edges(bs, D, case):
         tfa.decode_attention(_t(q), _t(kd), _t(vd), _t(pos)).numpy(),
         **CUDA_TOL)
     assert (tfa.launch_counts["paged_decode"],
-            tfa.launch_counts["decode"]) == (1, 1)
+            tfa.launch_counts["decode"]) == (2, 2)
 
 
 @pytest.mark.cuda
@@ -552,8 +553,8 @@ def test_cuda_verify_split_edges(bs, D, Q, case):
     short cache (``short``).  K4 == K5 bit for bit where the dense cache
     is the paged one viewed densely: longer (stale rows past max_len; the
     rows whose head stays inside max_len) or cut after the last live key
-    (every row).  Row j equals K2 at positions[s] + j bit for bit.  One
-    launch-counter tick per call."""
+    (every row).  Row j equals K2 at positions[s] + j bit for bit.  Two
+    launch-counter ticks per call: the split and the merge."""
     _need_cuda()
     H, max_len = 4, 1024
     MB = max_len // bs
@@ -569,7 +570,7 @@ def test_cuda_verify_split_edges(bs, D, Q, case):
     tfa.reset_launch_counts()
     got = tfa.paged_verify_decode_attention(*cu)
     torch.cuda.synchronize()
-    assert tfa.launch_counts["paged_verify"] == 1
+    assert tfa.launch_counts["paged_verify"] == 2
     want = tfa.paged_verify_decode_attention(*(_t(a) for a in (q, kp, vp,
                                                                tables, pos)))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **CUDA_TOL)
@@ -589,7 +590,7 @@ def test_cuda_verify_split_edges(bs, D, Q, case):
     dense = tfa.verify_decode_attention(cu[0], _t(kd).cuda(), _t(vd).cuda(),
                                         cu[4])
     torch.cuda.synchronize()
-    assert tfa.launch_counts["verify"] == 1
+    assert tfa.launch_counts["verify"] == 2
     np.testing.assert_array_equal(
         dense.cpu().numpy().transpose(0, 2, 1, 3)[inside],
         got.cpu().numpy().transpose(0, 2, 1, 3)[inside])
@@ -605,4 +606,4 @@ def test_cuda_verify_split_edges(bs, D, Q, case):
                                       got[:, :, j].cpu().numpy())
     assert {n: tfa.launch_counts[n] for n in ("paged_verify", "verify",
                                               "paged_decode")} \
-        == {"paged_verify": 1, "verify": 1, "paged_decode": Q}
+        == {"paged_verify": 2, "verify": 2, "paged_decode": 2 * Q}
