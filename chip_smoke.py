@@ -13,6 +13,8 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --lamb     # BERT-large pretraining with LAMB only
     python3 chip_smoke.py --loop     # the compiled loop on the main path only
     python3 chip_smoke.py --resume   # the Gluon loop's checkpoint/resume only
+    python3 chip_smoke.py --half     # the 16-bit kernel instances only
+    python3 chip_smoke.py --half-paths  # the 16-bit paths only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -60,6 +62,20 @@ Phases, each of which raises (exit code 1) on any failure:
    bit-equal, stages and bounds off and on; timed against its bound (28
    bytes per parameter; this design moves 40); no PyTorch call computes
    LAMB;
+3b. 16-bit instances: K1 (with lse, and with the key bias), K6 and K7
+   at bf16 and fp16 at each 16-bit path's attention shape (bench16,
+   gluon16, oneshot16) against their plain versions on the same inputs,
+   within ``ULP_TOL`` ulp of the output dtype and with at most
+   ``DIFF_SHARE`` of the elements different at all (lse and the key-bias
+   rows within ``KERNEL_TOL``), beside a control that rounds P and dS to
+   the dtype before their products; K8's and K9's 16-bit, promoting (bf16;
+   the fp16 one refused by name) and ``multi_precision`` instances of
+   every rule they have, and the step after the promoting one, against
+   their plain loops bit for bit (gradient stages off and on), and the
+   all-finite kernel on 16-bit gradients; each timed beside its bound
+   (2 bytes per 16-bit element; the function's products at the inputs'
+   989 TFLOP/s) and PyTorch's call at the same dtype (SDPA and its flash
+   backward, the fused optimizers);
 4. path: ``gpt2_124m`` at full width with random ``Normal(0.02)`` weights
    from a seed, served by the default paged ``GenerationEngine`` behind a
    ``ContinuousBatcher``: 8 staggered requests, two sharing a 64-token
@@ -244,8 +260,28 @@ Phases, each of which raises (exit code 1) on any failure:
    leaves (copies of the weights, gradients and momenta after step 2),
    one call per (lr, wd) group as the trainer makes them, bit for bit.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``."""
+12. bench16, the main path ("bench16:" lines): ``bench.py``'s
+   ``_bench_bert`` as it runs: BERT-large with both heads, seed 0,
+   ``net.cast("bfloat16")``, ``SPMDTrainer`` Adam lr 1e-4, B = 32, T =
+   128, 3 warm-up steps and 5 timed, in one launch-count window (step 1
+   launches K1, K6, K7's bf16 instances 24 times and K8's promoting one
+   once; steps 2 on the fp32 kernels); the dtype census after steps 1
+   and 2 equals the reference's; step 1's wall, ms per step, samples/s,
+   one profiled step (at most 8 host launches);
+13. gluon16 ("gluon16:" lines): phase 7's loop cast to bf16, then to
+   fp16 with ``multi_precision=True``: 3 fused steps equal 3
+   ``fused=False`` steps bit for bit (losses, weights, states, masters),
+   5 timed steps in a window (K1, K6, K7's instances 12 a step, K8's
+   16-bit or master instance once), ms and tokens/s, peak bytes, the
+   masters' dtype;
+14. oneshot16 ("oneshot16:" line): phase 8's encoder cast to bf16 behind
+   ``InferenceEngine`` (bucket 32): a 32-row predict's wall and its
+   answers against an fp32 engine over the same weights within
+   ``ONESHOT16_TOL``; K1's bf16 instance 24 times.
+
+The line before the last is ``{"kernels": [...]}`` (16-bit instances as
+"<kernel>.<instance>" rows); the last line is ``{"ok": true, "device":
+{...}}``."""
 import argparse
 import copy
 import faulthandler
@@ -769,7 +805,8 @@ def check_k6_k7(fa, dev, rng):
         sets.append((q, k, v, g, lse, fa._bwd_dd(out, g)))
     outs = [torch.empty(BH, T, D, device=dev) for _ in range(2)]
     dbs = torch.empty(BH, T, device=dev, dtype=f32)
-    args = (BH, H, T, D, float(scale), 0)
+    args = (BH, H, T, D, float(scale), 0, 0)      # dense, fp32
+
     def k6_call(q, k, v, g, lse, dd):
         fa._launch("flash_bwd_dq", q, k, v, None, g, lse, dd, outs[0], *args)
 
@@ -1222,6 +1259,562 @@ def check_k10(fa, dev):
             "eager_ms": k_eager,
             "shape": f"BERT-large + heads, {len(shapes)} leaves, {n} "
                      "parameters"}
+
+
+# ------------------------------------------------------------ phase 3b
+# the 16-bit instances: K1, K6, K7 and all-finite per element type, K8's
+# and K9's body per element type and mode (kernels/csrc/*.cu)
+HALF_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+HALF_FLOP_PER_S = 989e12   # dense bf16/fp16 tensor-core peak (data sheet)
+ULP_TOL = 1.0           # 16-bit K1/K6/K7 against their plain versions: at
+                        # most 1 ulp of the output dtype apart ...
+ULP_FLOOR = 2.0 ** -8   # ... measured at max(|x|, 2^-8 of the tensor's
+                        # largest): the fp32 arithmetic inside differs by
+                        # ~1e-6 of the largest value, which is below a
+                        # 16-bit ulp there, and an output near zero is held
+                        # at that floor's ulp
+DIFF_SHARE = {torch.bfloat16: 1e-2, torch.float16: 5e-2}
+                        # ... and at most this share of the elements differs
+                        # at all: an fp32 result inside rounds differently
+                        # from the plain one only where it sits on a
+                        # rounding boundary (fp16's 3 more mantissa bits put
+                        # 8x more results near one; at most 0.19 % and 1.05
+                        # % measured); a kernel that ran P V or the dS
+                        # products in 16 bits differs in ~40 % (half_control,
+                        # printed beside it)
+
+
+def ulp_err(got, want):
+    """The largest distance of ``got`` from ``want`` (one 16-bit dtype)
+    in ulps of that dtype at max(|want|, ULP_FLOOR x its largest)."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    big = float(w.abs().max())
+    mag = w.abs().clamp(min=max(ULP_FLOOR * big, 2.0 ** -24))
+    mant = 7 if want.dtype == torch.bfloat16 else 10
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+    if want.dtype == torch.float16:
+        ulp = ulp.clamp(min=2.0 ** -24)    # fp16's subnormal spacing
+    return float(((g - w).abs() / ulp).max())
+
+
+def diff_share(got, want):
+    """The share of the elements of ``got`` not equal to ``want``'s."""
+    return float((got != want).float().mean())
+
+
+def check_ulps(what, got, want):
+    """``got`` within ``ULP_TOL`` ulps of the plain ``want``, and at most
+    ``DIFF_SHARE`` of its elements different at all.  Returns (ulps,
+    share)."""
+    check(got.dtype == want.dtype, f"{what}: {got.dtype} != {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    e, share = ulp_err(got, want), diff_share(got, want)
+    check(e <= ULP_TOL, f"{what}: {e:.2f} ulps from the plain version "
+          f"(tolerance {ULP_TOL} at the floor {ULP_FLOOR} of the largest)")
+    lim = DIFF_SHARE[want.dtype]
+    check(share <= lim, f"{what}: {share:.3%} of the elements differ from "
+          f"the plain version (at most {lim:.0%})")
+    return e, share
+
+
+def half_control(fa, q, k, v, g, bias, lse, dd, scale, causal, H):
+    """What a K1/K6/K7 that ran P V and the dS products in 16 bits would
+    give: the plain versions with P and dS rounded to the inputs' dtype
+    before those products (a control for ``DIFF_SHARE``, not a kernel).
+    Returns (o, dq, dk, dv); the gradients None without ``g``."""
+    dt = q.dtype
+    s = fa._plain_scores(q, k, scale, causal, fa._per_head(bias, H))
+    p16 = torch.softmax(s, dim=-1).to(dt).float()
+    o = torch.einsum("bqk,bkd->bqd", p16, v.float()).to(dt)
+    if g is None:
+        return o, None, None, None
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", g.float(), v.float())
+    ds = (p * (dp - dd[..., None])).to(dt).float()
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), g.float())
+    return o, dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def same_bits(x, y):
+    """Equal element for element, NaN where the other is NaN (an fp16
+    Adam step whose epsilon rounds to 0 may divide 0 by 0 in both)."""
+    return x.dtype == y.dtype and x.shape == y.shape and bool(
+        ((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def half_bounds(nbytes, flops):
+    """The bound of a 16-bit K1/K6/K7 instance: the function's product
+    FLOPs at the card's dense peak for its inputs' type (bf16/fp16, 989
+    TFLOP/s), whatever precision the kernel keeps inside, and its bytes
+    (2 per 16-bit element, 4 per fp32 one) at 3.35 TB/s."""
+    return bound_ms(nbytes, flops, HALF_FLOP_PER_S)
+
+
+def library_bwd_half(q, k, v, g, causal, scale):
+    """PyTorch's one backward call at a 16-bit dtype for K6 and K7's
+    function: the flash-attention backward SDPA takes for bf16/fp16
+    (efficient attention's where the flash op is missing), on its own
+    forward's saved out and logsumexp, timed as the kernels are.
+    Returns (ms, what)."""
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention
+        bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        res = fwd(q, k, v, 0.0, causal, False, scale=scale)
+        o, lse, cq, ck, mq, mk, seed, off = res[:8]
+
+        def call():
+            return bwd(g, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal,
+                       seed, off, scale=scale)
+        call()
+        what = "aten._scaled_dot_product_flash_attention_backward"
+    except (RuntimeError, TypeError) as e:
+        print(f"library: the flash backward refused ({e}); efficient "
+              f"attention's instead", flush=True)
+        fwd = torch.ops.aten._scaled_dot_product_efficient_attention
+        bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+        o, lse, seed, off = fwd(q, k, v, None, True, 0.0, causal,
+                                scale=scale)
+
+        def call():
+            return bwd(g, q, k, v, None, o, lse, seed, off, 0.0,
+                       [True, True, True, False], causal, scale=scale)
+        call()
+        what = "aten._scaled_dot_product_efficient_attention_backward"
+    return device_ms(call, [()], 20), what
+
+
+# the attention shapes of the 16-bit paths: (path, B, H, T, causal, key
+# bias, backward)
+HALF_ATTN = (("bench16", TRAIN_B, BERT_HEADS, TRAIN_T, False, False, True),
+             ("gluon16", GLUON_B, HEADS, GLUON_T, True, False, True),
+             ("oneshot16", TRAIN_B, BERT_HEADS, TRAIN_T, False, True, False))
+
+
+def check_half_attention(fa, dev, rng):
+    """K1 (with lse, and with the key bias), K6 and K7 at bf16 and fp16
+    against their plain versions on the same 16-bit inputs at each 16-bit
+    path's attention shape (``HALF_ATTN``): o, dq, dk, dv within
+    ``ULP_TOL`` ulps of the output dtype, lse and the key-bias rows
+    (fp32) within ``KERNEL_TOL``; K6 and K7 get the kernel forward's own
+    lse and dd, so both backwards see the same inputs.  Each instance is
+    timed at each shape (a replayed graph) beside its bound, the plain
+    version (eager) and SDPA and its backward at the same dtype.  Returns
+    one row per instance (the kernel line's), keyed like the launch
+    counts ("<kernel>.<dtype>")."""
+    D = HEAD_DIM
+    scale = 1.0 / math.sqrt(D)
+    rows = {}
+    for tag, dt in HALF_DTYPES.items():
+        for path, B, H, T, causal, masked, bwd in HALF_ATTN:
+            def rand():
+                return torch.from_numpy(rng.randn(B * H, T, D).astype(
+                    np.float32)).to(dev).to(dt)
+            q, k, v, g = rand(), rand(), rand(), rand()
+            bias = None
+            if masked:
+                m = np.ones((B, T), np.float32)
+                for b in range(B):
+                    m[b, rng.randint(1, T + 1):] = 0.0
+                m[1] = 0.0                  # one row masked everywhere
+                bias = fa._key_bias(torch.from_numpy(m).to(dev), B, T, dev)
+            out, lse = fa._flash_fwd_cuda(q, k, v, bias, scale, causal, H,
+                                          with_lse=True)
+            pout, plse = fa._plain_attention_lse(q, k, v, scale, causal,
+                                                 fa._per_head(bias, H))
+            eo, so = check_ulps(f"K1 {tag} {path} out", out, pout)
+            el = check_close(f"K1 {tag} {path} lse", lse, plse)
+            if masked:    # the one-shot path's call: no lse
+                e2, s2 = check_ulps(
+                    f"K1 {tag} {path} out (no lse)",
+                    fa._flash_fwd_cuda(q, k, v, bias, scale, causal, H),
+                    pout)
+                eo, so = max(eo, e2), max(so, s2)
+            msg = (f"K1.{tag} {path} B={B} H={H} T={T} D={D} "
+                   f"causal={causal} bias={masked}: out {eo:.2f} ulps, "
+                   f"{so:.4%} of it differs, lse {el:.3e}")
+            e6 = e7 = s6 = s7 = 0.0
+            dd = fa._bwd_dd(out, g) if bwd else None
+            ctl = half_control(fa, q, k, v, g if bwd else None, bias, lse,
+                               dd, scale, causal, H)
+            ctl_msg = (f"control (P and dS rounded to {tag} before their "
+                       f"products): out {ulp_err(ctl[0], pout):.2f} ulps, "
+                       f"{diff_share(ctl[0], pout):.4%} differs")
+            if bwd:
+                dq, dk, dv, dbs = fa._flash_bwd_cuda(q, k, v, bias, g, lse,
+                                                     dd, scale, causal, H)
+                pdq, pdk, pdv, pdbs = fa._plain_flash_bwd_dd(
+                    q, k, v, bias, g, lse, dd, scale, causal, H)
+                e6, s6 = check_ulps(f"K6 {tag} {path} dq", dq, pdq)
+                (ek, sk), (ev, sv) = (
+                    check_ulps(f"K7 {tag} {path} dk", dk, pdk),
+                    check_ulps(f"K7 {tag} {path} dv", dv, pdv))
+                e7, s7 = max(ek, ev), max(sk, sv)
+                eb = check_close(f"K7 {tag} {path} dbias rows", dbs, pdbs)
+                msg += (f"; dq {e6:.2f} ulps, {s6:.4%} differs; dk/dv "
+                        f"{e7:.2f} ulps, {s7:.4%} differs; key-bias rows "
+                        f"{eb:.3e}")
+                ctl_msg += "; " + ", ".join(
+                    f"{n} {ulp_err(c, w):.2f} ulps, {diff_share(c, w):.4%} "
+                    f"differs" for n, c, w in (("dq", ctl[1], pdq),
+                                               ("dk", ctl[2], pdk),
+                                               ("dv", ctl[3], pdv)))
+            del ctl
+            print(msg + f" (tolerance {ULP_TOL} ulp at the {ULP_FLOOR} "
+                  f"floor and {DIFF_SHARE[dt]:.0%} of the elements; "
+                  f"{KERNEL_TOL} fp32) [{CARD}]", flush=True)
+            print(f"K1/K6/K7.{tag} {path}: {ctl_msg}", flush=True)
+
+            # timing: 4 rotating input sets at this shape
+            sets = [(rand(), rand(), rand(), rand()) for _ in range(4)]
+            n, pairs = B * H * T, B * H * (T * (T + 1) // 2 if causal
+                                           else T * T)
+            k1 = device_ms(lambda q, k, v, g: fa._flash_fwd_cuda(
+                q, k, v, bias, scale, causal, H, with_lse=not masked),
+                sets, 20)
+            p1 = time_ms(lambda q, k, v, g: fa._plain_attention_lse(
+                q, k, v, scale, causal, fa._per_head(bias, H)), sets, 3)
+            shaped = [tuple(x.reshape(B, H, T, D) for x in st[:3])
+                      for st in sets]
+            amask = None if bias is None else \
+                bias.reshape(B, 1, 1, T).to(dt)
+            l1 = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=amask, is_causal=causal, scale=scale),
+                shaped, 20)
+            # K1: bytes q, k, v, o (2 bytes) + lse (4); two products (S,
+            # P V) of 2 D FLOP per pair: 4 D per pair
+            b1, by1 = half_bounds(8 * n * D + (0 if masked else 4 * n),
+                                  4 * D * pairs)
+            key = f"flash_fwd.{tag}"
+            row = rows.setdefault(key, {
+                "name": key, "source": SOURCES + "flash_fwd.cu",
+                "replaces": TPU_KERNELS + "68", "max_abs_err": 0.0,
+                "ulps": 0.0, "shapes": {}})
+            row["ulps"] = max(row["ulps"], eo)
+            row["diff_share"] = max(row.get("diff_share", 0.0), so)
+            row["max_abs_err"] = max(row["max_abs_err"], el)
+            row["shapes"][path] = {"ms": k1, "plain_ms": p1, "bound_ms": b1,
+                                   "bound_by": by1, "library_ms": l1}
+            print(f"time: K1.{tag} at {path}'s shape: {k1:.4f} ms on the "
+                  f"card, bound {b1:.4f} ms by {by1}, plain {p1:.4f} ms, "
+                  f"SDPA ({tag}{', float mask' if masked else ''}) "
+                  f"{l1:.4f} ms [{CARD}]", flush=True)
+            if bwd:
+                fw = [fa._flash_fwd_cuda(q, k, v, None, scale, causal, H,
+                                         with_lse=True) for q, k, v, _ in sets]
+                bsets = [(q, k, v, g, lse, fa._bwd_dd(o, g))
+                         for (q, k, v, g), (o, lse) in zip(sets, fw)]
+                code = fa.DTYPE_CODES[dt]
+                o1, o2 = torch.empty_like(q), torch.empty_like(q)
+                dbs = torch.empty(B * H, T, device=dev)
+                args = (B * H, H, T, D, float(scale), int(causal), code)
+                k6 = device_ms(lambda q, k, v, g, lse, dd: fa._launch(
+                    "flash_bwd_dq", q, k, v, None, g, lse, dd, o1, *args,
+                    instance=tag), bsets, 20)
+                k7 = device_ms(lambda q, k, v, g, lse, dd: fa._launch(
+                    "flash_bwd_dkv", q, k, v, None, g, lse, dd, o1, o2, dbs,
+                    *args, instance=tag), bsets, 20)
+                pb = time_ms(
+                    lambda q, k, v, g, lse, dd: fa._plain_flash_bwd_dd(
+                        q, k, v, None, g, lse, dd, scale, causal, H),
+                    bsets, 3)
+                qs, ks, vs, gs = (x.reshape(B, H, T, D) for x in sets[0])
+                lb, lwhat = library_bwd_half(qs, ks, vs, gs, causal, scale)
+                # K6: q, k, v, dO, dQ (2 bytes) + lse, dd; products S, dP,
+                # dS K: 3 x 2 D per pair.  K7: q, k, v, dO, dK, dV + lse,
+                # dd, dbs; products S, dP, P^T dO, dS^T Q: 4 x 2 D per pair
+                b6, by6 = half_bounds(10 * n * D + 8 * n, 6 * D * pairs)
+                b7, by7 = half_bounds(12 * n * D + 12 * n, 8 * D * pairs)
+                for name, ms, bnd, by, err, share in (
+                        ("flash_bwd_dq", k6, b6, by6, e6, s6),
+                        ("flash_bwd_dkv", k7, b7, by7, e7, s7)):
+                    key = f"{name}.{tag}"
+                    row = rows.setdefault(key, {
+                        "name": key, "source": SOURCES + name + ".cu",
+                        "replaces": TPU_KERNELS + (
+                            "184" if name == "flash_bwd_dq" else "227"),
+                        "max_abs_err": 0.0, "ulps": 0.0, "shapes": {}})
+                    row["ulps"] = max(row["ulps"], err)
+                    row["diff_share"] = max(row.get("diff_share", 0.0),
+                                            share)
+                    row["shapes"][path] = {
+                        "ms": ms, "plain_ms": pb, "bound_ms": bnd,
+                        "bound_by": by, "library_ms": lb}
+                print(f"time: K6.{tag} + K7.{tag} at {path}'s shape: "
+                      f"{k6:.4f} + {k7:.4f} ms on the card, bounds {b6:.4f} "
+                      f"ms by {by6} and {b7:.4f} ms by {by7}, plain (dq, dk, "
+                      f"dv) {pb:.4f} ms, library {lb:.4f} ms ({lwhat}, {tag}"
+                      f"; dq, dk and dv in one call) [{CARD}]", flush=True)
+                del fw, bsets
+            del sets, q, k, v, g, out, lse, pout, plse
+            torch.cuda.empty_cache()
+    # each row's headline figures: the main path's shape (bench16; K1's
+    # key-bias call is the one-shot row's shape)
+    for r in rows.values():
+        first = r["shapes"].get("bench16") or next(iter(r["shapes"].values()))
+        r.update(first)
+        r["eager_ms"] = None
+        r["shape"] = "bench16 B=32 H=16 T=128 D=64 dense" \
+            if "bench16" in r["shapes"] else next(iter(r["shapes"]))
+    return list(rows.values())
+
+
+def gpt2_shapes():
+    """The 196 leaf shapes of ``gpt2_124m`` (the Gluon loop's net)."""
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+    net = gpt_mod.gpt2_124m(dropout=0.0)
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+# the whole-tree rules at 16 bits: (rule, K8 or K9, state slots, FLOP per
+# parameter); the stored bytes per parameter follow from the mode
+HALF_RULES = [("adam", "multi_tensor_adam", 2, 15)] + \
+    [(r, "multi_tensor_update", s, f) for r, s, _, f, _ in K9_RULES]
+
+
+def half_update_bytes(mode, slots):
+    """Bytes per parameter an instance must move: the 16-bit one reads w,
+    g and the slots and writes w and the slots, 2 bytes each; the
+    promoting one (16-bit w, g, slots) writes fp32 weights; the
+    multi_precision one reads the fp32 master and slots and the fp16
+    gradient, and writes the master, the slots and the fp16 weights."""
+    if mode == "plain":
+        return 2 * (2 + slots) + 2 * (1 + slots)
+    if mode == "promote":
+        return 2 * (2 + slots) + 2 * slots + 4
+    return (4 + 2 + 4 * slots) + (4 + 4 * slots + 2)
+
+
+def half_library(rule, ws, gs, lr):
+    """The PyTorch call for ``rule`` over the same 16-bit (or fp32) leaves
+    (``k9_library``'s, Adam's for adam); a yardstick only."""
+    if rule != "adam":
+        return k9_library(rule, ws, gs, lr)
+    ps = [torch.nn.Parameter(x.clone()) for x in ws]
+    for p, g in zip(ps, gs):
+        p.grad = g
+    opt = torch.optim.Adam(ps, lr=lr, fused=True, capturable=True)
+    return opt.step, "graph", "torch.optim.Adam(fused=True, capturable=True)"
+
+
+def check_half_updates(fa, dev):
+    """K8's and K9's 16-bit instances against their plain versions (the
+    per-leaf ``cores`` loop with JAX's typing), bit for bit, stages off
+    and on: every rule at bf16 and fp16 and with fp16 masters
+    (multi_precision) over ``gpt2_124m``'s 196 leaf shapes (the Gluon
+    loop's), the promoting instance (adam, adamw) at bf16 over BERT-large's
+    399 (the train step's first step of a bf16 net) and the step after it
+    (the fp32 instance over the bf16 moments read as fp32, the decay
+    constants rounded to bf16), and the refusal of a promoting step over
+    fp16 leaves; then all-finite on 16-bit gradients (NaN, +Inf, -Inf).
+    Each instance timed at its path's leaves (adam; K9's rules at bf16)
+    beside its bound and PyTorch's call at the same dtype.  Returns the
+    rows."""
+    from incubator_mxnet_tpu_torch.base import MXNetError
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    from incubator_mxnet_tpu_torch.parallel import optim as fopt
+    sets = {"gpt2": gpt2_shapes(), "bert": bert_large_shapes()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hp = torch.tensor([1e-3, 0.271, 0.00299], device=dev)
+    lr_t = fopt.bias_corrected_lr(1e-4, 0.9, 0.999, torch.tensor(
+        3, dtype=torch.int32, device=dev))
+    rows, err = {}, 0.0
+
+    def leaves(shapes, scale, dt, positive=False):
+        out = [(torch.randn(s, device=dev, generator=gen) * scale) for s in
+               shapes]
+        return [(x.abs() if positive else x).to(dt) for x in out]
+
+    def call(rule, kernel, mode, w, g, st, masters, stages, plain):
+        kw = dict(promote=mode == "promote", masters=masters)
+        if mode == "follow":
+            kw["moments_dtype"] = torch.bfloat16
+        if kernel == "multi_tensor_adam":
+            f = fused._plain_adam_update if plain else fused.adam_update
+            return f(w, g, st[0], st[1], lr_t, 0.9, 0.999, 1e-8, *stages,
+                     **({"nonfinite": None} if plain else {}), **kw)
+        f = fused._plain_update if plain else fused.multi_tensor_update
+        if plain:
+            return f(rule, w, g, st, hp, K9_CONSTS["momentum"],
+                     K9_CONSTS["beta1"], K9_CONSTS["beta2"],
+                     K9_CONSTS["gamma1"], K9_CONSTS["epsilon"], *stages,
+                     None, **kw)
+        return f(rule, w, g, st, hp, *_k9_args(stages), **kw)
+
+    cases = [(mode, tag, dt, rule, kernel, slots, flops)
+             for mode, tags in (("plain", ("bf16", "fp16")),
+                                ("master", ("fp16",)),
+                                ("promote", ("bf16", "fp16")),
+                                ("follow", ("bf16",)))
+             for tag in tags
+             for rule, kernel, slots, flops in HALF_RULES
+             if mode in ("plain", "master") or rule in ("adam", "adamw")
+             for dt in (HALF_DTYPES[tag],)]
+    for mode, tag, dt, rule, kernel, slots, flops in cases:
+        shapes = sets["bert" if mode in ("promote", "follow") else "gpt2"]
+        wdt = torch.float32 if mode == "master" else dt
+        sdt = torch.float32 if mode == "master" else dt
+        if mode == "promote" and tag == "fp16":
+            # refused by name, kernel and plain version alike
+            w = [torch.zeros(s, device=dev, dtype=dt) for s in shapes[:2]]
+            for plain in (False, True):
+                try:
+                    call(rule, kernel, mode, w, [x.clone() for x in w],
+                         [[x.clone() for x in w] for _ in range(2)], None,
+                         (1.0, None, 0.0), plain)
+                    check(False, f"{kernel} {rule}: a promoting step over "
+                          f"fp16 leaves ran (plain={plain})")
+                except MXNetError as e:
+                    check("float16 net" in str(e), f"{kernel} {rule}: {e}")
+            print(f"{kernel} {rule}: the promoting step over fp16 leaves "
+                  f"is refused by name, kernel and plain version",
+                  flush=True)
+            continue
+        if mode == "follow":       # fp32 values and gradients, bf16 state
+            wdt, sdt = torch.float32, torch.float32
+        w0 = leaves(shapes, 0.02, torch.float32)
+        g = leaves(shapes, 1e-3, wdt if mode == "follow" else dt)
+        signed = leaves(shapes, 1e-4, dt if mode == "follow" else sdt)
+        squares = leaves(shapes, 1e-3, dt if mode == "follow" else sdt,
+                         positive=True)
+        squares = [x * x for x in squares]
+        if mode == "follow":      # bf16 moments, read as fp32
+            signed, squares = ([x.float() for x in xs]
+                               for xs in (signed, squares))
+        st0 = {"sgd": [], "adamw": [signed, squares],
+               "adam": [signed, squares], "rmsprop": [squares],
+               "adagrad": [squares]}.get(rule, [signed])
+        inst = f"{mode}_{tag}" if mode != "plain" else tag
+        for stages in ((1.0, None, 0.0), (0.25, 0.004, 0.02)):
+            outs = []
+            for plain in (False, True):
+                w = [x.to(dt if mode == "master" else wdt, copy=True)
+                     for x in w0]
+                masters = [x.clone() for x in w0] if mode == "master" \
+                    else None
+                st = [[x.clone() for x in s] for s in st0]
+                new = call(rule, kernel, mode, w, [x.clone() for x in g], st,
+                           masters, stages, plain)
+                outs.append((new, st, masters))
+            torch.cuda.synchronize()
+            (nk, sk, mk), (np_, sp, mp) = outs
+            pairs = [("w", nk, np_)] + [(f"slot {j}", a, b) for j, (a, b)
+                                        in enumerate(zip(sk, sp))]
+            if mk is not None:
+                pairs.append(("master", mk, mp))
+            for what, a, b in pairs:
+                for i, (x, y) in enumerate(zip(a, b)):
+                    check(x.dtype == y.dtype, f"{kernel}.{inst} {rule} "
+                          f"{what} {i}: {x.dtype} != {y.dtype}")
+                    check(same_bits(x, y), f"{kernel}.{inst} {rule}: "
+                          f"{what} of leaf {i} {tuple(x.shape)} differs "
+                          f"from the plain version (stages {stages})")
+            if mode in ("promote", "follow"):
+                check(all(x.dtype == torch.float32 for x in nk),
+                      f"{kernel}.{inst}: the new weights are not fp32")
+            del outs, nk, sk, mk, np_, sp, mp, pairs
+        print(f"{kernel}.{inst} {rule} over {len(shapes)} leaves: bit for "
+              f"bit the plain version, stages off and on", flush=True)
+        if mode == "follow":      # the fp32 instance, timed in phase 3
+            del w0, g, signed, squares, st0
+            continue
+        key = f"{kernel}.{inst}"
+        row = rows.setdefault(key, {
+            "name": key, "source": SOURCES + kernel + ".cu",
+            "replaces": "incubator_mxnet_tpu/parallel/optim.py:124"
+            if kernel == "multi_tensor_adam" else
+            "incubator_mxnet_tpu/optimizer/fused.py:636",
+            "max_abs_err": 0.0, "instances": {}})
+        timed = (rule == "adam" or (mode == "plain" and tag == "bf16")
+                 or rule in ("sgd_mom", "adamw"))
+        if timed:
+            n = sum(math.prod(s) for s in shapes)
+            w = [x.to(dt if mode == "master" else wdt, copy=True)
+                 for x in w0]
+            masters = [x.clone() for x in w0] if mode == "master" else None
+            st = [[x.clone() for x in s] for s in st0]
+
+            def kern(rule=rule, kernel=kernel, mode=mode, w=w, st=st,
+                     masters=masters):
+                call(rule, kernel, mode, w, g, st, masters,
+                     (1.0, None, 0.0), False)
+            ms = device_ms(kern, [()], 20)
+            pms = time_ms(lambda: call(rule, kernel, mode, w, g, st, masters,
+                                       (1.0, None, 0.0), True), [()], 2)
+            lib_w = masters if mode == "master" else w
+            lib, how, what = half_library(rule, lib_w, [x.to(lib_w[0].dtype)
+                                                        for x in g], 1e-3)
+            lms = (device_ms if how == "graph" else time_ms)(lib, [()], 20)
+            bnd, by = bound_ms(half_update_bytes(mode, slots) * n, flops * n)
+            row["instances"][rule] = {
+                "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lms, "library": what, "leaves": len(shapes)}
+            print(f"time: {kernel}.{inst} {rule}, {len(shapes)} leaves, {n} "
+                  f"parameters: {ms:.4f} ms on the card, bound {bnd:.4f} ms "
+                  f"by {by} ({half_update_bytes(mode, slots)} bytes per "
+                  f"parameter; {ms / bnd:.2f}x), plain {pms:.4f} ms, {what} "
+                  f"({lib_w[0].dtype}) {lms:.4f} ms [{CARD}]", flush=True)
+            del w, st, masters, lib
+        del w0, g, signed, squares, st0
+        torch.cuda.empty_cache()
+
+    # all-finite on 16-bit gradients
+    shapes = sets["gpt2"]
+    n = sum(math.prod(s) for s in shapes)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for tag, dt in HALF_DTYPES.items():
+        g = leaves(shapes, 1e-3, dt)
+        big = max(range(len(g)), key=lambda i: g[i].numel())
+        odd = next((i for i in range(len(g)) if g[i].numel() % 4), big)
+        for what, i, val in (("finite", None, 0.0),
+                             ("NaN", big, float("nan")),
+                             ("+Inf", odd, math.inf),
+                             ("-Inf", big, -math.inf)):
+            if i is not None:
+                keep = g[i].view(-1)[-1].item()
+                g[i].view(-1)[-1] = val
+            got = int(fused.all_finite(g, flag).item())
+            want = int(fused._plain_all_finite(g, torch.zeros(
+                1, dtype=torch.int32, device=dev)).item())
+            check(got == want == (0 if i is None else 1),
+                  f"all_finite.{tag}, {what}: kernel {got}, plain {want}")
+            if i is not None:
+                g[i].view(-1)[-1] = keep
+        ms = device_ms(lambda: fused.all_finite(g, flag), [()], 20)
+        pms = time_ms(lambda: fused._plain_all_finite(g, flag), [()], 3)
+        lms = device_ms(lambda: torch.isfinite(
+            torch.stack(torch._foreach_norm(g)).sum()), [()], 20)
+        bnd, by = bound_ms(2 * n, n)
+        print(f"all_finite.{tag} over {len(shapes)} leaves: kernel == plain "
+              f"(finite, NaN, +Inf, -Inf); {ms:.4f} ms on the card, bound "
+              f"{bnd:.4f} ms by {by} (2 bytes per parameter), plain "
+              f"{pms:.4f} ms, torch._foreach_norm check {lms:.4f} ms "
+              f"[{CARD}]", flush=True)
+        rows[f"all_finite.{tag}"] = {
+            "name": f"all_finite.{tag}",
+            "source": SOURCES + "multi_tensor_adam.cu",
+            "replaces": "incubator_mxnet_tpu/optimizer/fused.py:638",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lms, "eager_ms": None,
+            "shape": f"gpt2_124m, {len(shapes)} leaves, {n} parameters"}
+        del g
+    torch.cuda.empty_cache()
+    # the headline of each update row: adam where timed, else its first
+    for r in rows.values():
+        if "instances" in r:
+            first = r["instances"].get("adam") or \
+                r["instances"].get("sgd_mom") or \
+                next(iter(r["instances"].values()))
+            r.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+            r["eager_ms"] = None
+            r["shape"] = f"{first['leaves']} leaves"
+    return list(rows.values())
 
 
 # ------------------------------------------------------------ phase 4
@@ -4347,6 +4940,314 @@ def resume_k9_check(leaves, card):
     del got, want
 
 
+# ------------------------------------------------------------ phases 12-14
+BENCH16_WARMUP = 3      # bench.py's warm-up steps before its timed ones
+ONESHOT16_TOL = 5e-2    # a bf16 encoder's outputs against the fp32 one's
+                        # (the same weights rounded), as ||bf16 - fp32|| /
+                        # ||fp32|| per output: 8 significant bits through
+                        # 24 layers
+
+
+def dtype_census(trainer):
+    """{"values": {dtype: n}, "state": {dtype: n}} of a trainer now."""
+    def count(ts):
+        out = {}
+        for t in ts:
+            k = str(t.dtype).replace("torch.", "")
+            out[k] = out.get(k, 0) + 1
+        return out
+    return {"values": count(trainer.params.values()),
+            "state": count(t for leaves in trainer._opt_state.values()
+                           for t in leaves)}
+
+
+def drive_bench16(fa, card):
+    """The main path: ``bench.py``'s ``_bench_bert`` on the card, BERT-large
+    with both heads, ``Normal(0.02)`` from the seed, ``net.cast(
+    "bfloat16")``, a one-device ``SPMDTrainer`` with ``"adam"`` at lr
+    1e-4, B = 32, T = 128, ``bench.py``'s batch: ``BENCH16_WARMUP``
+    warm-up steps (step 1 in bf16: K1-with-lse, K6 and K7's bf16
+    instances and K8's promoting one, values fp32 and moments bf16 after
+    it; everything fp32 after step 2, the fp32 step from then on, captured
+    at step 3), then ``TRAIN_STEPS`` timed steps (bench.py times 20).
+    One launch-count window over all of them.  Prints the dtype census
+    after steps 1 and 2 (the reference's: values float32, m and v bf16,
+    then all float32), step 1's wall, ms per step and samples/s, one
+    profiled step (host launches, idle share).  Returns the window's
+    counts."""
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.kernels import _build
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    V, B, T = BERT_VOCAB, TRAIN_B, TRAIN_T
+    _build.build_all()          # step 1's wall is the step's, not nvcc's
+    t0 = time.perf_counter()
+    net = bert_mod.BERTForPretrain(bert_mod.bert_large(dropout=0.0),
+                                   vocab_size=V)
+    net.initialize(init.Normal(0.02), seed=SEED)
+    net.cast("bfloat16")
+    trainer = SPMDTrainer(net, bert_mod.BERTPretrainLoss(V), "adam",
+                          {"learning_rate": 1e-4},
+                          mesh=make_mesh({"data": 1}))
+    batch = bert_batch(V, B, T)
+    torch.cuda.synchronize()
+    print(f"bench16: bert_large + pretrain heads cast to bfloat16 on "
+          f"{net.device}, {sum(p.numel() for p in net.parameters())} "
+          f"parameters in {len(trainer.params)} leaves, Normal(0.02) seed "
+          f"{SEED}, built in {time.perf_counter() - t0:.1f} s; B={B} T={T}, "
+          f"SPMDTrainer adam lr 1e-4 (bench.py's _bench_bert) [{card}]",
+          flush=True)
+    fa.reset_launch_counts()                 # --- the main path
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step1 = dict(fa.launch_counts)
+    census1 = dtype_census(trainer)
+    losses.append(trainer.step(*batch))
+    census2 = dtype_census(trainer)
+    for _ in range(BENCH16_WARMUP - 2):
+        losses.append(trainer.step(*batch))
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(trainer.step(*batch))
+        events[i + 1].record()
+    events[-1].synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the main path
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    prof, _ = profile_window(lambda: None, lambda: trainer.step(*batch),
+                             repeats=1)
+    losses = [float(x) for x in losses]
+    print(f"bench16: dtype census after step 1 {census1}, after step 2 "
+          f"{census2} (the reference: values float32 and m, v bfloat16, "
+          f"then all float32)", flush=True)
+    print(f"bench16: step 1 (bf16, eager, not captured) {first_s * 1e3:.1f} "
+          f"ms wall; launches in it {nonzero(step1)}", flush=True)
+    print(f"bench16: {ms:.2f} ms per step, {B * 1e3 / ms:.2f} samples/s "
+          f"over {TRAIN_STEPS} timed steps after {BENCH16_WARMUP} warm-up "
+          f"(CUDA events; steps {[round(v, 2) for v in step_ms]}); one "
+          f"profiled step: wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms in {prof['device_ops']} kernels and "
+          f"copies, {prof['host_launches']} host launches, idle share "
+          f"{prof['idle_share']:.3f} [{card}]", flush=True)
+    print(f"bench16: losses {[round(x, 5) for x in losses]}; launches in "
+          f"the window {nonzero(counts)}", flush=True)
+    check(census1 == {"values": {"float32": len(trainer.params)},
+                      "state": {"bfloat16": 2 * len(trainer.params)}},
+          f"bench16: census after step 1 {census1}")
+    check(census2 == {"values": {"float32": len(trainer.params)},
+                      "state": {"float32": 2 * len(trainer.params)}},
+          f"bench16: census after step 2 {census2}")
+    check(all(math.isfinite(x) for x in losses), "bench16: a non-finite "
+          "loss")
+    check(losses[-1] < losses[0], f"bench16: loss did not fall: "
+          f"{losses[0]} -> {losses[-1]}")
+    n = BENCH16_WARMUP + TRAIN_STEPS
+    expect = {"flash_fwd.bf16": BERT_LAYERS, "flash_bwd_dq.bf16": BERT_LAYERS,
+              "flash_bwd_dkv.bf16": BERT_LAYERS,
+              "multi_tensor_adam.promote_bf16": 1,
+              "flash_fwd": BERT_LAYERS * (n - 1),
+              "flash_bwd_dq": BERT_LAYERS * (n - 1),
+              "flash_bwd_dkv": BERT_LAYERS * (n - 1),
+              "multi_tensor_adam": n - 1}
+    for name in set(counts) | set(expect):
+        k = counts.get(name, 0)
+        check(k == expect.get(name, 0), f"bench16: kernel {name} launched "
+              f"{k} times, expected {expect.get(name, 0)}")
+    check(prof["host_launches"] <= 8, f"bench16: a graph step made "
+          f"{prof['host_launches']} host launches")
+    del trainer, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def drive_gluon16(fa, card):
+    """``train_gpt.py``'s Gluon loop (phase 7) at 16 bits: ``gpt2_124m``
+    (B = 8, T = 1024, Adam through ``FusedUpdater``) cast to bf16, then
+    cast to fp16 with ``multi_precision=True``.  For each: 3 fused steps
+    equal 3 ``fused=False`` steps bit for bit (losses, weights, states,
+    masters), ``TRAIN_STEPS`` timed steps in a launch-count window (K1,
+    K6, K7's 16-bit instances 12 times per step, K8's 16-bit or
+    multi_precision instance once), ms per step and tokens/s (CUDA
+    events, median), peak allocated bytes, finite losses, and the
+    masters' dtype.  Returns the windows' counts summed."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd as ag
+    from incubator_mxnet_tpu_torch.models import gpt
+    V, B, T = GPT_VOCAB, GLUON_B, GLUON_T
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    total = {}
+    for tag, dtype, opts, inst in (
+            ("bf16", "bfloat16", {}, "bf16"),
+            ("fp16 multi_precision", "float16", {"multi_precision": True},
+             "master_fp16")):
+        def build():
+            mx.random.seed(SEED)
+            net = gpt.gpt2_124m(vocab_size=V, dropout=0.0)
+            net.initialize(init=mx.init.Normal(0.02))
+            net.cast(dtype)
+            net.hybridize()
+            return net
+        net, ref_net = build(), build()
+        opt = dict({"learning_rate": GLUON_LR}, **opts)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam", opt)
+        ref = mx.gluon.Trainer(ref_net.collect_params(), "adam", opt,
+                               fused=False)
+        rng = np.random.RandomState(SEED)
+
+        def step(n, tr, x, y):
+            with ag.record():
+                out = n(mx.nd.array(x, dtype="int32"))
+                L = loss_fn(out.reshape((-1, V)), mx.nd.array(
+                    y.reshape(-1).astype(np.float32))).mean()
+            L.backward()
+            tr.step(1)
+            return L
+
+        losses, ref_losses = [], []
+        for _ in range(TRAIN_CHECK):
+            x, y = gpt_batch(rng, B, T, V)
+            losses.append(float(step(net, trainer, x, y).asnumpy()))
+            ref_losses.append(float(step(ref_net, ref, x, y).asnumpy()))
+        check(same_list(losses, ref_losses), f"gluon16 {tag}: fused "
+              f"losses {losses} != loop losses {ref_losses}")
+        params, ref_params = net.collect_params(), ref_net.collect_params()
+        for (name, p), q in zip(params.items(), ref_params.values()):
+            check(same_bits(p.data()._data, q.data()._data),
+                  f"gluon16 {tag}: parameter {name} of the fused trainer "
+                  f"differs from the loop's")
+        from incubator_mxnet_tpu_torch.optimizer import fused as fmod
+        for i, st in trainer._updaters.states.items():
+            a = fmod._state_list(st)
+            b = fmod._state_list(ref._updaters.states[i])
+            check(all(same_bits(x._data, y._data) for x, y in zip(a, b)),
+                  f"gluon16 {tag}: optimizer state {i} differs from the "
+                  f"loop's")
+        st0 = next(iter(trainer._updaters.states.values()))
+        masters = str(st0[0]._data.dtype) if opts else "none"
+        w_dt = str(next(iter(params.values())).data()._data.dtype)
+        print(f"gluon16 {tag}: {TRAIN_CHECK} fused steps equal {TRAIN_CHECK}"
+              f" fused=False steps bit for bit (losses {losses}, every "
+              f"weight, state{' and master' if opts else ''}); weights "
+              f"{w_dt}, masters {masters}", flush=True)
+        del ref, ref_net, ref_params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batches = [gpt_batch(rng, B, T, V) for _ in range(TRAIN_STEPS)]
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(TRAIN_STEPS + 1)]
+        timed = []
+        fa.reset_launch_counts()             # --- the 16-bit Gluon loop
+        events[0].record()
+        for i, (x, y) in enumerate(batches):
+            timed.append(step(net, trainer, x, y))
+            events[i + 1].record()
+        events[-1].synchronize()
+        counts = dict(fa.launch_counts)      # --- end of the loop
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        ms = float(np.median(step_ms))
+        losses += [float(L.asnumpy()) for L in timed]
+        print(f"gluon16 {tag}: {ms:.2f} ms per step (median of "
+              f"{TRAIN_STEPS}, CUDA events; steps "
+              f"{[round(v, 2) for v in step_ms]}), {B * T * 1e3 / ms:.1f} "
+              f"tokens/s; peak {peak} bytes allocated ({peak / 2 ** 30:.2f} "
+              f"GiB); losses {[round(v, 5) for v in losses]}, all finite: "
+              f"{all(math.isfinite(v) for v in losses)}; launches "
+              f"{nonzero(counts)} [{card}]", flush=True)
+        check(all(math.isfinite(v) for v in losses),
+              f"gluon16 {tag}: a non-finite loss")
+        half = "bf16" if dtype == "bfloat16" else "fp16"
+        expect = {f"flash_fwd.{half}": GPT_LAYERS,
+                  f"flash_bwd_dq.{half}": GPT_LAYERS,
+                  f"flash_bwd_dkv.{half}": GPT_LAYERS,
+                  f"multi_tensor_adam.{inst}": 1}
+        for name in set(counts) | set(expect):
+            k, want = counts.get(name, 0), expect.get(name, 0) * TRAIN_STEPS
+            check(k == want, f"gluon16 {tag}: kernel {name} launched {k} "
+                  f"times, expected {want}")
+        check(masters == ("torch.float32" if opts else "none"),
+              f"gluon16 {tag}: masters {masters}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del trainer, net, params, timed
+        torch.cuda.empty_cache()
+    return total
+
+
+def same_list(a, b):
+    return all(x == y or (math.isnan(x) and math.isnan(y))
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def drive_oneshot16(fa, card):
+    """One-shot serving of ``bert_large``'s ``BERTModel`` cast to bf16:
+    ``InferenceEngine.from_block`` (bucket 32 only), warmed (its graph
+    captured at the net's dtype), one predict of 32 rows with ragged valid
+    lengths in a launch-count window (K1's bf16 instance with the key
+    bias, once per layer), its wall (median of 3, host clock, synced),
+    and its answers against an fp32 engine over the same weights within
+    ``ONESHOT16_TOL``.  Returns the window's counts."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.serving import InferenceEngine
+    rng = np.random.RandomState(SEED + 16)
+    T, n = ONESHOT_T, ONESHOT_MAX_BATCH
+    specs = [((T,), np.int32), ((T,), np.int32), ((), np.int32)]
+    xs = bert_inputs(rng, n, V=BERT_VOCAB, T=T)
+    net = bert_mod.bert_large(dropout=0.0)
+    net.initialize(init=mx.init.Normal(0.02), seed=SEED)
+    eng32 = InferenceEngine.from_block(net, specs, max_batch_size=n,
+                                       buckets=[n], name="bert32")
+    eng32.warmup()
+    want = [o.clone() for o in eng32.predict(xs)]
+    del eng32
+    net.cast("bfloat16")
+    eng = InferenceEngine.from_block(net, specs, max_batch_size=n,
+                                     buckets=[n], name="bert16")
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    fa.reset_launch_counts()                 # --- the one-shot bf16 path
+    got = eng.predict(xs)
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)          # --- end of the path
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.predict(xs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    errs = [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in zip(got, want)]
+    print(f"oneshot16: bert_large BERTModel cast to bfloat16, bucket {n} "
+          f"captured in {warm:.2f} s; a {n}-row predict {np.median(walls):.2f}"
+          f" ms wall (median of 3: {[round(w, 2) for w in walls]}); "
+          f"outputs {[str(g.dtype) for g in got]}, against the fp32 engine "
+          f"over the same weights ||bf16 - fp32|| / ||fp32|| = "
+          f"{[f'{e:.3e}' for e in errs]} (tol {ONESHOT16_TOL}); launches "
+          f"{nonzero(counts)} [{card}]", flush=True)
+    check(all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+              for g in got), "oneshot16: outputs not finite bf16")
+    check(max(errs) <= ONESHOT16_TOL, f"oneshot16: {errs} > "
+          f"{ONESHOT16_TOL}")
+    check(nonzero(counts) == {"flash_fwd.bf16": BERT_LAYERS},
+          f"oneshot16: launches {nonzero(counts)}, expected "
+          f"{BERT_LAYERS} of flash_fwd.bf16")
+    del eng, net
+    torch.cuda.empty_cache()
+    return counts
+
+
 def batcher_counts():
     """(batches, requests) the one-shot batchers counted so far."""
     from incubator_mxnet_tpu_torch.serving import metrics as smetrics
@@ -4382,6 +5283,12 @@ def main():
     ap.add_argument("--resume", action="store_true",
                     help="only run the Gluon loop's checkpoint and resume "
                          "(phase 11)")
+    ap.add_argument("--half", action="store_true",
+                    help="build and check the 16-bit kernel instances only "
+                         "(phase 3b)")
+    ap.add_argument("--half-paths", action="store_true",
+                    help="only run the 16-bit paths: bench16, gluon16 and "
+                         "oneshot16 (phases 12-14)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -4423,6 +5330,11 @@ def main():
     if args.resume:
         drive_resume(fa, card)
         return                               # a phase, no result
+    if args.half_paths:
+        drive_bench16(fa, card)
+        drive_gluon16(fa, card)
+        drive_oneshot16(fa, card)
+        return                               # phases, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -4431,9 +5343,15 @@ def main():
         print(f"build: {name}: {r['seconds']:.1f} s", flush=True)
         for line in r["ptxas"]:
             print(f"build:   {line}", flush=True)
+    sys.stdout.flush()
 
     rng = np.random.RandomState(SEED)
     torch.manual_seed(SEED)
+    if args.half:
+        for r in check_half_attention(fa, dev, rng) + \
+                check_half_updates(fa, dev):
+            print(json.dumps(r), flush=True)
+        return                               # a phase, no result
     rows = [check_k1(fa, dev, rng)] + check_k2_k3(fa, dev, rng) \
         + check_k4_k5(fa, dev, rng)
     e_lse, bwd_rows = check_k6_k7(fa, dev, rng)
@@ -4442,12 +5360,14 @@ def main():
     k8_row = check_k8(fa, dev)
     rows += [k8_row, check_all_finite(fa, dev), check_k9(fa, dev),
              check_k10(fa, dev)]
+    rows += check_half_attention(fa, dev, rng) + check_half_updates(fa, dev)
     for r in rows:
+        eager = "" if r["eager_ms"] is None else \
+            f" ({r['eager_ms']:.4f} ms per eager call, host included)"
         print(f"time: {r['name']} ({r['shape']}): {r['ms']:.4f} ms on the "
-              f"card ({r['eager_ms']:.4f} ms per eager call, host "
-              f"included), bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
-              f"[{card}]", flush=True)
+              f"card{eager}, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']} ms [{card}]", flush=True)
 
     # each kernel's launches on the path it serves: K1 and K2 on the paged
     # serving path, K3 on the dense engine's run, K4 on the paged spec
@@ -4455,6 +5375,7 @@ def main():
     # the resume path, K6, K7, K10 and the all-finite check on the main
     # path (the compiled loop)
     launches = {r["name"]: 0 for r in rows}
+    by_path = {}
     if not args.kernels:
         counts, dense_counts, net, eng, prompts, budgets, plain = \
             drive_path(fa)
@@ -4471,6 +5392,17 @@ def main():
         drive_lamb(fa, card)
         loop = drive_loop(fa, card)
         resume = drive_resume(fa, card)
+        # a 16-bit instance's launches on each 16-bit path; its row's
+        # count is the first of bench16 (the main path), gluon16 and
+        # oneshot16 that launched it, named beside it
+        for path, c in (("bench16", drive_bench16(fa, card)),
+                        ("gluon16", drive_gluon16(fa, card)),
+                        ("oneshot16", drive_oneshot16(fa, card))):
+            for k, n in c.items():
+                if "." in k:                 # a 16-bit instance
+                    by_path.setdefault(k, {})[path] = n
+        half = {k: next((n for n in c.values() if n), 0)
+                for k, c in by_path.items()}
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
@@ -4481,13 +5413,20 @@ def main():
                     "multi_tensor_adam": train["multi_tensor_adam"],
                     "all_finite": loop["all_finite"],
                     "multi_tensor_update": resume["multi_tensor_update"],
-                    "multi_tensor_lamb": loop["multi_tensor_lamb"]}
+                    "multi_tensor_lamb": loop["multi_tensor_lamb"],
+                    **half}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
-                "replaces": r["replaces"], "launches": launches[r["name"]],
+                "replaces": r["replaces"],
+                "launches": launches.get(r["name"], 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                **({"instances": r["instances"]} if "instances" in r else {})}
+                **({"path": next((p for p, n in by_path[r["name"]].items()
+                                  if n), None),
+                    "launches_by_path": by_path[r["name"]]}
+                   if r["name"] in by_path else {}),
+                **{k: r[k] for k in ("instances", "shapes", "ulps",
+                                     "diff_share") if k in r}}
                for r in rows]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -176,7 +176,10 @@ class AsyncCheckpointer:
             if isinstance(v, NDArray):
                 v = v._data
             if isinstance(v, torch.Tensor):
-                snap[k] = v.detach().cpu().numpy().copy()
+                # a bf16 leaf stays a tensor: it is written as its raw 16
+                # bits (numpy has no bfloat16)
+                v = v.detach().cpu().clone()
+                snap[k] = v if v.dtype == torch.bfloat16 else v.numpy()
             else:
                 snap[k] = _np.asarray(v).copy()
         states = trainer.get_states() if trainer is not None else None

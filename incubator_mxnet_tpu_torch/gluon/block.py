@@ -231,9 +231,11 @@ class Block(nn.Module):
             child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
-        """Cast every parameter to ``dtype``.  The attention kernels take
-        fp32 only (bf16 instances: ROADMAP Queue B); a layer without a
-        kernel runs in any dtype torch runs it in."""
+        """Cast every parameter (and its gradient buffer) to ``dtype``, as
+        the JAX block casts them.  A cast net computes in that dtype at
+        every layer, as the JAX net does: the attention kernels take
+        fp32, bf16 and fp16 (fp32 inside), and the whole-tree updates
+        keep or promote the dtypes as the reference's rules do."""
         for p in self.collect_params().values():
             p.cast(dtype)
         return self

@@ -27,10 +27,11 @@ __all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
            "mx_named_parameters"]
 
 
-def _param(shape, device, init=None):
-    """A zero ``nn.Parameter`` of ``shape`` on ``device`` carrying its own
-    initializer (``mx_init``) when ``init`` is given."""
-    p = nn.Parameter(torch.zeros(*shape, device=resolve_device(device)))
+def _param(shape, device, init=None, dtype="float32"):
+    """A zero ``nn.Parameter`` of ``shape`` and ``dtype`` on ``device``
+    carrying its own initializer (``mx_init``) when ``init`` is given."""
+    p = nn.Parameter(torch.zeros(*shape, device=resolve_device(device),
+                                 dtype=torch_dtype(dtype)))
     if init is not None:
         from ... import initializer as _init
         p.mx_init = _init.create(init)
@@ -82,7 +83,9 @@ class HybridSequential(_SequentialMixin, HybridBlock):
 class Dense(HybridBlock):
     """``out = act(x @ weight.T + bias)`` with ``weight`` (units,
     in_units).  ``activation`` is any of MXNet's ``Activation`` types or
-    None; ``flatten`` folds every axis after the first into the input."""
+    None; ``flatten`` folds every axis after the first into the input;
+    ``dtype`` the parameters' (as the JAX layer's; ``cast`` changes it
+    later)."""
 
     def __init__(self, units, in_units=0, use_bias=True, flatten=True,
                  activation=None, dtype="float32", weight_initializer=None,
@@ -96,14 +99,13 @@ class Dense(HybridBlock):
         if int(in_units) <= 0:
             raise MXNetError("Dense needs in_units: deferred shape "
                              "inference is not ported")
-        if torch_dtype(dtype) != torch.float32:
-            raise MXNetError("Dense is created in float32; cast() it")
         self._units = int(units)
         self._flatten = bool(flatten)
         self._act_type = activation
         self._act = _ops.ACTIVATIONS.get(activation)
-        self.weight = _param((units, in_units), device, weight_initializer)
-        self.bias = _param((units,), device, bias_initializer) \
+        self.weight = _param((units, in_units), device, weight_initializer,
+                             dtype)
+        self.bias = _param((units,), device, bias_initializer, dtype) \
             if use_bias else None
 
     def forward(self, x):
@@ -146,8 +148,9 @@ _ONE_HOT_ROWS = 64
 
 class _SortedEmbedding(torch.autograd.Function):
     """``weight[ids]`` whose gradient sums the rows of a repeated id in a
-    fixed order: one GEMM over a one-hot matrix for a small table, else
-    ``index_put_`` with ``accumulate``, which sorts the ids on the card.
+    fixed order: one GEMM over a one-hot matrix for a small table (in the
+    weight's dtype, fp32 accumulation), else ``index_put_`` with
+    ``accumulate`` into fp32, which sorts the ids on the card.
     ``F.embedding``'s CUDA backward sums a long run of one id (the token
     types: every id 0) in an order that changes from call to call, which
     no bit-for-bit check of a train step survives."""
@@ -165,25 +168,28 @@ class _SortedEmbedding(torch.autograd.Function):
         if ctx.rows <= _ONE_HOT_ROWS:
             rows = torch.arange(ctx.rows, device=ids.device)
             return None, (flat[:, None] == rows).to(g.dtype).t() @ g
-        gw = grad.new_zeros(ctx.rows, g.shape[1])
-        gw.index_put_((flat.long(),), g, accumulate=True)
-        return None, gw
+        # a 16-bit table's rows sum in fp32 and round once
+        gw = grad.new_zeros(ctx.rows, g.shape[1], dtype=torch.float32)
+        gw.index_put_((flat.long(),), g.float(), accumulate=True)
+        return None, gw.to(grad.dtype)
 
 
 class Embedding(HybridBlock):
-    """Row lookup into ``weight`` (input_dim, output_dim); ids of any
-    integer dtype.  On the card its gradient is deterministic
-    (:class:`_SortedEmbedding`); on the CPU it is ``F.embedding``'s, which
-    is."""
+    """Row lookup into ``weight`` (input_dim, output_dim) of ``dtype`` (as
+    the JAX layer's); ids of any integer dtype.  On the card its gradient
+    is deterministic (:class:`_SortedEmbedding`, in the weight's dtype:
+    a 16-bit table's gradient sums in fp32 and rounds once); on the CPU
+    it is ``F.embedding``'s, which is."""
 
-    def __init__(self, input_dim, output_dim, weight_initializer=None,
-                 sparse_grad=False, device=None, prefix=None, params=None):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, device=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if sparse_grad:
             raise MXNetError("Embedding(sparse_grad=True) is not ported "
                              "(sparse arrays: ROADMAP Queue A item 15)")
         self.weight = _param((input_dim, output_dim), device,
-                             weight_initializer)
+                             weight_initializer, dtype)
 
     def forward(self, ids):
         if ids.dtype not in (torch.int32, torch.int64):

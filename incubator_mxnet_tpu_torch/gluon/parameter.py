@@ -148,11 +148,15 @@ class Parameter:
         self._nd.zero_grad()
 
     def cast(self, dtype):
-        """Change the parameter's dtype in place (its gradient buffer is
-        reallocated at the next backward)."""
+        """Change the parameter's dtype in place.  Its gradient follows:
+        a buffer it had is replaced by a zero buffer of the new dtype (as
+        the JAX parameter re-attaches its gradient), and a backward
+        writes the new dtype."""
+        had = self._nd._grad is not None
         with torch.no_grad():
             self._var.data = self._var.data.to(torch_dtype(dtype))
-        self._nd._grad = None
+        self._nd._grad = NDArray(torch.zeros_like(self._var.data)) \
+            if had else None
 
     def reset_ctx(self, ctx):
         from ..context import as_context

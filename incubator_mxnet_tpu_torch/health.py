@@ -157,7 +157,10 @@ class StepStats:
     norms; ``after(row, ws, loss)`` (behind it) writes the update ratios
     and the loss.  Inside a captured step the writes are part of the graph
     and repeat at every replay.  Costs one copy of the weights in
-    memory."""
+    memory, at each leaf's dtype; a step that promotes the weights (a
+    cast net's first step under a promoting rule, never captured) takes
+    its ratios in fp32 and the next step's copy follows the new
+    dtypes."""
 
     def __init__(self, params: Sequence, rows: int = 1, loss: bool = True):
         import torch
@@ -173,6 +176,8 @@ class StepStats:
     def before(self, row: int, ws, grads) -> None:
         import torch
         n, r = self.n, self.buffer[row]
+        if any(o.dtype != w.dtype for o, w in zip(self.old, ws)):
+            self.old = [torch.empty_like(w) for w in ws]
         with torch.no_grad():
             norms = _norms(list(grads))
             r[:n].copy_(norms)
@@ -185,9 +190,15 @@ class StepStats:
         import torch
         n, r = self.n, self.buffer[row]
         with torch.no_grad():
-            # old - new: the same magnitudes as new - old, bit for bit
-            torch._foreach_sub_(self.old, list(ws))
-            r[2 * n:3 * n].copy_(_norms(self.old) / (self._wnorm + _EPS))
+            if any(o.dtype != w.dtype for o, w in zip(self.old, ws)):
+                # a promoted step: the difference in fp32, as
+                # train_step_health takes it
+                diffs = [o.float() - w.float() for o, w in zip(self.old, ws)]
+            else:
+                # old - new: the same magnitudes as new - old, bit for bit
+                torch._foreach_sub_(self.old, list(ws))
+                diffs = self.old
+            r[2 * n:3 * n].copy_(_norms(diffs) / (self._wnorm + _EPS))
             if loss is not None:
                 r[3 * n + 1].copy_(loss.detach().float().reshape(()))
 

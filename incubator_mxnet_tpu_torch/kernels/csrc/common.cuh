@@ -1,6 +1,6 @@
 // Shared by every kernel source: the error codes of an unsupported head
-// dimension and of an unknown update rule, and the C entry point that
-// turns an error code into its message.
+// dimension, of an unknown update rule and of an unsupported dtype, and
+// the C entry point that turns an error code into its message.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,9 +10,14 @@
 #define MX_ERR_UNSUPPORTED_D 10001
 // Returned by the whole-tree update for a rule it has no instance for.
 #define MX_ERR_UNKNOWN_RULE 10002
+// Returned by an entry point for an element type (or a combination of
+// them) it has no instance for.
+#define MX_ERR_UNSUPPORTED_DTYPE 10003
 
 extern "C" const char* mx_error_string(int code) {
   if (code == MX_ERR_UNSUPPORTED_D) return "unsupported head dimension";
   if (code == MX_ERR_UNKNOWN_RULE) return "unknown update rule";
+  if (code == MX_ERR_UNSUPPORTED_DTYPE)
+    return "no instance for these element types";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -3,8 +3,9 @@
 // BERT training step.
 //
 // Replaces: _bwd_dkv_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
-// (launched by _flash_bwd_impl).  Same function: from q, k, v, dO (B*H, T, D),
-// lse and dd (B*H, T) and an optional (B, 1, T) key bias,
+// (launched by _flash_bwd_impl).  Same function: from q, k, v, dO (B*H, T, D)
+// of one element type E (fp32, bf16 or fp16; dK, dV written in E, fp32
+// inside), lse and dd (B*H, T) fp32 and an optional (B, 1, T) key bias,
 //   dV = P^T dO,  dK = (P * (dP - dd))^T Q * scale,
 //   dbs = the column sums of P * (dP - dd), (B*H, T) fp32,
 // always written, as the Pallas kernel writes them; the wrapper sums dbs
@@ -34,16 +35,19 @@
 // shuffle at the end.  The grid is (B*H, key tiles); a causal block starts
 // at the first query tile that sees its keys, as the Pallas loop starts at
 // kj * block_k // block_q, so key tile 0, the heaviest, goes first.  D is a
-// template parameter in {16, 32, 64, 128}.
+// template parameter in {16, 32, 64, 128}, and so is E (16-bit tiles halve
+// the shared memory and the bytes; S^T and dP^T are then one tensor-core
+// product each, dV and dK two: flash_bwd_common.cuh).
 #include "flash_bwd_common.cuh"
 
 namespace {
 
-// K and V tiles, two stages of (q tile, dO tile) with rows of D + 4
-// floats, and two stages of (lse row, dd row)
-template <int D>
-constexpr int smem_floats() {
-  return 6 * kTile * (D + 4) + 4 * kTile;
+// K and V tiles, two stages of (q tile, dO tile) with rows padded by 16
+// bytes, and two stages of fp32 (lse row, dd row)
+template <int D, typename E>
+constexpr int smem_bytes() {
+  return 6 * kTile * row_stride<D, E>() * static_cast<int>(sizeof(E)) +
+         4 * kTile * static_cast<int>(sizeof(float));
 }
 
 // 4-byte copy, zero-filled where ``valid`` is false (lse and dd rows have
@@ -56,41 +60,42 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(n));
 }
 
-// query tile i's q, dO (row stride D + 4) and its lse, dd values
-template <int D>
-__device__ __forceinline__ void load_query_tile(float* qs, float* rows,
-                                                const float* q,
-                                                const float* dout,
+// query tile i's q, dO (row stride row_stride<D, E>()) and its lse, dd
+// values
+template <int D, typename E>
+__device__ __forceinline__ void load_query_tile(E* qs, float* rows,
+                                                const E* q, const E* dout,
                                                 const float* lse,
                                                 const float* dd, int q0,
                                                 int T) {
   load_tile<D>(qs, q + static_cast<size_t>(q0) * D, T - q0);
-  load_tile<D>(qs + kTile * (D + 4), dout + static_cast<size_t>(q0) * D,
-               T - q0);
+  load_tile<D>(qs + kTile * row_stride<D, E>(),
+               dout + static_cast<size_t>(q0) * D, T - q0);
   const int i = threadIdx.x & (kTile - 1);
   const bool ok = q0 + i < T;
   const float* src = threadIdx.x < kTile ? lse : dd;
   cp_async4(rows + threadIdx.x, ok ? src + q0 + i : src, ok);
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v,
                      const float* __restrict__ bias,
-                     const float* __restrict__ dout,
+                     const E* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ dd, float* __restrict__ dk,
-                     float* __restrict__ dv, float* __restrict__ dbs, int T,
+                     const float* __restrict__ dd, E* __restrict__ dk,
+                     E* __restrict__ dv, float* __restrict__ dbs, int T,
                      int H, float scale, int causal) {
-  constexpr int LD = D + 4;
+  constexpr int LD = row_stride<D, E>();
   constexpr int TILE = kTile * LD;
   constexpr int NO = D / 8;          // n-tiles of dK and dV
   // [K | V | q0 | dO0 | q1 | dO1 | lse0 dd0 | lse1 dd1]
-  extern __shared__ float smem[];
-  const float* ks_ = smem;
-  const float* vs_ = smem + TILE;
-  float* rows_s = smem + 6 * TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
+  const E* ks_ = smem;
+  const E* vs_ = smem + TILE;
+  float* rows_s = reinterpret_cast<float*>(smem + 6 * TILE);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, column
@@ -104,8 +109,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D>(smem, k + base + static_cast<size_t>(k0) * D, T - k0);
   load_tile<D>(smem + TILE, v + base + static_cast<size_t>(k0) * D, T - k0);
-  load_query_tile<D>(smem + 2 * TILE, rows_s, q + base, dout + base,
-                     lse + row_base, dd + row_base, first * kTile, T);
+  load_query_tile<D, E>(smem + 2 * TILE, rows_s, q + base, dout + base,
+                        lse + row_base, dd + row_base, first * kTile, T);
   cp_async_commit();
 
   // this thread's keys r0 and r0 + 8 of the block, and their bias
@@ -132,14 +137,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     const int stage = (i - first) & 1;
     if (i + 1 < n_tiles) {
-      load_query_tile<D>(smem + (2 + 2 * (stage ^ 1)) * TILE,
+      load_query_tile<D, E>(smem + (2 + 2 * (stage ^ 1)) * TILE,
                          rows_s + (stage ^ 1) * 2 * kTile, q + base,
                          dout + base, lse + row_base, dd + row_base,
                          (i + 1) * kTile, T);
       cp_async_commit();
     }
-    const float* qs = smem + (2 + 2 * stage) * TILE;
-    const float* dos = qs + TILE;
+    const E* qs = smem + (2 + 2 * stage) * TILE;
+    const E* dos = qs + TILE;
     const float* lse_s = rows_s + stage * 2 * kTile;
     const float* dd_s = lse_s + kTile;
     const int q0 = i * kTile;
@@ -147,8 +152,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // st = K q^T, dpt = V dO^T; element e of n-tile n is key key[e >> 1],
     // query q0 + 8n + 2t + (e & 1)
     float st[kNT][4], dpt[kNT][4];
-    tile_products<D>(st, dpt, ks_ + r0 * LD + t, qs + g * LD + t,
-                     vs_ + r0 * LD + t, dos + g * LD + t);
+    tile_products<D, E>(st, dpt, ks_ + r0 * LD + t, qs + g * LD + t,
+                        vs_ + r0 * LD + t, dos + g * LD + t);
 
     const bool edge = q0 + kTile > T || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
@@ -173,8 +178,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
       const int row = (n * 8 + 2 * t) * LD + g;
-      acc_product<D>(acc_v, st[n], dos + row);
-      acc_product<D>(acc_k, dpt[n], qs + row);
+      acc_product<D, E>(acc_v, st[n], dos + row);
+      acc_product<D, E>(acc_k, dpt[n], qs + row);
     }
   }
 
@@ -187,55 +192,77 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t off = base + static_cast<size_t>(key[r]) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8) =
-          make_float2(acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(dv + off + n * 8) =
-          make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+      store2(dk + off + n * 8, acc_k[n][2 * r] * scale,
+             acc_k[n][2 * r + 1] * scale);
+      store2(dv + off + n * 8, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
     if (t == 0) dbs[row_base + key[r]] = sum;
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* dout, const float* lse, const float* dd, float* dk,
-           float* dv, float* dbs, int BH, int H, int T, float scale,
+template <int D, typename E>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           const void* dout, const float* lse, const float* dd, void* dk,
+           void* dv, float* dbs, int BH, int H, int T, float scale,
            int causal, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int bytes = smem_bytes<D, E>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dkv_kernel<D, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (T + kTile - 1) / kTile);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, bias, dout, lse, dd, dk, dv, dbs, T, H, scale, causal);
+  flash_bwd_dkv_kernel<D, E><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), bias, static_cast<const E*>(dout), lse, dd,
+      static_cast<E*>(dk), static_cast<E*>(dv), dbs, T, H, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, const float* bias,
+             const void* dout, const float* lse, const float* dd, void* dk,
+             void* dv, float* dbs, int BH, int H, int T, int D, float scale,
+             int causal, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, E>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H,
+                           T, scale, causal, s);
+    case 32:
+      return launch<32, E>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H,
+                           T, scale, causal, s);
+    case 64:
+      return launch<64, E>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H,
+                           T, scale, causal, s);
+    case 128:
+      return launch<128, E>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H,
+                            T, scale, causal, s);
+    default: return MX_ERR_UNSUPPORTED_D;
+  }
 }
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: (BH, T, D) contiguous fp32, 16-byte aligned; lse,
-// dd, dbs: (BH, T) fp32; bias: (BH / H, 1, T) fp32 or null.
-extern "C" int mx_flash_bwd_dkv(const float* q, const float* k,
-                                const float* v, const float* bias,
-                                const float* dout, const float* lse,
-                                const float* dd, float* dk, float* dv,
+// q, k, v, dout, dk, dv: (BH, T, D) contiguous, 16-byte aligned, of the
+// element type `dtype` (0 fp32, 1 bf16, 2 fp16); lse, dd, dbs: (BH, T)
+// fp32; bias: (BH / H, 1, T) fp32 or null.
+extern "C" int mx_flash_bwd_dkv(const void* q, const void* k,
+                                const void* v, const float* bias,
+                                const void* dout, const float* lse,
+                                const float* dd, void* dk, void* dv,
                                 float* dbs, int BH, int H, int T, int D,
-                                float scale, int causal, void* stream) {
+                                float scale, int causal, int dtype,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H, T,
-                        scale, causal, s);
-    case 32:
-      return launch<32>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H, T,
-                        scale, causal, s);
-    case 64:
-      return launch<64>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H, T,
-                        scale, causal, s);
-    case 128:
-      return launch<128>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH, H, T,
-                         scale, causal, s);
-    default: return MX_ERR_UNSUPPORTED_D;
+  switch (dtype) {
+    case 0:
+      return launch_d<float>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH,
+                             H, T, D, scale, causal, s);
+    case 1:
+      return launch_d<__nv_bfloat16>(q, k, v, bias, dout, lse, dd, dk, dv,
+                                     dbs, BH, H, T, D, scale, causal, s);
+    case 2:
+      return launch_d<__half>(q, k, v, bias, dout, lse, dd, dk, dv, dbs, BH,
+                              H, T, D, scale, causal, s);
+    default: return MX_ERR_UNSUPPORTED_DTYPE;
   }
 }

@@ -3,7 +3,9 @@
 // self-attention of the BERT training step.
 //
 // Replaces: _bwd_dq_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
-// (launched by _flash_bwd_impl).  Same function: from q, k, v, dO (B*H, T, D),
+// (launched by _flash_bwd_impl).  Same function: from q, k, v, dO (B*H, T, D)
+// of one element type E (fp32, bf16 or fp16; dQ written in E, fp32
+// inside),
 // the forward's logsumexp lse and dd = rowsum(dO * O) - g_lse (B*H, T), and
 // an optional (B, 1, T) key bias shared by the batch's H heads,
 //   dQ = sum_j P * (dP - dd) K * scale,  P = exp(S - lse),  dP = dO V^T,
@@ -31,32 +33,36 @@
 // writes dQ * scale once.  The grid is (B*H, query tiles); under causal
 // the query tiles run in reverse, so the heaviest tiles go first, and a
 // block stops at the tile holding its diagonal, as _n_diag_blocks does.
-// D is a template parameter in {16, 32, 64, 128}.
+// D is a template parameter in {16, 32, 64, 128}, and so is E (16-bit
+// tiles halve the shared memory and the bytes; S and dP are then one
+// tensor-core product each, dS K two: flash_bwd_common.cuh).
 #include "flash_bwd_common.cuh"
 
 namespace {
 
-// q and dO tiles, then two stages of (K tile, V tile); rows of D + 4 floats
-template <int D>
-constexpr int smem_floats() {
-  return 6 * kTile * (D + 4);
+// q and dO tiles, then two stages of (K tile, V tile); rows padded by 16
+// bytes
+template <int D, typename E>
+constexpr int smem_bytes() {
+  return 6 * kTile * row_stride<D, E>() * static_cast<int>(sizeof(E));
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v,
                     const float* __restrict__ bias,
-                    const float* __restrict__ dout,
+                    const E* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dd, float* __restrict__ dq,
+                    const float* __restrict__ dd, E* __restrict__ dq,
                     int T, int H, float scale, int causal) {
-  constexpr int LD = D + 4;
+  constexpr int LD = row_stride<D, E>();
   constexpr int TILE = kTile * LD;
   constexpr int NO = D / 8;          // n-tiles of dQ
-  extern __shared__ float smem[];    // [Q | dO | K0 | V0 | K1 | V1]
-  float* qs = smem;
-  float* dos = smem + TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);   // [Q | dO | K0 | V0 | K1 | V1]
+  E* qs = smem;
+  E* dos = smem + TILE;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, column
@@ -100,21 +106,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (j + 1 < n_tiles) {
       const int k1 = (j + 1) * kTile;
-      float* dst = smem + (2 + 2 * ((j + 1) & 1)) * TILE;
+      E* dst = smem + (2 + 2 * ((j + 1) & 1)) * TILE;
       load_tile<D>(dst, k + base + static_cast<size_t>(k1) * D, T - k1);
       load_tile<D>(dst + TILE, v + base + static_cast<size_t>(k1) * D,
                    T - k1);
       cp_async_commit();
     }
-    const float* ks_ = smem + (2 + 2 * (j & 1)) * TILE;
-    const float* vs_ = ks_ + TILE;
+    const E* ks_ = smem + (2 + 2 * (j & 1)) * TILE;
+    const E* vs_ = ks_ + TILE;
     const int k0 = j * kTile;
 
     // s = Q K^T, dp = dO V^T; element e of n-tile n is row row_q[e >> 1],
     // key k0 + 8n + 2t + (e & 1)
     float s[kNT][4], dp[kNT][4];
-    tile_products<D>(s, dp, qs + r0 * LD + t, ks_ + g * LD + t,
-                     dos + r0 * LD + t, vs_ + g * LD + t);
+    tile_products<D, E>(s, dp, qs + r0 * LD + t, ks_ + g * LD + t,
+                        dos + r0 * LD + t, vs_ + g * LD + t);
 
     const bool edge = k0 + kTile > T || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
@@ -132,59 +138,80 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // dQ += dS K over the tile's 8 key steps, keys permuted
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
-      acc_product<D>(acc, s[n], ks_ + (n * 8 + 2 * t) * LD + g);
+      acc_product<D, E>(acc, s[n], ks_ + (n * 8 + 2 * t) * LD + g);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row_q[r] >= T) continue;
-    float* out = dq + base + static_cast<size_t>(row_q[r]) * D + 2 * t;
+    E* out = dq + base + static_cast<size_t>(row_q[r]) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(out + n * 8) =
-          make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      store2(out + n * 8, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* dout, const float* lse, const float* dd, float* dq,
+template <int D, typename E>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           const void* dout, const float* lse, const float* dd, void* dq,
            int BH, int H, int T, float scale, int causal,
            cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int bytes = smem_bytes<D, E>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (T + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, bias, dout, lse, dd, dq, T, H, scale, causal);
+  flash_bwd_dq_kernel<D, E><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), bias, static_cast<const E*>(dout), lse, dd,
+      static_cast<E*>(dq), T, H, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, const float* bias,
+             const void* dout, const float* lse, const float* dd, void* dq,
+             int BH, int H, int T, int D, float scale, int causal,
+             cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, E>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
+                           causal, s);
+    case 32:
+      return launch<32, E>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
+                           causal, s);
+    case 64:
+      return launch<64, E>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
+                           causal, s);
+    case 128:
+      return launch<128, E>(q, k, v, bias, dout, lse, dd, dq, BH, H, T,
+                            scale, causal, s);
+    default: return MX_ERR_UNSUPPORTED_D;
+  }
 }
 
 }  // namespace
 
-// q, k, v, dout, dq: (BH, T, D) contiguous fp32, 16-byte aligned; lse, dd:
-// (BH, T) fp32; bias: (BH / H, 1, T) fp32 or null.
-extern "C" int mx_flash_bwd_dq(const float* q, const float* k, const float* v,
-                               const float* bias, const float* dout,
-                               const float* lse, const float* dd, float* dq,
+// q, k, v, dout, dq: (BH, T, D) contiguous, 16-byte aligned, of the element
+// type `dtype` (0 fp32, 1 bf16, 2 fp16); lse, dd: (BH, T) fp32; bias:
+// (BH / H, 1, T) fp32 or null.
+extern "C" int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const float* bias, const void* dout,
+                               const float* lse, const float* dd, void* dq,
                                int BH, int H, int T, int D, float scale,
-                               int causal, void* stream) {
+                               int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
-                        causal, s);
-    case 32:
-      return launch<32>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
-                        causal, s);
-    case 64:
-      return launch<64>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
-                        causal, s);
-    case 128:
-      return launch<128>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, scale,
-                         causal, s);
-    default: return MX_ERR_UNSUPPORTED_D;
+  switch (dtype) {
+    case 0:
+      return launch_d<float>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, D,
+                             scale, causal, s);
+    case 1:
+      return launch_d<__nv_bfloat16>(q, k, v, bias, dout, lse, dd, dq, BH, H,
+                                     T, D, scale, causal, s);
+    case 2:
+      return launch_d<__half>(q, k, v, bias, dout, lse, dd, dq, BH, H, T, D,
+                              scale, causal, s);
+    default: return MX_ERR_UNSUPPORTED_DTYPE;
   }
 }

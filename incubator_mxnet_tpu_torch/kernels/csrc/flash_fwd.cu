@@ -3,7 +3,9 @@
 // path and the encoder self-attention of the BERT training step.
 //
 // Replaces: _fwd_kernel in incubator_mxnet_tpu/kernels/flash_attention.py
-// (launched by _flash_fwd_impl).  Same function: q, k, v (B*H, T, D) fp32,
+// (launched by _flash_fwd_impl).  Same function: q, k, v (B*H, T, D) of one
+// element type E (fp32, bf16 or fp16; fp32 inside, o written in E, as the
+// Pallas kernel casts its blocks to fp32 and writes o in q's dtype),
 // dense or causal, an optional (B, 1, T) additive key bias shared by the
 // batch's H heads (indexed bh / H), keys past the diagonal or past T weigh
 // exactly 0, and a fully masked row stays finite (the safe_m guard).
@@ -40,7 +42,10 @@
 // through the second stage's buffer.  The grid is (B*H, query tiles);
 // under causal the query tiles run in reverse, so the heaviest tiles of
 // every head are scheduled first, and a causal block stops at the tile
-// holding its diagonal.  D is a template parameter in {16, 32, 64, 128}.
+// holding its diagonal.  D is a template parameter in {16, 32, 64, 128},
+// and so is E: 16-bit tiles (rows of D + 8) halve the shared memory and the
+// bytes, and K and V, exact in TF32, need 2 products a product, not 3
+// (tf32_mma.cuh mma_split).
 #include "tf32_mma.cuh"
 
 namespace {
@@ -50,24 +55,26 @@ constexpr int kBK = 64;        // keys per streamed tile
 constexpr int kWarps = 4;      // 16 query rows each
 constexpr int kThreads = 32 * kWarps;
 
-// two stages of (K tile, V tile), rows padded to D + 4 floats
-template <int D>
-constexpr int smem_floats() {
-  return 4 * kBK * (D + 4);
+// two stages of (K tile, V tile), rows padded by 16 bytes
+template <int D, typename E>
+constexpr int smem_bytes() {
+  return 4 * kBK * row_stride<D, E>() * static_cast<int>(sizeof(E));
 }
 
-template <int D, bool kLse>
+template <int D, bool kLse, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse, int T,
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, const float* __restrict__ bias,
+                 E* __restrict__ o, float* __restrict__ lse, int T,
                  int H, float scale, int causal) {
-  constexpr int LD = D + 4;          // padded row stride in shared memory
-  constexpr int TILE = kBK * LD;     // floats of one K or V tile
+  constexpr int LD = row_stride<D, E>();  // padded row stride
+  constexpr int TILE = kBK * LD;     // elements of one K or V tile
   constexpr int KS = D / 8;          // k-steps of S = Q K^T
   constexpr int NO = D / 8;          // n-tiles of O
   constexpr int NS = kBK / 8;        // n-tiles of S = k-steps of P V
-  extern __shared__ float smem[];    // [K0 | V0 | K1 | V1]
+  constexpr bool kX = kExact<E>;     // K and V exact in TF32
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);   // [K0 | V0 | K1 | V1]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, column
@@ -81,7 +88,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
 
   // the query tile goes through stage 1's K buffer, tile 0 to stage 0
-  float* qs = smem + 2 * TILE;
+  E* qs = smem + 2 * TILE;
   load_tile<D>(qs, q + base + static_cast<size_t>(q0) * D, T - q0);
   load_tile<D>(smem, k + base, T);
   load_tile<D>(smem + TILE, v + base, T);
@@ -97,10 +104,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float qf[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    qf[ks][0] = qs[r0 * LD + ks * 8 + t] * qscale;
-    qf[ks][1] = qs[(r0 + 8) * LD + ks * 8 + t] * qscale;
-    qf[ks][2] = qs[r0 * LD + ks * 8 + t + 4] * qscale;
-    qf[ks][3] = qs[(r0 + 8) * LD + ks * 8 + t + 4] * qscale;
+    qf[ks][0] = to_f(qs[r0 * LD + ks * 8 + t]) * qscale;
+    qf[ks][1] = to_f(qs[(r0 + 8) * LD + ks * 8 + t]) * qscale;
+    qf[ks][2] = to_f(qs[r0 * LD + ks * 8 + t + 4]) * qscale;
+    qf[ks][3] = to_f(qs[(r0 + 8) * LD + ks * 8 + t + 4]) * qscale;
   }
   const int row_q[2] = {q0 + r0, q0 + r0 + 8};
 
@@ -118,14 +125,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (j + 1 < n_tiles) {
       const int k1 = (j + 1) * kBK;
-      float* dst = smem + ((j + 1) & 1) * 2 * TILE;
+      E* dst = smem + ((j + 1) & 1) * 2 * TILE;
       load_tile<D>(dst, k + base + static_cast<size_t>(k1) * D, T - k1);
       load_tile<D>(dst + TILE, v + base + static_cast<size_t>(k1) * D,
                    T - k1);
       cp_async_commit();
     }
-    const float* ks_ = smem + (j & 1) * 2 * TILE;
-    const float* vs_ = ks_ + TILE;
+    const E* ks_ = smem + (j & 1) * 2 * TILE;
+    const E* vs_ = ks_ + TILE;
     const int k0 = j * kBK;
 
     float s[NS][4];
@@ -138,9 +145,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const FragA a(qf[ks]);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        const float* kr = ks_ + (n * 8 + g) * LD + ks * 8 + t;
-        const float b[2] = {kr[0], kr[4]};
-        mma_3xtf32(s[n], a, b);
+        const E* kr = ks_ + (n * 8 + g) * LD + ks * 8 + t;
+        const float b[2] = {to_f(kr[0]), to_f(kr[4])};
+        mma_split<false, kX>(s[n], a, b);
       }
     }
 
@@ -199,11 +206,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NS; ++n) {
       const float p[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
       const FragA a(p);
-      const float* vr = vs_ + (n * 8 + 2 * t) * LD + g;
+      const E* vr = vs_ + (n * 8 + 2 * t) * LD + g;
 #pragma unroll
       for (int no = 0; no < NO; ++no) {
-        const float b[2] = {vr[no * 8], vr[LD + no * 8]};
-        mma_3xtf32(acc[no], a, b);
+        const float b[2] = {to_f(vr[no * 8]), to_f(vr[LD + no * 8])};
+        mma_split<false, kX>(acc[no], a, b);
       }
     }
   }
@@ -216,11 +223,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = row_q[r];
     if (row >= T) continue;
     const float inv = 1.f / fmaxf(sum, 1e-30f);
-    float* orow = o + base + static_cast<size_t>(row) * D + 2 * t;
+    E* orow = o + base + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      store2(orow + n * 8, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if (kLse && t == 0) {
       const float safe = m[r] == -CUDART_INF_F ? 0.f : m[r];
       lse[static_cast<size_t>(bh) * T + row] =
@@ -229,13 +235,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* o, float* lse, int BH, int H, int T, float scale, int causal,
-           cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kernel = lse != nullptr ? flash_fwd_kernel<D, true>
-                               : flash_fwd_kernel<D, false>;
+template <int D, typename E>
+int launch(const void* q_, const void* k_, const void* v_,
+           const float* bias, void* o_, float* lse, int BH, int H, int T,
+           float scale, int causal, cudaStream_t stream) {
+  const E* q = static_cast<const E*>(q_);
+  const E* k = static_cast<const E*>(k_);
+  const E* v = static_cast<const E*>(v_);
+  E* o = static_cast<E*>(o_);
+  const int bytes = smem_bytes<D, E>();
+  auto kernel = lse != nullptr ? flash_fwd_kernel<D, true, E>
+                               : flash_fwd_kernel<D, false, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -245,22 +255,44 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, const float* bias,
+             void* o, float* lse, int BH, int H, int T, int D, float scale,
+             int causal, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, E>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 32:
+      return launch<32, E>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 64:
+      return launch<64, E>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
+    case 128:
+      return launch<128, E>(q, k, v, bias, o, lse, BH, H, T, scale, causal,
+                            s);
+    default: return MX_ERR_UNSUPPORTED_D;
+  }
+}
+
 }  // namespace
 
-// q, k, v, o: (BH, T, D) contiguous fp32, 16-byte aligned; bias:
-// (BH / H, 1, T) fp32 or null; lse: (BH, T) fp32 or null (then no
-// logsumexp is written).
-extern "C" int mx_flash_fwd(const float* q, const float* k, const float* v,
-                            const float* bias, float* o, float* lse, int BH,
+// q, k, v, o: (BH, T, D) contiguous, 16-byte aligned, of the element type
+// `dtype` (0 fp32, 1 bf16, 2 fp16); bias: (BH / H, 1, T) fp32 or null;
+// lse: (BH, T) fp32 or null (then no logsumexp is written).
+extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
+                            const float* bias, void* o, float* lse, int BH,
                             int H, int T, int D, float scale, int causal,
-                            void* stream) {
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
-    case 32: return launch<32>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
-    case 64: return launch<64>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
-    case 128:
-      return launch<128>(q, k, v, bias, o, lse, BH, H, T, scale, causal, s);
-    default: return MX_ERR_UNSUPPORTED_D;
+  switch (dtype) {
+    case 0:
+      return launch_d<float>(q, k, v, bias, o, lse, BH, H, T, D, scale,
+                             causal, s);
+    case 1:
+      return launch_d<__nv_bfloat16>(q, k, v, bias, o, lse, BH, H, T, D,
+                                     scale, causal, s);
+    case 2:
+      return launch_d<__half>(q, k, v, bias, o, lse, BH, H, T, D, scale,
+                              causal, s);
+    default: return MX_ERR_UNSUPPORTED_DTYPE;
   }
 }

@@ -207,7 +207,7 @@ extern "C" int mx_multi_tensor_lamb(const long long* table, int n_leaves,
                                     const int* nonfinite, int* launches,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static thread_local Params p;   // ~23 KB: off the host stack
+  static thread_local Params p;   // ~27 KB: off the host stack
   int i = 0;
   while (i < n_leaves) {
     const int blocks = fill_table(p.t, table, 5, n_leaves, i);

@@ -45,7 +45,15 @@ instead: autograd through the plain attention, on any device, for
 :func:`flash_attention` and :func:`flash_attention_lse` alike.
 
 K1, K6 and K7 make one launch per call; K2-K5 two (the split and the
-merge), which their entry points report and :func:`_launch` counts."""
+merge), which their entry points report and :func:`_launch` counts.
+
+Element types: K1, K6 and K7 take q, k, v (and dO) of one dtype, fp32,
+bf16 or fp16, compute in fp32 and write o, dq, dk and dv in that dtype,
+as the Pallas kernels cast to fp32 inside and write in the input's dtype;
+the key bias, lse, dd and the key-bias rows stay fp32, as the JAX package
+keeps them.  The plain versions compute in fp32 and cast back.  K2-K5
+take fp32 only on the card: a 16-bit query (``GenerationEngine`` over a
+cast net) raises by name (ROADMAP)."""
 from __future__ import annotations
 
 import contextlib
@@ -62,16 +70,24 @@ __all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
            "paged_decode_attention", "verify_decode_attention",
            "paged_verify_decode_attention", "launch_counts",
            "reset_launch_counts", "captured_launches", "add_launches",
-           "counted_flops", "launched"]
+           "counted_flops", "launched", "DTYPE_CODES", "DTYPE_NAMES",
+           "instance_of"]
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# the element types K1, K6, K7 and the whole-tree updates take, the code
+# their entry points read (csrc: 0 fp32, 1 bf16, 2 fp16), and their names:
+# a 16-bit instance counts its launches under "<kernel>.<name>"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+               torch.float16: "fp16"}
 _MAX_GRID_Y = 65535
 _DECODE_CHUNK = 64      # keys per split block of K2-K5 (kChunkKeys)
 _FWD_TILE = 64          # query rows (K1, K6) or keys (K7) per block
 
 # kernel name -> launches since the last reset (kernel launches only; the
-# plain versions never count)
+# plain versions never count); a 16-bit instance's name is added at its
+# first launch and removed by a reset
 launch_counts = {name: 0 for name in _build.ARGTYPES}
 
 
@@ -88,8 +104,11 @@ _open_tally = None
 
 def reset_launch_counts() -> None:
     with _counts_lock:
-        for name in launch_counts:
-            launch_counts[name] = 0
+        for name in list(launch_counts):
+            if name in _build.ARGTYPES:
+                launch_counts[name] = 0
+            else:
+                del launch_counts[name]
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -102,7 +121,7 @@ def _count(name: str, n: int = 1) -> None:
         tally[name] = tally.get(name, 0) + n
         return
     with _counts_lock:
-        launch_counts[name] += n
+        launch_counts[name] = launch_counts.get(name, 0) + n
 
 
 @contextlib.contextmanager
@@ -158,7 +177,7 @@ def add_launches(tally) -> None:
     graph holds."""
     with _counts_lock:
         for name, n in tally.items():
-            launch_counts[name] += n
+            launch_counts[name] = launch_counts.get(name, 0) + n
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +246,7 @@ def _plain_flash_bwd_dd(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
     dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
     dv = torch.einsum("bqk,bqd->bkd", p, g.float())
-    return dq, dk, dv, ds.sum(1)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(1))
 
 
 def _dbias(dbs, n_heads):
@@ -320,16 +339,19 @@ def _plain_paged_verify_decode_attention(q, k_pages, v_pages, tables,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, dev, **tensors):
-    """Raise unless ``dev`` is a CUDA device and every tensor is a
-    contiguous, 16-byte aligned tensor of the stated dtype on it."""
+def _check(name, dev, why="", **tensors):
+    """Raise unless every tensor has its stated dtype (the message ends in
+    ``why``) and ``dev`` is a CUDA device and every tensor is contiguous,
+    16-byte aligned and on it."""
+    for tname, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise MXNetError(f"{name}: {tname} is {t.dtype}, expected "
+                             f"{dtype}{why}")
     if dev.type != "cuda":
         raise MXNetError(f"{name}: the kernel needs CUDA tensors, got {dev}")
     for tname, (t, dtype) in tensors.items():
         if t.device != dev:
             raise MXNetError(f"{name}: {tname} on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise MXNetError(f"{name}: {tname} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{name}: {tname} must be contiguous")
         if t.data_ptr() % 16:
@@ -341,20 +363,29 @@ def _check(name, dev, **tensors):
 SPLIT_KERNELS = ("paged_decode", "decode", "paged_verify", "verify")
 
 
-def launched(name, lib, rc, launches=None, what=None) -> None:
+def launched(name, lib, rc, launches=None, what=None,
+             instance=None) -> None:
     """Raise on a nonzero return code ``rc`` of kernel ``name``'s entry
     point, else count its launches: ``launches[0]`` as the entry point
-    reported them (a 1-element int32 array), or one launch."""
+    reported them (a 1-element int32 array), or one launch; under
+    ``"<name>.<instance>"`` for a 16-bit instance."""
     if rc != 0:
         raise MXNetError(f"{what or name} kernel launch failed: "
                          f"{lib.mx_error_string(rc).decode()} (code {rc})")
-    _count(name, 1 if launches is None else int(launches[0]))
+    _count(name if instance is None else f"{name}.{instance}",
+           1 if launches is None else int(launches[0]))
 
 
-def _launch(name, *args):
+def instance_of(dtype):
+    """The instance name ``dtype``'s launches count under (None: fp32,
+    the kernel's own name)."""
+    return None if dtype == torch.float32 else DTYPE_NAMES[dtype]
+
+
+def _launch(name, *args, instance=None):
     """Call kernel ``name``'s C entry on the current stream of the device
     of the first tensor argument; raise on a nonzero return code, else
-    count the launches it made."""
+    count the launches it made (under ``instance``, a 16-bit one)."""
     lib = _build.library(name)
     fn = getattr(lib, "mx_" + name)
     dev = args[0].device
@@ -367,7 +398,7 @@ def _launch(name, *args):
         if launches is not None:
             conv.append(launches.ctypes.data)   # the entry point adds to it
         rc = fn(*conv, stream)
-    launched(name, lib, rc, launches)
+    launched(name, lib, rc, launches, instance=instance)
 
 
 def _head_dim_ok(name, D):
@@ -375,13 +406,21 @@ def _head_dim_ok(name, D):
         raise MXNetError(f"{name}: head dim {D} not in {HEAD_DIMS}")
 
 
-def _attn_checks(name, q, k, v, bias, n_heads, **more):
-    """The checks K1, K6 and K7 share: fp32 contiguous (BH, T, D) q, k, v
-    (and ``more``) on one CUDA device, a supported D, and ``bias`` None or
-    (BH / n_heads, 1, T)."""
+def _attn_checks(name, q, k, v, bias, n_heads, g=None, **more):
+    """The checks K1, K6 and K7 share: contiguous (BH, T, D) q, k, v (and
+    dO ``g``) of one dtype in :data:`DTYPE_CODES` on one CUDA device, fp32
+    ``more`` (lse, dd), a supported D, and ``bias`` None or (BH / n_heads,
+    1, T) fp32."""
     BH, T, D = q.shape
     f32 = torch.float32
-    _check(name, q.device, q=(q, f32), k=(k, f32), v=(v, f32),
+    if q.dtype not in DTYPE_CODES:
+        raise MXNetError(f"{name}: q is {q.dtype}; the kernel takes "
+                         f"{sorted(str(d) for d in DTYPE_CODES)}")
+    dt = q.dtype
+    same = {"k": (k, dt), "v": (v, dt)}
+    if g is not None:
+        same["g"] = (g, dt)
+    _check(name, q.device, q=(q, dt), **same,
            **{n: (t, f32) for n, t in more.items()})
     if any(t.shape != q.shape for t in (k, v)):
         raise MXNetError(f"{name}: q, k, v must share one (BH, T, D) shape")
@@ -396,10 +435,12 @@ def _attn_checks(name, q, k, v, bias, n_heads, **more):
 
 
 def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads, with_lse=False):
-    """K1 on (BH, T, D) fp32 CUDA tensors; ``bias`` None or (BH/n_heads,
-    1, T) fp32.  Returns o, or (o, lse (BH, T) fp32) ``with_lse``."""
+    """K1 on (BH, T, D) CUDA tensors of one dtype (fp32, bf16, fp16);
+    ``bias`` None or (BH/n_heads, 1, T) fp32.  Returns o (q's dtype), or
+    (o, lse (BH, T) fp32) ``with_lse``."""
     BH, T, D = q.shape
     _attn_checks("flash_fwd", q, k, v, bias, n_heads)
+    code = DTYPE_CODES[q.dtype]
     if -(-T // _FWD_TILE) > _MAX_GRID_Y:
         raise MXNetError(f"flash_fwd: T={T} exceeds the grid")
     o = torch.empty_like(q)
@@ -407,16 +448,19 @@ def _flash_fwd_cuda(q, k, v, bias, scale, causal, n_heads, with_lse=False):
         if with_lse else None
     if T:
         _launch("flash_fwd", q, k, v, bias, o, lse,
-                BH, n_heads, T, D, float(scale), int(bool(causal)))
+                BH, n_heads, T, D, float(scale), int(bool(causal)), code,
+                instance=instance_of(q.dtype))
         _add_flops(BH, T, D, causal)
     return (o, lse) if with_lse else o
 
 
 def _flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
-    """K6 then K7 on (BH, T, D) fp32 CUDA tensors, ``lse`` and ``dd`` (BH,
-    T) fp32.  Returns (dq, dk, dv, dbs)."""
+    """K6 then K7 on (BH, T, D) CUDA tensors q, k, v, ``g`` of one dtype,
+    ``lse`` and ``dd`` (BH, T) fp32.  Returns (dq, dk, dv) in that dtype
+    and dbs (BH, T) fp32."""
     BH, T, D = q.shape
     _attn_checks("flash_bwd", q, k, v, bias, n_heads, g=g, lse=lse, dd=dd)
+    code = DTYPE_CODES[q.dtype]
     if g.shape != q.shape or tuple(lse.shape) != (BH, T) \
             or lse.shape != dd.shape:
         raise MXNetError(f"flash_bwd: dO {tuple(g.shape)}, lse "
@@ -427,10 +471,12 @@ def _flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, n_heads):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbs = torch.empty(BH, T, device=q.device, dtype=torch.float32)
     if T:
-        args = (BH, n_heads, T, D, float(scale), int(bool(causal)))
-        _launch("flash_bwd_dq", q, k, v, bias, g, lse, dd, dq, *args)
+        args = (BH, n_heads, T, D, float(scale), int(bool(causal)), code)
+        inst = instance_of(q.dtype)
+        _launch("flash_bwd_dq", q, k, v, bias, g, lse, dd, dq, *args,
+                instance=inst)
         _launch("flash_bwd_dkv", q, k, v, bias, g, lse, dd, dk, dv, dbs,
-                *args)
+                *args, instance=inst)
         _add_flops(BH, T, D, causal, 2.5)
     return dq, dk, dv, dbs
 
@@ -525,8 +571,15 @@ def _split_scratch(name, q, shape):
     return torch.empty(shape, device=q.device, dtype=torch.float32)
 
 
+# K2-K5 take fp32 only: a 16-bit query (a cast net's GenerationEngine)
+# raises by name; its instances are ROADMAP work
+_FP32_ONLY = (": the decode kernels (K2-K5) take fp32 only, and a "
+              "GenerationEngine over a cast net is not ported yet (ROADMAP: "
+              "K2-K5 with a 16-bit q)")
+
+
 def _decode_checks(name, q, positions, S, H, D):
-    _check(name, q.device, q=(q, torch.float32),
+    _check(name, q.device, _FP32_ONLY, q=(q, torch.float32),
            positions=(positions, torch.int32))
     if tuple(q.shape) != (S, H, D) or tuple(positions.shape) != (S,):
         raise MXNetError(f"{name}: q {tuple(q.shape)} / positions "
@@ -577,7 +630,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
 
 
 def _verify_checks(name, q, positions, S, H, D):
-    _check(name, q.device, q=(q, torch.float32),
+    _check(name, q.device, _FP32_ONLY, q=(q, torch.float32),
            positions=(positions, torch.int32))
     if q.dim() != 4 or tuple(q.shape[:2]) != (S, H) or q.shape[3] != D \
             or tuple(positions.shape) != (S,):

@@ -161,6 +161,10 @@ class NDArray:
         return self.asnumpy().tolist()
 
     def __reduce__(self):
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:    # its raw 16 bits, numpy has none
+            return (_rebuild, (t.cpu().view(torch.int16).numpy(),
+                               str(t.device), "bfloat16"))
         return (_rebuild, (self.asnumpy(), str(self._data.device)))
 
     def __deepcopy__(self, memo):
@@ -444,8 +448,11 @@ class NDArray:
                 f"{'x'.join(map(str, self.shape))} @{self.context}>")
 
 
-def _rebuild(data, device):
-    return NDArray(torch.from_numpy(_np.array(data)).to(device))
+def _rebuild(data, device, dtype=None):
+    t = torch.from_numpy(_np.array(data))
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return NDArray(t.to(device))
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,20 @@
 
 Each writes the new weight into ``weight`` (or ``out``) and the new state
 into its state arrays, in place, under ``torch.no_grad()``: the same terms
-in the same order as the JAX ops, one fp32 rounding per torch op, the
-shared rules through ``optimizer.cores``.  ``lazy_update`` is accepted
-and, as for a dense gradient in the JAX package, changes nothing (sparse
-gradients are not ported).  ``sgld_update`` draws its noise from the
+in the same order as the JAX ops, one rounding to the leaves' dtype per
+op (16-bit leaves: each Python-number hyperparameter weak-typed to their
+dtype, as jnp does), the shared rules through ``optimizer.cores``.
+``lazy_update`` is accepted and, as for a dense gradient in the JAX
+package, changes nothing (sparse gradients are not ported).  ``sgld_update`` draws its noise from the
 port's per-device generator (``random.generator``), so its noise differs
 from the JAX package's threefry stream.  The multi-precision ops
-``mp_sgd_update``/``mp_sgd_mom_update`` are refused by name (ROADMAP
-Queue A item 13)."""
+``mp_sgd_update``/``mp_sgd_mom_update`` update an fp32 master copy
+(``weight32``) in fp32 from the gradient cast to fp32, and write the
+low-precision weight rounded from it."""
 from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ["sgd_update", "sgd_mom_update", "nag_mom_update", "adam_update",
@@ -128,13 +129,15 @@ def rmspropalex_update(weight: NDArray, grad: NDArray, n: NDArray,
         w = weight._data
         g = _prep_grad(grad._data, rescale_grad, clip_gradient, wd, w)
         nn, gm, d = n._data, g_mean._data, delta._data
-        new_n = (1 - gamma1) * g * g + gamma1 * nn
-        new_gm = (1 - gamma1) * g + gamma1 * gm
-        new_d = gamma2 * d - lr * g / _c().sqrt(new_n - new_gm * new_gm
-                                                 + epsilon)
-        new_w = w + new_d
+        c = _c()
+        new_n = c.add(c.mul(c.mul(1 - gamma1, g), g), c.mul(gamma1, nn))
+        new_gm = c.add(c.mul(1 - gamma1, g), c.mul(gamma1, gm))
+        new_d = c.sub(c.mul(gamma2, d), c.div(c.mul(lr, g), c.sqrt(
+            c.add(c.sub(new_n, c.mul(new_gm, new_gm)), epsilon))))
+        new_w = c.add(w, new_d)
         if clip_weights and clip_weights > 0:
-            new_w = torch.clamp(new_w, -clip_weights, clip_weights)
+            cw = c.weak(clip_weights, new_w.dtype)
+            new_w = torch.clamp(new_w, -cw, cw)
         _set(n, new_n)
         _set(g_mean, new_gm)
         _set(delta, new_d)
@@ -149,11 +152,14 @@ def ftrl_update(weight: NDArray, grad: NDArray, z: NDArray, n: NDArray, lr,
         w = weight._data
         g = _prep_grad(grad._data, rescale_grad, clip_gradient)
         zz, nn = z._data, n._data
-        new_z = zz + g - (_c().sqrt(nn + g * g) - _c().sqrt(nn)) / lr * w
-        new_n = nn + g * g
-        new_w = (torch.sign(new_z) * lamda1 - new_z) / \
-            ((beta + _c().sqrt(new_n)) / lr + wd) * (torch.abs(new_z)
-                                                      > lamda1)
+        c = _c()
+        new_z = c.sub(c.add(zz, g), c.mul(c.div(c.sub(
+            c.sqrt(c.add(nn, c.mul(g, g))), c.sqrt(nn)), lr), w))
+        new_n = c.add(nn, c.mul(g, g))
+        live = torch.abs(new_z) > c.weak(lamda1, new_z.dtype)
+        new_w = c.mul(c.div(c.sub(c.mul(torch.sign(new_z), lamda1), new_z),
+                            c.add(c.div(c.add(beta, c.sqrt(new_n)), lr),
+                                  wd)), live.to(new_z.dtype))
         _set(z, new_z)
         _set(n, new_n)
         _target(weight, out).copy_(new_w)
@@ -165,7 +171,8 @@ def signsgd_update(weight: NDArray, grad: NDArray, lr, wd=0.0,
     with torch.no_grad():
         w = weight._data
         g = _prep_grad(grad._data, rescale_grad, clip_gradient)
-        new_w = w - lr * (torch.sign(g) + wd * w)
+        c = _c()
+        new_w = c.sub(w, c.mul(lr, c.add(torch.sign(g), c.mul(wd, w))))
         _target(weight, out).copy_(new_w)
     return _result(weight, out)
 
@@ -176,24 +183,44 @@ def signum_update(weight: NDArray, grad: NDArray, mom: NDArray, lr,
     with torch.no_grad():
         w = weight._data
         g = _prep_grad(grad._data, rescale_grad, clip_gradient, wd, w)
-        new_m = momentum * mom._data - (1 - momentum) * g
-        new_w = w + lr * (torch.sign(new_m) - wd_lh * w)
+        c = _c()
+        new_m = c.sub(c.mul(momentum, mom._data), c.mul(1 - momentum, g))
+        new_w = c.add(w, c.mul(lr, c.sub(torch.sign(new_m),
+                                         c.mul(wd_lh, w))))
         _set(mom, new_m)
         _target(weight, out).copy_(new_w)
     return _result(weight, out)
 
 
-def _mp_refused(name):
-    raise MXNetError(f"{name}: multi-precision (fp32 master weights) is not "
-                     "ported (bf16/fp16 training: ROADMAP Queue A item 13)")
+def mp_sgd_update(weight: NDArray, grad: NDArray, weight32: NDArray, lr,
+                  wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                  lazy_update=True, out=None):
+    """Multi-precision SGD: the fp32 master ``weight32`` steps from the
+    gradient in fp32; ``weight`` (or ``out``) takes the master rounded to
+    its dtype."""
+    with torch.no_grad():
+        w32 = weight32._data
+        g = _prep_grad(grad._data.to(torch.float32), rescale_grad,
+                       clip_gradient, wd, w32)
+        _c().sgd(w32, g, lr)
+        _target(weight, out).copy_(w32)
+    return _result(weight, out)
 
 
-def mp_sgd_update(weight, grad, weight32, lr, **kwargs):
-    _mp_refused("mp_sgd_update")
-
-
-def mp_sgd_mom_update(weight, grad, mom, weight32, lr, **kwargs):
-    _mp_refused("mp_sgd_mom_update")
+def mp_sgd_mom_update(weight: NDArray, grad: NDArray, mom: NDArray,
+                      weight32: NDArray, lr, momentum=0.0, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0,
+                      lazy_update=True, out=None):
+    """Multi-precision SGD with momentum: the fp32 master and the fp32
+    momentum step from the gradient in fp32; ``weight`` (or ``out``)
+    takes the master rounded to its dtype."""
+    with torch.no_grad():
+        w32 = weight32._data
+        g = _prep_grad(grad._data.to(torch.float32), rescale_grad,
+                       clip_gradient, wd, w32)
+        _c().sgd_momentum(w32, g, mom._data, lr, momentum)
+        _target(weight, out).copy_(w32)
+    return _result(weight, out)
 
 
 def lamb_update_phase1(weight: NDArray, grad: NDArray, mean: NDArray,
@@ -227,9 +254,11 @@ def lamb_update_phase2(weight: NDArray, g: NDArray, r1: NDArray,
             r1v = torch.clamp(r1v, min=lower_bound)
         if upper_bound and upper_bound > 0:
             r1v = torch.clamp(r1v, max=upper_bound)
-        ratio = torch.where((r1v > 0) & (r2v > 0), r1v / r2v,
+        c = _c()
+        ratio = torch.where((r1v > 0) & (r2v > 0), c.div(r1v, r2v),
                             torch.ones_like(r1v))
-        _target(weight, out).sub_(lr * ratio * g._data)
+        tgt = _target(weight, out)
+        tgt.copy_(c.sub(tgt, c.mul(c.mul(lr, ratio), g._data)))
     return _result(weight, out)
 
 
@@ -250,12 +279,15 @@ def adadelta_update(weight: NDArray, grad: NDArray, acc_g: NDArray,
         w = weight._data
         g = _prep_grad(grad._data, rescale_grad, clip_gradient, wd, w)
         ag, ad = acc_g._data, acc_delta._data
-        new_ag = rho * ag + (1 - rho) * g * g
-        delta = _c().sqrt(ad + epsilon) / _c().sqrt(new_ag + epsilon) * g
-        new_ad = rho * ad + (1 - rho) * delta * delta
+        c = _c()
+        new_ag = c.add(c.mul(rho, ag), c.mul(c.mul(1 - rho, g), g))
+        delta = c.mul(c.div(c.sqrt(c.add(ad, epsilon)),
+                            c.sqrt(c.add(new_ag, epsilon))), g)
+        new_ad = c.add(c.mul(rho, ad), c.mul(c.mul(1 - rho, delta), delta))
         _set(acc_g, new_ag)
         _set(acc_delta, new_ad)
-        _target(weight, out).sub_(delta)
+        tgt = _target(weight, out)
+        tgt.copy_(c.sub(tgt, delta))
     return _result(weight, out)
 
 
@@ -270,6 +302,7 @@ def sgld_update(weight: NDArray, grad: NDArray, lr, wd=0.0, rescale_grad=1.0,
         noise = torch.randn(w.shape, generator=_random.generator(w.device),
                             device=w.device, dtype=w.dtype) * \
             _c().sqrt(torch.tensor(lr, dtype=w.dtype, device=w.device))
-        new_w = w - lr / 2 * g + noise
+        c = _c()
+        new_w = c.add(c.sub(w, c.mul(lr / 2, g)), noise)
         _target(weight, out).copy_(new_w)
     return _result(weight, out)

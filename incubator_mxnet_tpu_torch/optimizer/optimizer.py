@@ -10,12 +10,16 @@ optimizer the JAX package registers: ``SGD``, ``NAG``, ``Adam``,
 JAX class's, term for term, on the tensors in place (through the ops of
 ``ndarray/optimizer_ops.py`` where the JAX class uses them).  Host
 arithmetic (bias corrections, Nadam's schedule) is in Python doubles, as
-there.  ``multi_precision=True`` is refused by name (fp32 master weights:
-ROADMAP Queue A item 13)."""
+there.  ``multi_precision=True`` keeps fp32 master weights for fp16
+parameters, as the JAX package's (fp16 only): the state is (master, inner
+state), the update runs in fp32 on the master and writes the fp16 weight
+from it; SGD takes the ``mp_sgd_update``/``mp_sgd_mom_update`` ops."""
 from __future__ import annotations
 
 import math
 import pickle
+
+import numpy as _np
 
 import torch
 
@@ -55,10 +59,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if multi_precision:
-            raise MXNetError("multi_precision master weights are not "
-                             "ported (bf16/fp16 training: ROADMAP Queue A "
-                             "item 13)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -71,7 +71,7 @@ class Optimizer:
         self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
-        self.multi_precision = False
+        self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict or {}
 
@@ -87,13 +87,28 @@ class Optimizer:
         return None
 
     def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision`` and an fp16 weight: (its fp32 master
+        copy, the rule's state for the master); else the rule's state."""
+        if self.multi_precision and weight.dtype == _np.float16:
+            w32 = NDArray(weight._data.detach().to(torch.float32))
+            return (w32, self.create_state(index, w32))
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        self.update(index, weight, grad, state)
+        """With ``multi_precision`` and an fp16 weight: the update on the
+        fp32 master with the gradient in fp32, then the fp16 weight
+        rounded from the master; else :meth:`update`."""
+        if self.multi_precision and weight.dtype == _np.float16:
+            w32, inner = state
+            self.update(index, w32, NDArray(grad._data.to(torch.float32)),
+                        inner)
+            with torch.no_grad():
+                weight._data.copy_(w32._data)
+        else:
+            self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -191,6 +206,23 @@ class SGD(Optimizer):
                                lazy_update=self.lazy_update, **kw)
         else:
             _oo.sgd_update(weight, grad, lazy_update=self.lazy_update, **kw)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """fp16 with ``multi_precision``: the reference's mp_sgd ops (the
+        count advances after lr and wd are read, as there)."""
+        if self.multi_precision and weight.dtype == _np.float16:
+            w32, mom = state
+            lr, wd = self._get_lr(index), self._get_wd(index)
+            self._update_count(index)
+            kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient or -1.0)
+            if mom is not None:
+                _oo.mp_sgd_mom_update(weight, grad, mom, w32,
+                                      momentum=self.momentum, **kw)
+            else:
+                _oo.mp_sgd_update(weight, grad, w32, **kw)
+        else:
+            self.update(index, weight, grad, state)
 
 
 @register

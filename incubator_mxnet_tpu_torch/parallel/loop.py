@@ -29,6 +29,13 @@ the graph is captured; the work is applied once.  A chunk equals k
 the same order, the same RNG draws per inner step.  On the CPU the chunk
 body runs uncaptured.
 
+A cast net runs in 16 bits where the rule keeps its dtypes (sgd, nag,
+rmsprop, adagrad without a schedule).  A rule that promotes them (adam,
+adamw, lamb, or any ``lr_schedule``) would change the dtypes of the
+values between a chunk's steps, which a chunk cannot carry: the JAX scan
+raises there (its carry's input and output types differ), and so does
+:meth:`CompiledLoop.step_chunk`, naming the dtype change.
+
 Checkpoint and resume: :meth:`CompiledLoop.get_states` and
 :meth:`CompiledLoop.set_states` round-trip the step counter, the skipped
 count and the optimizer state through ``AsyncCheckpointer(trainer=...)``,
@@ -60,8 +67,9 @@ class _ChunkProgram:
     captured the graph, its outputs ((k,) losses, the int32 skipped
     count) and the kernel launches it holds."""
 
-    def __init__(self, kc, shapes, device):
+    def __init__(self, kc, shapes, device, dtypes=()):
         self.key = shapes           # the batch key, for messages
+        self.dtypes = dtypes        # the values' and the state's dtypes
         self.kc = kc
         offs, total = [], 0
         for _ in range(kc):
@@ -156,16 +164,19 @@ class CompiledLoop(SPMDTrainer):
     def _chunk_body(self, inputs):
         """``len(inputs)`` train steps on device tensors, each with its own
         step count, guard and stat row: what a chunk graph captures.
-        Returns ((k,) fp32 losses, the int32 count of skipped steps)."""
+        Returns ((k,) losses in the loss's dtype, the int32 count of
+        skipped steps)."""
         dev = self._mesh.device
         kc = len(inputs)
-        losses = torch.empty(kc, dtype=torch.float32, device=dev)
+        losses = None
         skipped = torch.zeros((), dtype=torch.int32, device=dev)
         guard = self._flag if self._skip_nonfinite else None
         for i, xs in enumerate(inputs):
             # the flag is reset inside each inner step's check, so a
             # skipped step never leaks into the next one
             loss = self._train_step(xs, row=i, guard=guard)
+            if losses is None:     # in the loss's dtype, as the scan's
+                losses = torch.empty(kc, dtype=loss.dtype, device=dev)
             losses[i].copy_(loss)
             if guard is not None:
                 skipped.add_(guard[0])
@@ -185,6 +196,7 @@ class CompiledLoop(SPMDTrainer):
         if nb < 2 or any(len(b) != nb for b in batches):
             raise MXNetError("step_chunk takes batches of (*inputs, label), "
                              "each with the same number of arrays")
+        self._refuse_promotion()
         observe = bool(_telemetry.TRAINER.subscribers)
         t0 = _time.perf_counter()
         cuda = self._mesh.device.type == "cuda"
@@ -196,12 +208,15 @@ class CompiledLoop(SPMDTrainer):
                 if len(keys) != 1:
                     raise MXNetError("step_chunk: every batch of a chunk "
                                      "must have the same shapes and dtypes")
-                key = (kc, nb) + keys.pop()
+                bkey = keys.pop()
+                dkey = self._dtype_key()
+                key = (kc, nb) + bkey
                 if cuda:
+                    # as SPMDTrainer's: replaced at other dtypes
                     prog = self._chunks.get(key)
-                    if prog is None:
+                    if prog is None or prog.dtypes != dkey:
                         prog = self._chunks[key] = _ChunkProgram(
-                            kc, key[2:], self._mesh.device)
+                            kc, bkey, self._mesh.device, dkey)
                     if prog.error is not None and not self._eager:
                         raise MXNetError(prog.error)
                     prog.stage(arrs)
@@ -210,7 +225,7 @@ class CompiledLoop(SPMDTrainer):
             self._step_count += kc
             if not cuda:
                 losses, skipped = self._cpu_run(
-                    key, lambda: self._chunk_body(inputs))
+                    key + (dkey,), lambda: self._chunk_body(inputs))
             elif self._eager:
                 losses, skipped = self._chunk_body(prog.slots)
             elif prog.graph is None:
@@ -238,6 +253,21 @@ class CompiledLoop(SPMDTrainer):
             _telemetry.TRAINER.publish(phase="chunk", seconds=dt, steps=kc)
         return losses
 
+    def _refuse_promotion(self) -> None:
+        """Raise where the rule would change the values' dtypes inside a
+        chunk (the JAX scan's carry-type error)."""
+        dts = {p.dtype for _, p in self._trainable}
+        half = sorted(str(d).replace("torch.", "") for d in dts
+                      if d in (torch.bfloat16, torch.float16))
+        if half and self._opt.promotes:
+            raise MXNetError(
+                f"CompiledLoop: the update promotes the {', '.join(half)} "
+                f"values to float32 (its fp32 learning rate or bias "
+                f"corrections, as in the JAX step), so a step's carry "
+                f"output (float32) would differ from its input "
+                f"({', '.join(half)}); a chunk keeps one dtype: use a rule "
+                f"that keeps the net's dtype, or SPMDTrainer.step")
+
     def run(self, data, steps=None, prefetch=True, buffers=None):
         """Chunked training over an iterable of batch tuples (a list, a
         generator, a data loader or a :class:`DevicePrefetcher`).  With
@@ -246,7 +276,7 @@ class CompiledLoop(SPMDTrainer):
         overlaps the current chunk.  ``steps`` caps the number of steps
         (None: until the data ends); a short tail runs as a smaller chunk.
         Returns the per-step losses as a numpy array (the only host sync,
-        at the end)."""
+        at the end; a bf16 net's as their exact fp32 values)."""
         owned = None
         if prefetch and not isinstance(data, DevicePrefetcher):
             owned = DevicePrefetcher(data, buffers=buffers,
@@ -280,7 +310,10 @@ class CompiledLoop(SPMDTrainer):
         self.sync_health()
         if not losses:
             return _np.zeros((0,), _np.float32)
-        return torch.cat(losses).cpu().numpy()
+        out = torch.cat(losses).cpu()
+        # numpy has no bfloat16: a bf16 net's losses come back as their
+        # exact fp32 values
+        return (out.float() if out.dtype == torch.bfloat16 else out).numpy()
 
     def reload_params(self):
         super().reload_params()

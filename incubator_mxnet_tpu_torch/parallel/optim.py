@@ -15,7 +15,23 @@ a 0-d tensor on the step's device: a Python number would be frozen into a
 captured graph at its capture-time value, so it raises
 :class:`MXNetError`.  The updates are the whole-tree kernels of
 ``optimizer/fused.py``: K8 (adam), K9 (the elementwise rules) and K10
-(lamb) on the card, the per-leaf loops on the CPU."""
+(lamb) on the card, the per-leaf loops on the CPU.
+
+16-bit parameters (a cast net) take the JAX step's dtypes, rule by rule.
+A hyperparameter the JAX update takes as a Python number (sgd's, nag's,
+rmsprop's and adagrad's lr without a schedule) is weak-typed there: the
+step stays in the parameters' dtype (the kernels' 16-bit instances).  A
+fp32 value computed from the traced step (adam's bias-corrected lr_t,
+adamw's and lamb's bias corrections, any ``lr_schedule``) promotes: the
+first step writes fp32 values and keeps bf16 moments (the promoting
+instance; ``update`` returns the new fp32 parameters, which the train step
+puts into the net), and the next step, where JAX adds fp32 terms to the
+bf16 moments, reads the moments as fp32 (exact) and is the fp32 step but
+for the moments' decay constants, which JAX rounds to bf16
+(``cores.moments``).  Both follow XLA's arithmetic in the JAX step
+(``optimizer/cores.py``).  On a float16 net the promoting step raises
+:class:`MXNetError` (``optimizer/fused.py`` ``_mode``).
+``FunctionalOptimizer.promotes`` says whether a rule does this."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
@@ -32,10 +48,15 @@ __all__ = ["FunctionalOptimizer", "sgd", "nag", "adam", "adamw", "rmsprop",
 
 class FunctionalOptimizer(NamedTuple):
     """(init, update) pair; ``elementwise`` marks per-element rules (LAMB's
-    per-leaf trust ratio is not)."""
+    per-leaf trust ratio is not); ``promotes`` marks rules whose fp32
+    hyperparameters promote 16-bit parameters to fp32, as in the JAX
+    step.  ``update(params, grads, state, step, nonfinite=None)`` returns
+    (the new parameters, the new state): the same tensors, updated in
+    place, where no dtype changes."""
     init: Any
     update: Any
     elementwise: bool = True
+    promotes: bool = False
 
 
 def scheduled_lr(learning_rate, step, lr_schedule=None) -> torch.Tensor:
@@ -81,6 +102,25 @@ def _zeros(params):
     return [torch.zeros_like(p) for p in params]
 
 
+def _follow(params, state):
+    """The state slots read in their parameters' dtype, and the 16-bit
+    dtype they had (None where they had the parameters'): after a
+    promoting step the parameters are fp32 and the moments still bf16;
+    JAX adds fp32 terms to them there, the port reads them as fp32
+    (exact) once and runs the fp32 step with the decay constants the JAX
+    step rounds to bf16 (``cores.moments``' ``moments_dtype``)."""
+    was = None
+    out = {}
+    for k, leaves in state.items():
+        out[k] = []
+        for s, p in zip(leaves, params):
+            if s.dtype != p.dtype:
+                was = s.dtype
+                s = s.to(p.dtype)
+            out[k].append(s)
+    return out, was
+
+
 def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, lr_schedule=None,
         rescale_grad=1.0, clip_gradient=None):
     """SGD, with momentum when ``momentum`` != 0 (state ``mom``): K9's
@@ -93,14 +133,16 @@ def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, lr_schedule=None,
 
     def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
+        state, was = _follow(params, state)
         rule, slots = ("sgd", []) if momentum == 0.0 \
             else ("sgd_mom", [state["mom"]])
-        fused.multi_tensor_update(rule, params, grads, slots, hp,
-                                  momentum=momentum, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd,
-                                  nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        new = fused.multi_tensor_update(
+            rule, params, grads, slots, hp, momentum=momentum,
+            rescale=rescale_grad, clip=clip_gradient, wd=wd,
+            nonfinite=nonfinite, promote=lr_schedule is not None)
+        return new, state
+    return FunctionalOptimizer(init, update,
+                               promotes=lr_schedule is not None)
 
 
 def nag(learning_rate=0.01, momentum=0.9, wd=0.0, lr_schedule=None,
@@ -112,12 +154,14 @@ def nag(learning_rate=0.01, momentum=0.9, wd=0.0, lr_schedule=None,
 
     def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
-        fused.multi_tensor_update("nag", params, grads, [state["mom"]], hp,
-                                  momentum=momentum, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd,
-                                  nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        state, was = _follow(params, state)
+        new = fused.multi_tensor_update(
+            "nag", params, grads, [state["mom"]], hp, momentum=momentum,
+            rescale=rescale_grad, clip=clip_gradient, wd=wd,
+            nonfinite=nonfinite, promote=lr_schedule is not None)
+        return new, state
+    return FunctionalOptimizer(init, update,
+                               promotes=lr_schedule is not None)
 
 
 def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
@@ -132,11 +176,13 @@ def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
     def update(params, grads, state, step, nonfinite=None):
         lr_t = bias_corrected_lr(learning_rate, beta1, beta2, step,
                                  lr_schedule)
-        fused.adam_update(params, grads, state["m"], state["v"], lr_t,
-                          beta1, beta2, epsilon, rescale_grad,
-                          clip_gradient, wd, nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        state, was = _follow(params, state)
+        new = fused.adam_update(params, grads, state["m"], state["v"], lr_t,
+                                beta1, beta2, epsilon, rescale_grad,
+                                clip_gradient, wd, nonfinite=nonfinite,
+                                promote=True, moments_dtype=was)
+        return new, state
+    return FunctionalOptimizer(init, update, promotes=True)
 
 
 def adamw(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
@@ -150,13 +196,14 @@ def adamw(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
     def update(params, grads, state, step, nonfinite=None):
         lr = scheduled_lr(learning_rate, step, lr_schedule)
         hp = torch.stack([lr, *_coefs(step, beta1, beta2)])
-        fused.multi_tensor_update("adamw", params, grads,
-                                  [state["m"], state["v"]], hp, beta1=beta1,
-                                  beta2=beta2, epsilon=epsilon,
-                                  rescale=rescale_grad, clip=clip_gradient,
-                                  wd=wd, nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        state, was = _follow(params, state)
+        new = fused.multi_tensor_update(
+            "adamw", params, grads, [state["m"], state["v"]], hp,
+            beta1=beta1, beta2=beta2, epsilon=epsilon, rescale=rescale_grad,
+            clip=clip_gradient, wd=wd, nonfinite=nonfinite, promote=True,
+            moments_dtype=was)
+        return new, state
+    return FunctionalOptimizer(init, update, promotes=True)
 
 
 def rmsprop(learning_rate=0.001, gamma1=0.9, epsilon=1e-8, wd=0.0,
@@ -168,12 +215,14 @@ def rmsprop(learning_rate=0.001, gamma1=0.9, epsilon=1e-8, wd=0.0,
 
     def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
-        fused.multi_tensor_update("rmsprop", params, grads, [state["n"]],
-                                  hp, gamma1=gamma1, epsilon=epsilon,
-                                  rescale=rescale_grad, clip=clip_gradient,
-                                  wd=wd, nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        state, was = _follow(params, state)
+        new = fused.multi_tensor_update(
+            "rmsprop", params, grads, [state["n"]], hp, gamma1=gamma1,
+            epsilon=epsilon, rescale=rescale_grad, clip=clip_gradient,
+            wd=wd, nonfinite=nonfinite, promote=lr_schedule is not None)
+        return new, state
+    return FunctionalOptimizer(init, update,
+                               promotes=lr_schedule is not None)
 
 
 def adagrad(learning_rate=0.01, epsilon=1e-7, wd=0.0, lr_schedule=None,
@@ -186,12 +235,14 @@ def adagrad(learning_rate=0.01, epsilon=1e-7, wd=0.0, lr_schedule=None,
 
     def update(params, grads, state, step, nonfinite=None):
         hp = scheduled_lr(learning_rate, step, lr_schedule).reshape(1)
-        fused.multi_tensor_update("adagrad", params, grads, [state["h"]],
-                                  hp, epsilon=epsilon, rescale=rescale_grad,
-                                  clip=clip_gradient, wd=wd,
-                                  nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update)
+        state, was = _follow(params, state)
+        new = fused.multi_tensor_update(
+            "adagrad", params, grads, [state["h"]], hp, epsilon=epsilon,
+            rescale=rescale_grad, clip=clip_gradient, wd=wd,
+            nonfinite=nonfinite, promote=lr_schedule is not None)
+        return new, state
+    return FunctionalOptimizer(init, update,
+                               promotes=lr_schedule is not None)
 
 
 def lamb(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-6, wd=0.0,
@@ -205,11 +256,14 @@ def lamb(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-6, wd=0.0,
     def update(params, grads, state, step, nonfinite=None):
         lr = scheduled_lr(learning_rate, step, lr_schedule)
         hp = torch.stack([lr, *_coefs(step, beta1, beta2)])
-        fused.lamb_update(params, grads, state["m"], state["v"], hp, beta1,
-                          beta2, epsilon, rescale_grad, clip_gradient, wd,
-                          nonfinite=nonfinite)
-        return params, state
-    return FunctionalOptimizer(init, update, elementwise=False)
+        state, was = _follow(params, state)
+        new = fused.lamb_update(params, grads, state["m"], state["v"], hp,
+                                beta1, beta2, epsilon, rescale_grad,
+                                clip_gradient, wd, nonfinite=nonfinite,
+                                promote=True, moments_dtype=was)
+        return new, state
+    return FunctionalOptimizer(init, update, elementwise=False,
+                               promotes=True)
 
 
 _REGISTRY = {"sgd": sgd, "nag": nag, "adam": adam, "adamw": adamw,

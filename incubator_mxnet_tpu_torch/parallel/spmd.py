@@ -39,6 +39,18 @@ precedes its capture (``cuda_graphs.counted``), and every later dispatch
 publishes the stored count on the telemetry ``COST`` topic: the MFU
 collector's feed.
 
+A cast net (``net.cast("bfloat16")``) trains with the JAX step's dtypes
+(``parallel.optim``): a rule that keeps them (sgd, nag, rmsprop, adagrad
+without a schedule) runs every step in 16 bits; a rule that promotes them
+(adam, adamw, lamb) writes fp32 values and bf16 moments at the first
+step and makes everything fp32 at the second; on a float16 net its step
+raises :class:`MXNetError` (``optimizer/fused.py`` ``FP16_PROMOTION``).  A program holds the
+dtypes of the trainable values and of the optimizer state it was built
+at, beside its batch key (a new dtype re-traces the JAX step), and one of
+other dtypes is replaced, never replayed: a step whose run changes those
+dtypes runs eagerly, kernels launched, and is never captured; the graph
+is captured after the first step that leaves them as they were.
+
 Pipelining, ZeRO-1 and sharding rules are not ported: asking for any of
 them raises :class:`MXNetError`."""
 from __future__ import annotations
@@ -86,13 +98,14 @@ def _as_tensor(arr) -> torch.Tensor:
 
 
 class _StepProgram:
-    """One batch key's step on the card: its static input buffers (filled
-    in place each step from pinned host buffers), the event after their
-    last refill, and once captured the graph, its loss output and the
-    kernel launches it holds."""
+    """One (batch key, dtype key) step on the card: its static input
+    buffers (filled in place each step from pinned host buffers), the
+    event after their last refill, and once captured the graph, its loss
+    output and the kernel launches it holds."""
 
-    def __init__(self, key, device):
+    def __init__(self, key, device, dtypes=()):
         self.key = key
+        self.dtypes = dtypes
         self.inputs = [torch.empty(shape, dtype=dtype, device=device)
                        for shape, dtype in key]
         self.host = [torch.empty(shape, dtype=dtype, pin_memory=True)
@@ -306,14 +319,34 @@ class SPMDTrainer:
         if self._stats is not None:
             self._stats.before(row, params, grads)
         if guard is None:
-            self._opt.update(params, grads, self._opt_state, self._step_dev)
+            new, self._opt_state = self._opt.update(
+                params, grads, self._opt_state, self._step_dev)
         else:
             _fused.all_finite(grads, guard)
-            self._opt.update(params, grads, self._opt_state, self._step_dev,
-                             nonfinite=guard)
+            new, self._opt_state = self._opt.update(
+                params, grads, self._opt_state, self._step_dev,
+                nonfinite=guard)
+        self._adopt(new)
         if self._stats is not None:
-            self._stats.after(row, params, loss)
+            self._stats.after(row, self._param_list(), loss)
         return loss
+
+    def _adopt(self, new) -> None:
+        """Put an update's new parameter tensors into the net where the
+        update made new ones (a promoting rule's fp32 values), as the JAX
+        trainer's values become fp32: each ``nn.Parameter`` keeps its
+        identity and takes the new storage and dtype."""
+        for (_, p), nw in zip(self._trainable, new):
+            if nw is not p and nw.data_ptr() != p.data_ptr():
+                p.data = nw
+
+    def _dtype_key(self) -> tuple:
+        """The dtypes of the trainable values and of the optimizer state:
+        part of each program's key, as a new dtype re-traces the JAX
+        step."""
+        return (tuple(p.dtype for _, p in self._trainable),
+                tuple((k, tuple(t.dtype for t in leaves))
+                      for k, leaves in sorted(self._opt_state.items())))
 
     # ------------------------------------------------------------------
     def step(self, *batch) -> torch.Tensor:
@@ -339,9 +372,15 @@ class SPMDTrainer:
         ev.record(torch.cuda.current_stream(self._mesh.device))
         return ev
 
-    def _publish_cost(self, flops: float) -> None:
+    def _publish_cost(self, flops: float, dtypes=()) -> None:
+        """Publish a dispatch's FLOPs with the dtype of its GEMMs (the
+        dtype most of the trainable values had when it started, from its
+        dtype key): the MFU collector's peak follows it."""
         if flops and _telemetry.COST.subscribers:
-            _telemetry.COST.publish(where=self._site, flops=flops)
+            vals = list(dtypes[0]) if dtypes else []
+            dtype = max(vals, key=vals.count) if vals else None
+            _telemetry.COST.publish(where=self._site, flops=flops,
+                                    dtype=dtype)
 
     def _cpu_run(self, key, body):
         """``body()`` on the host: the first run of a key counts its FLOPs
@@ -352,7 +391,7 @@ class SPMDTrainer:
             self._cpu_flops[key] = flops
         else:
             out = body()
-        self._publish_cost(flops)
+        self._publish_cost(flops, key[-1])
         return out
 
     def _replay(self, prog):
@@ -361,7 +400,7 @@ class SPMDTrainer:
         prog.graph.replay()
         add_launches(prog.tally)
         prog.replays += 1
-        self._publish_cost(prog.flops)
+        self._publish_cost(prog.flops, prog.dtypes)
 
     def _build_key(self, arrs) -> tuple:
         return tuple((tuple(a.shape), a.dtype) for a in arrs)
@@ -382,12 +421,19 @@ class SPMDTrainer:
                             f"global batch {B} must divide by accum_steps "
                             f"{k} x data axis 1 for even microbatch "
                             "sharding")
-            key = self._build_key(arrs)
+            bkey = self._build_key(arrs)
+            dkey = self._dtype_key()
+            if self._opt.promotes and torch.float16 in dkey[0]:
+                raise MXNetError(f"SPMDTrainer: {_fused.FP16_PROMOTION}")
+            key = (bkey, dkey)
             if cuda:
-                prog = self._programs.get(key)
-                if prog is None:
-                    prog = self._programs[key] = _StepProgram(
-                        key, self._mesh.device)
+                # one program per batch key, for the dtypes it was built
+                # at: a dtype change never goes back, so a program of
+                # other dtypes is replaced, never replayed
+                prog = self._programs.get(bkey)
+                if prog is None or prog.dtypes != dkey:
+                    prog = self._programs[bkey] = _StepProgram(
+                        bkey, self._mesh.device, dkey)
                 if prog.error is not None and not self._eager:
                     raise MXNetError(prog.error)
                 prog.stage(arrs)
@@ -421,11 +467,18 @@ class SPMDTrainer:
         captured into the program's graph in the trainer's pool.
         Capturing runs nothing, so the work is applied once.  A failed
         capture raises, and so does every later dispatch of the
-        program."""
+        program.  A run that changed the dtypes of the values or the
+        state (a promoting step) is not captured: its program is dropped
+        (its dtype key never comes back) and the next step, under the new
+        key, runs eagerly in turn."""
         dev = self._mesh.device
         with _graphs.CAPTURE_LOCK:
             out, prog.flops = _graphs.on_side_stream(
                 lambda: _graphs.counted(body), dev)
+            if self._dtype_key() != prog.dtypes:
+                self._publish_cost(prog.flops, prog.dtypes)
+                self._drop(prog)
+                return out
             t0 = time.perf_counter()
             try:
                 if self._graph_pool is None:
@@ -442,8 +495,16 @@ class SPMDTrainer:
         prog.graph, prog.loss, prog.tally = graph, cap_out, tally
         self._pool_bytes += grown
         self._ledger.record_compile(time.perf_counter() - t0)
-        self._publish_cost(prog.flops)
+        self._publish_cost(prog.flops, prog.dtypes)
         return out
+
+    def _drop(self, prog) -> None:
+        """Forget a program whose dtype key is gone (a step's, or a
+        ``CompiledLoop`` chunk's)."""
+        for table in (self._programs, getattr(self, "_chunks", {})):
+            for k, v in list(table.items()):
+                if v is prog:
+                    del table[k]
 
     @contextlib.contextmanager
     def _eager_steps(self):

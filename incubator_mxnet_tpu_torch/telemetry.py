@@ -47,7 +47,8 @@ __all__ = [
     "Span", "Tracer", "tracer", "trace_span", "new_request_id",
     "start", "stop", "enabled", "reset",
     "snapshot", "render_prometheus", "counters_flat",
-    "sample_device_memory", "device_peak_flops", "GPU_FP32_PEAK_FLOPS",
+    "sample_device_memory", "device_peak_flops", "card_peak_flops",
+    "GPU_FP32_PEAK_FLOPS", "GPU_HALF_PEAK_FLOPS",
     "ledger_site", "dispatch_ledger", "reset_dispatch_ledger",
     "StepHealthRing", "health_ring", "mfu_drain",
 ]
@@ -829,11 +830,20 @@ def trace_span(name: str, cat: str = "span", parent: Span = None,
 # Device peak FLOP/s and memory gauges (torch.cuda)
 # ---------------------------------------------------------------------------
 #: fp32 peak FLOP/s outside the tensor cores by card (NVIDIA data
-#: sheets); the port serves in fp32.  The longest matching key wins.
+#: sheets): the peak of a step whose GEMMs are fp32 (TF32 off).  The
+#: longest matching key wins.
 GPU_FP32_PEAK_FLOPS = {
     "h100": 67e12,          # SXM part
     "h100 pcie": 51e12,
     "h100 nvl": 60e12,
+}
+#: dense bf16/fp16 tensor-core peak FLOP/s by card (NVIDIA data sheets,
+#: without sparsity): the peak of a step whose GEMMs are 16-bit (a cast
+#: net's).
+GPU_HALF_PEAK_FLOPS = {
+    "h100": 989e12,         # SXM part
+    "h100 pcie": 756e12,
+    "h100 nvl": 835e12,
 }
 
 
@@ -853,11 +863,26 @@ def cpu_peak_flops() -> float:
     return cores * ghz * 1e9 * 32.0
 
 
-def device_peak_flops(device=None) -> Optional[dict]:
-    """``{"device": name, "flops": peak}``: the fp32 peak of ``device``
-    (default ``cuda:0`` when CUDA is up, else the host), named with the
-    card; ``flops`` is None for a card missing from
-    :data:`GPU_FP32_PEAK_FLOPS`."""
+def card_peak_flops(name: str, dtype=None) -> Optional[float]:
+    """The peak FLOP/s of the card called ``name`` for GEMMs of
+    ``dtype`` (a torch dtype or its name): :data:`GPU_HALF_PEAK_FLOPS`
+    for bf16 and fp16, else :data:`GPU_FP32_PEAK_FLOPS`; None for a card
+    missing from the table."""
+    half = str(dtype).replace("torch.", "") in ("bfloat16", "float16")
+    table = GPU_HALF_PEAK_FLOPS if half else GPU_FP32_PEAK_FLOPS
+    k = name.lower()
+    best = None
+    for key, val in table.items():
+        if key in k and (best is None or len(key) > len(best[0])):
+            best = (key, val)
+    return best[1] if best else None
+
+
+def device_peak_flops(device=None, dtype=None) -> Optional[dict]:
+    """``{"device": name, "flops": peak}``: the peak of ``device``
+    (default ``cuda:0`` when CUDA is up, else the host) for GEMMs of
+    ``dtype`` (default fp32), named with the card; ``flops`` is None for
+    a card missing from the tables (:func:`card_peak_flops`)."""
     import torch
     if device is None:
         device = "cuda:0" if torch.cuda.is_available() else "cpu"
@@ -865,12 +890,7 @@ def device_peak_flops(device=None) -> Optional[dict]:
     if dev.type == "cpu":
         return {"device": "cpu", "flops": cpu_peak_flops()}
     name = torch.cuda.get_device_name(dev)
-    k = name.lower()
-    best = None
-    for key, val in GPU_FP32_PEAK_FLOPS.items():
-        if key in k and (best is None or len(key) > len(best[0])):
-            best = (key, val)
-    return {"device": name, "flops": best[1] if best else None}
+    return {"device": name, "flops": card_peak_flops(name, dtype)}
 
 
 def sample_device_memory() -> None:
@@ -1093,7 +1113,9 @@ def _metrics_init():
                            "in-order fetch on the consumer, by site")
     _m["peak_flops"] = g(
         "mxtpu_device_peak_flops",
-        "fp32 peak FLOP/s of the device, by device name")
+        "peak FLOP/s of the device for the dtype of the last window's "
+        "GEMMs (fp32, or the 16-bit tensor-core peak of a cast net), by "
+        "device name")
     _m["steps"] = c("mx_trainer_steps_total", "trainer optimization steps")
     _m["step_seconds"] = h("mx_trainer_step_seconds",
                            "trainer step dispatch seconds (host)")
@@ -1119,9 +1141,10 @@ def _metrics_init():
                          "counted from shapes")
     _m["mfu"] = g("mxtpu_mfu",
                   "model FLOPs utilization over the last step window: "
-                  "FLOPs counted from shapes / wall / the fp32 peak of "
-                  "mxtpu_device_peak_flops (by the card's name): the "
-                  "port's GEMMs run in fp32 with TF32 off")
+                  "FLOPs counted from shapes / wall / the peak of "
+                  "mxtpu_device_peak_flops (by the card's name) for the "
+                  "dtype of the step's GEMMs: fp32 with TF32 off, or "
+                  "bf16/fp16 for a cast net")
     _m["loop_chunks"] = c("mxtpu_loop_chunks",
                           "CompiledLoop chunk dispatches (one CUDA graph "
                           "replay per k-step chunk on the card)")
@@ -1153,24 +1176,30 @@ def _on_fault(site="?", event="injected", kind=None, **_kw):
 # boundaries, read once both have completed (``query()``, no host sync),
 # because a replay returns to the host long before the card is done.  On
 # the host (CPU tensors) it is the host's wall between the boundaries.
-_mfu = {"flops": 0.0, "last": None, "pending": deque(), "peak": None}
+# The peak follows the dtype of the GEMMs of the last program dispatched
+# (COST's ``dtype``): a cast net's steps are held to the 16-bit peak.
+_mfu = {"flops": 0.0, "last": None, "pending": deque(), "peaks": {},
+        "dtype": None}
 _mfu_lock = threading.Lock()
 
 
-def _on_cost(where="?", flops=0.0, **_kw):
+def _on_cost(where="?", flops=0.0, dtype=None, **_kw):
     if flops:
         _m["flops"].inc(flops, site=where)
         with _mfu_lock:
             _mfu["flops"] += flops
+            _mfu["dtype"] = dtype
 
 
 def _peak() -> float:
-    peak = _mfu["peak"]
+    dtype = str(_mfu["dtype"]).replace("torch.", "")
+    peak = _mfu["peaks"].get(dtype)
     if peak is None:
-        info = device_peak_flops()
-        peak = _mfu["peak"] = float(info["flops"] or 0.0)
-        if peak:
-            _m["peak_flops"].set(peak, device=info["device"])
+        info = device_peak_flops(dtype=dtype)
+        peak = _mfu["peaks"][dtype] = float(info["flops"] or 0.0)
+        _mfu["device"] = info["device"]
+    if peak:
+        _m["peak_flops"].set(peak, device=_mfu["device"])
     return peak
 
 
@@ -1286,7 +1315,8 @@ def reset() -> None:
     reset_dispatch_ledger()
     health_ring.clear()
     with _mfu_lock:
-        _mfu.update(flops=0.0, last=None, pending=deque(), peak=None)
+        _mfu.update(flops=0.0, last=None, pending=deque(), peaks={},
+                    dtype=None)
 
 
 # ---------------------------------------------------------------------------

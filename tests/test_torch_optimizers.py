@@ -239,10 +239,32 @@ def test_port_registers_every_name_the_jax_package_registers():
 
 @pytest.mark.parametrize("name", ["sgd", "adam", "lamb", "nag"])
 def test_multi_precision_is_refused_by_name(name):
+    """``multi_precision`` is ported (it was refused by name before): an
+    fp16 weight's state is (its fp32 master, the rule's state for the
+    master); any other dtype keeps the rule's own state, as the JAX
+    optimizer's (fp16 only)."""
     import incubator_mxnet_tpu_torch as tmx
-    from incubator_mxnet_tpu_torch.base import MXNetError
-    with pytest.raises(MXNetError, match="item 13"):
+    opt = tmx.optimizer.create(name, multi_precision=True, momentum=0.9) \
+        if name in ("sgd", "nag") else \
         tmx.optimizer.create(name, multi_precision=True)
+    assert opt.multi_precision
+    with tmx.cpu():
+        w16 = tmx.nd.array(np.arange(6, dtype=np.float32) / 7,
+                           dtype="float16")
+        wbf = tmx.nd.array(np.arange(6, dtype=np.float32) / 7,
+                           dtype="bfloat16")
+    master, inner = opt.create_state_multi_precision(0, w16)
+    assert master.dtype == np.float32
+    assert np.array_equal(master.asnumpy(), w16.asnumpy().astype(np.float32))
+    assert inner is not None
+    st = opt.create_state_multi_precision(1, wbf)
+
+    def kinds(state):
+        if state is None:
+            return None
+        return [x.dtype for x in (state if isinstance(state, tuple)
+                                  else (state,))]
+    assert kinds(st) == kinds(opt.create_state(1, wbf))
 
 
 def test_nd_exports_every_optimizer_op_of_the_jax_package():
@@ -253,15 +275,34 @@ def test_nd_exports_every_optimizer_op_of_the_jax_package():
 
 
 def test_mp_ops_are_refused_by_name():
+    """The multi-precision ops are ported (they were refused by name
+    before): the fp32 master steps from the gradient in fp32 and the fp16
+    weight is the master rounded, term for term the reference's
+    ``mp_sgd_update``/``mp_sgd_mom_update`` (held to the JAX ops in
+    ``test_torch_half_training.py``)."""
     import incubator_mxnet_tpu_torch as tmx
-    from incubator_mxnet_tpu_torch.base import MXNetError
     from incubator_mxnet_tpu_torch.ndarray import optimizer_ops as oo
+    rng = np.random.RandomState(5)
+    w32 = rng.randn(7).astype(np.float32)
+    g = rng.randn(7).astype(np.float16)
     with tmx.cpu():
-        w = tmx.nd.zeros((2,))
-    with pytest.raises(MXNetError, match="item 13"):
-        oo.mp_sgd_update(w, w, w, lr=0.1)
-    with pytest.raises(MXNetError, match="item 13"):
-        oo.mp_sgd_mom_update(w, w, w, w, lr=0.1)
+        weight = tmx.nd.array(w32, dtype="float16")
+        master = tmx.nd.array(w32)
+        mom = tmx.nd.array(rng.randn(7).astype(np.float32) * 0.1)
+        m0 = mom.asnumpy()
+        oo.mp_sgd_update(weight, tmx.nd.array(g, dtype="float16"), master,
+                         lr=0.1, wd=0.01)
+        want = w32 - np.float32(0.1) * (g.astype(np.float32)
+                                        + np.float32(0.01) * w32)
+        assert np.array_equal(master.asnumpy(), want)
+        assert np.array_equal(weight.asnumpy(), want.astype(np.float16))
+        oo.mp_sgd_mom_update(weight, tmx.nd.array(g, dtype="float16"), mom,
+                             master, lr=0.1, momentum=0.9)
+        m1 = np.float32(0.9) * m0 - np.float32(0.1) * g.astype(np.float32)
+        assert np.array_equal(mom.asnumpy(), m1)
+        assert np.array_equal(master.asnumpy(), want + m1)
+        assert np.array_equal(weight.asnumpy(),
+                              (want + m1).astype(np.float16))
 
 
 def test_ops_write_into_out_and_leave_the_weight():

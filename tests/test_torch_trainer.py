@@ -404,14 +404,16 @@ def test_trainer_refuses_what_is_not_ported(kwargs, what):
 
 @pytest.mark.parametrize("name", ["sgd", "adamw", "lamb"])
 def test_other_optimizers_are_refused_by_name(name):
-    """Every optimizer is ported; what stays refused by name is
-    multi-precision (fp32 master weights, ROADMAP Queue A item 13)."""
+    """Every optimizer is ported, and so is multi-precision now (it was
+    refused by name before): the Trainer passes ``multi_precision`` to
+    its optimizer (the fp16 path is held to the JAX Trainer in
+    ``test_torch_half_gluon.py``)."""
     with mx.cpu():
         net = _net()
     mx.gluon.Trainer(net.collect_params(), name, {})
-    with pytest.raises(MXNetError, match="item 13"):
-        mx.gluon.Trainer(net.collect_params(), name,
-                         {"multi_precision": True})
+    tr = mx.gluon.Trainer(net.collect_params(), name,
+                          {"multi_precision": True})
+    assert tr.optimizer.multi_precision
 
 
 def test_step_publishes_spans_and_the_trainer_topic():
@@ -559,19 +561,20 @@ def test_cuda_guarded_k8_with_the_flag_set_writes_only_zero_grads():
 @pytest.mark.cuda
 def test_cuda_fused_trainer_refuses_a_leaf_k8_cannot_take():
     """On the card the default Trainer does not give way to the plain
-    per-parameter loop: a bf16 leaf raises, naming the parameter, and
-    ``fused=False`` trains the same net."""
+    per-parameter loop: a float64 leaf (K8 takes fp32, bf16 and fp16)
+    raises, naming the parameter, and ``fused=False`` trains the same
+    net."""
     _need_cuda()
     with mx.gpu(0):
-        net = _dense_net("cuda", "bfloat16")
+        net = _dense_net("cuda", "float64")
         tr = mx.gluon.Trainer(net.collect_params(), "adam",
                               {"learning_rate": LR})
         with pytest.raises(MXNetError, match="fp32.*dense0_weight"):
-            _dense_step(net, tr, "bfloat16")
+            _dense_step(net, tr, "float64")
         tr = mx.gluon.Trainer(net.collect_params(), "adam",
                               {"learning_rate": LR}, fused=False)
         before = [p.data()._data.clone()
                   for p in net.collect_params().values()]
-        _dense_step(net, tr, "bfloat16")
+        _dense_step(net, tr, "float64")
     assert not any(torch.equal(a, p.data()._data) for a, p in
                    zip(before, net.collect_params().values()))

@@ -111,7 +111,10 @@ def main():
                q, k, v, None, g, lse, dd, 0.125, False, 16), bwd, 20)
     dq, dk, dv = (torch.empty(BH, T, D, device=dev) for _ in range(3))
     dbs = torch.empty(BH, T, device=dev)
-    shape = (BH, 16, T, D, 0.125, 0)
+    # dense; a tree whose K6/K7 take an element type (fp32 here) after
+    # the causal flag
+    shape = (BH, 16, T, D, 0.125, 0) + \
+        ((0,) if hasattr(fa, "DTYPE_CODES") else ())
     report("flash_bwd_dq (K6) training B=32 H=16 T=128 D=64 dense",
            lambda q, k, v, g, lse, dd: fa._launch(
                "flash_bwd_dq", q, k, v, None, g, lse, dd, dq, *shape),
