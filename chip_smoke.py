@@ -22,7 +22,11 @@ Phases, each of which raises (exit code 1) on any failure:
    TF32 off so every fp32 product is a true fp32 product;
 2. build: compile the CUDA kernels from ``incubator_mxnet_tpu_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, in parallel) and
-   print the build time and ``ptxas`` register/spill lines;
+   print the build time and ``ptxas`` register/spill lines (the 16-bit
+   K1 body's are those of ``flash_fwd16_kernel``); then the count of
+   ``HGMMA`` (wgmma) instructions in K1's library from ``cuobjdump
+   -sass`` where the toolkit has it (it must be nonzero: the bf16/fp16
+   instances run on wgmma);
 3. kernels: hold K1 flash_fwd, K2 paged_decode, K3 decode, K4 paged_verify
    and K5 verify against their plain PyTorch versions on the card at the
    serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5 and 9 query
@@ -1261,6 +1265,27 @@ def check_k10(fa, dev):
                      "parameters"}
 
 
+def count_k1_hgmma(report):
+    """Print the count of HGMMA instructions in K1's library
+    (``cuobjdump -sass``, where the toolkit has it); fails if that count
+    is 0."""
+    rep = report["flash_fwd"]
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = Path(home) / "bin" / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        print("build: K1 16-bit: no cuobjdump in this toolkit; the HGMMA "
+              "count is not measured", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", rep["path"]], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    n = sass.count("HGMMA")
+    print(f"build: K1's library holds {n} HGMMA (wgmma) instructions "
+          f"({tool} -sass)", flush=True)
+    check(n > 0, "build: no HGMMA instruction in K1's library: its 16-bit "
+          "instances do not run on wgmma")
+
+
 # ------------------------------------------------------------ phase 3b
 # the 16-bit instances: K1, K6, K7 and all-finite per element type, K8's
 # and K9's body per element type and mode (kernels/csrc/*.cu)
@@ -1500,7 +1525,7 @@ def check_half_attention(fa, dev, rng):
             print(f"time: K1.{tag} at {path}'s shape: {k1:.4f} ms on the "
                   f"card, bound {b1:.4f} ms by {by1}, plain {p1:.4f} ms, "
                   f"SDPA ({tag}{', float mask' if masked else ''}) "
-                  f"{l1:.4f} ms [{CARD}]", flush=True)
+                  f"{l1:.4f} ms: {k1 / l1:.2f}x SDPA [{CARD}]", flush=True)
             if bwd:
                 fw = [fa._flash_fwd_cuda(q, k, v, None, scale, causal, H,
                                          with_lse=True) for q, k, v, _ in sets]
@@ -3434,7 +3459,24 @@ def drive_fleet(card, ref_path):
         for pid in replica_pids(logs).values() if logs.exists() else ():
             if alive(pid):
                 os.kill(pid, signal.SIGKILL)
+        if sys.exc_info()[0] is not None:
+            keep_fleet_files(tmp, root)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def keep_fleet_files(tmp, root):
+    """Copy a failed fleet phase's directory (the replica logs, the
+    router's incidents, the flight dumps and profiles) to
+    ``chiprun_out/<its name>`` under the checkout, where a run's outputs
+    are kept, and print where."""
+    dest = root / "chiprun_out" / tmp.name
+    try:
+        shutil.copytree(tmp, dest, dirs_exist_ok=True)
+        print(f"fleet: the phase failed; its logs and incidents are kept in "
+              f"{dest}", flush=True)
+    except OSError as e:
+        print(f"fleet: the phase failed; copying {tmp} to {dest} failed: "
+              f"{e}", flush=True)
 
 
 def fleet_in_child(prompts, budgets, plain, serve):
@@ -5343,6 +5385,7 @@ def main():
         print(f"build: {name}: {r['seconds']:.1f} s", flush=True)
         for line in r["ptxas"]:
             print(f"build:   {line}", flush=True)
+    count_k1_hgmma(report)
     sys.stdout.flush()
 
     rng = np.random.RandomState(SEED)

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every header a source includes: they feed each library's digest
 HEADERS = ("common.cuh", "decode_common.cuh", "flash_bwd_common.cuh",
-           "multi_tensor_common.cuh", "tf32_mma.cuh")
+           "hopper_16.cuh", "multi_tensor_common.cuh", "tf32_mma.cuh")
 # kernel name -> source file
 KERNELS = {"flash_fwd": "flash_fwd.cu",
            "paged_decode": "paged_decode.cu",
@@ -75,7 +75,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build time or 0.0 when reused, "ptxas": [lines]}
+# name -> {"seconds": build time or 0.0 when reused, "ptxas": [lines],
+# "path": the library}
 build_report: Dict[str, dict] = {}
 
 
@@ -111,7 +112,8 @@ def build_all() -> Dict[str, dict]:
                 continue
             out = _target(name)
             if out.exists():
-                build_report[name] = {"seconds": 0.0, "ptxas": []}
+                build_report[name] = {"seconds": 0.0, "ptxas": [],
+                                      "path": str(out)}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])]
@@ -129,8 +131,10 @@ def build_all() -> Dict[str, dict]:
             os.replace(tmp, out)
             lines: List[str] = [ln.strip() for ln in text.splitlines()
                                 if "registers" in ln or "spill" in ln
-                                or "entry function" in ln]
-            build_report[name] = {"seconds": secs, "ptxas": lines}
+                                or "entry function" in ln
+                                or "warning" in ln]
+            build_report[name] = {"seconds": secs, "ptxas": lines,
+                                  "path": str(out)}
         if failed:
             raise MXNetError("CUDA kernel build failed:\n" + "\n".join(failed))
         return dict(build_report)
