@@ -23,10 +23,11 @@ Phases, each of which raises (exit code 1) on any failure:
 2. build: compile the CUDA kernels from ``incubator_mxnet_tpu_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, in parallel) and
    print the build time and ``ptxas`` register/spill lines (the 16-bit
-   K1 body's are those of ``flash_fwd16_kernel``); then the count of
-   ``HGMMA`` (wgmma) instructions in K1's library from ``cuobjdump
-   -sass`` where the toolkit has it (it must be nonzero: the bf16/fp16
-   instances run on wgmma);
+   K1, K6 and K7 bodies' are those of ``flash_fwd16_kernel``,
+   ``flash_bwd_dq16_kernel`` and ``flash_bwd_dkv16_kernel``); then the
+   count of ``HGMMA`` (wgmma) instructions in K1's, K6's and K7's
+   libraries from ``cuobjdump -sass`` where the toolkit has it (each must
+   be nonzero: the bf16/fp16 instances run on wgmma);
 3. kernels: hold K1 flash_fwd, K2 paged_decode, K3 decode, K4 paged_verify
    and K5 verify against their plain PyTorch versions on the card at the
    serving path's shapes (12 heads of 64; K4/K5 at Q = 1, 5 and 9 query
@@ -72,7 +73,9 @@ Phases, each of which raises (exit code 1) on any failure:
    within ``ULP_TOL`` ulp of the output dtype and with at most
    ``DIFF_SHARE`` of the elements different at all (lse and the key-bias
    rows within ``KERNEL_TOL``), beside a control that rounds P and dS to
-   the dtype before their products; K8's and K9's 16-bit, promoting (bf16;
+   the dtype before their products; K6's and K7's ulps and differing
+   share at gluon16's B, H, D, causal, at T = 256 to 2048 and at small
+   dO, held to the same contract; K8's and K9's 16-bit, promoting (bf16;
    the fp16 one refused by name) and ``multi_precision`` instances of
    every rule they have, and the step after the promoting one, against
    their plain loops bit for bit (gradient stages off and on), and the
@@ -1265,25 +1268,26 @@ def check_k10(fa, dev):
                      "parameters"}
 
 
-def count_k1_hgmma(report):
-    """Print the count of HGMMA instructions in K1's library
-    (``cuobjdump -sass``, where the toolkit has it); fails if that count
-    is 0."""
-    rep = report["flash_fwd"]
+def count_hgmma(report):
+    """Print the count of HGMMA instructions in the libraries of K1, K6
+    and K7 (``cuobjdump -sass``, where the toolkit has it); fails if a
+    count is 0: their 16-bit instances run on wgmma."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = Path(home) / "bin" / "cuobjdump"
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
-        print("build: K1 16-bit: no cuobjdump in this toolkit; the HGMMA "
-              "count is not measured", flush=True)
+        print("build: 16-bit K1/K6/K7: no cuobjdump in this toolkit; the "
+              "HGMMA count is not measured", flush=True)
         return
-    sass = subprocess.run([tool, "-sass", rep["path"]], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    n = sass.count("HGMMA")
-    print(f"build: K1's library holds {n} HGMMA (wgmma) instructions "
-          f"({tool} -sass)", flush=True)
-    check(n > 0, "build: no HGMMA instruction in K1's library: its 16-bit "
-          "instances do not run on wgmma")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        sass = subprocess.run([tool, "-sass", report[name]["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        n = sass.count("HGMMA")
+        print(f"build: {name}'s library holds {n} HGMMA (wgmma) "
+              f"instructions ({tool} -sass)", flush=True)
+        check(n > 0, f"build: no HGMMA instruction in {name}'s library: "
+              "its 16-bit instances do not run on wgmma")
 
 
 # ------------------------------------------------------------ phase 3b
@@ -1584,6 +1588,48 @@ def check_half_attention(fa, dev, rng):
         r["shape"] = "bench16 B=32 H=16 T=128 D=64 dense" \
             if "bench16" in r["shapes"] else next(iter(r["shapes"]))
     return list(rows.values())
+
+
+# the T sweep of K6's and K7's 16-bit instances at gluon16's B, H and D,
+# causal, held to the same contract as HALF_ATTN's shapes
+HALF_SWEEP_T = (256, 512, 1024, 2048)
+HALF_SMALL_DO = 2.0 ** -10   # dO scale of the sweep's small-gradient case
+
+
+def half_bwd_sweep(fa, dev):
+    """K6's and K7's 16-bit instances against their plain versions at
+    gluon16's B, H and D, causal, at each T of ``HALF_SWEEP_T`` and at T =
+    1024 with dO scaled by ``HALF_SMALL_DO`` (where fp16's unscaled parts
+    of dS would fall into its subnormals), on the kernel forward's lse:
+    dq, dk and dv held to the contract (``check_ulps``), and their ulps
+    and differing share printed, which puts on record how the error grows
+    with T."""
+    B, H, D = GLUON_B, HEADS, HEAD_DIM
+    scale = 1.0 / math.sqrt(D)
+    rng = np.random.RandomState(SEED + 1)
+    cases = [(T, 1.0) for T in HALF_SWEEP_T] + [(1024, HALF_SMALL_DO)]
+    for tag, dt in HALF_DTYPES.items():
+        for T, gs in cases:
+            q, k, v, g = (torch.from_numpy(rng.randn(B * H, T, D).astype(
+                np.float32)).to(dev).to(dt) for _ in range(4))
+            g = (g.float() * gs).to(dt)
+            out, lse = fa._flash_fwd_cuda(q, k, v, None, scale, True, H,
+                                          with_lse=True)
+            dd = fa._bwd_dd(out, g)
+            got = fa._flash_bwd_cuda(q, k, v, None, g, lse, dd, scale, True,
+                                     H)
+            want = fa._plain_flash_bwd_dd(q, k, v, None, g, lse, dd, scale,
+                                          True, H)
+            small = f", dO x 2^{int(math.log2(gs))}" if gs != 1.0 else ""
+            case = f"K6/K7.{tag} sweep B={B} H={H} T={T} D={D} causal{small}"
+            errs = [(n, *check_ulps(f"{case} {n}", a, w)) for n, a, w in
+                    zip(("dq", "dk", "dv"), got[:3], want[:3])]
+            print(f"{case}: " + "; ".join(
+                f"{n} {e:.2f} ulps, {sh:.4%} differs" for n, e, sh in errs)
+                + f" (tolerance {ULP_TOL} ulp, {DIFF_SHARE[dt]:.0%}) "
+                f"[{CARD}]", flush=True)
+            del q, k, v, g, out, lse, dd, got, want
+            torch.cuda.empty_cache()
 
 
 def gpt2_shapes():
@@ -5111,48 +5157,66 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
+# the 16-bit Gluon loops: (tag, the net's dtype, Trainer options, K8's
+# instance)
+GLUON16_CASES = (("bf16", "bfloat16", {}, "bf16"),
+                 ("fp16 multi_precision", "float16",
+                  {"multi_precision": True}, "master_fp16"))
+
+
+def gluon16_net(dtype):
+    """``gpt2_124m`` as the gluon16 loop builds it: dropout 0,
+    ``Normal(0.02)`` from ``SEED``, cast to ``dtype``, hybridized."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import gpt
+    mx.random.seed(SEED)
+    net = gpt.gpt2_124m(vocab_size=GPT_VOCAB, dropout=0.0)
+    net.initialize(init=mx.init.Normal(0.02))
+    net.cast(dtype)
+    net.hybridize()
+    return net
+
+
+def gluon16_step_fn():
+    """``train_gpt.py``'s step as a function ``step(net, trainer, x, y)``:
+    the loss on the batch recorded, its backward and ``trainer.step(1)``;
+    returns the loss."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd as ag
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(net, trainer, x, y):
+        with ag.record():
+            out = net(mx.nd.array(x, dtype="int32"))
+            L = loss_fn(out.reshape((-1, GPT_VOCAB)), mx.nd.array(
+                y.reshape(-1).astype(np.float32))).mean()
+        L.backward()
+        trainer.step(1)
+        return L
+    return step
+
+
 def drive_gluon16(fa, card):
     """``train_gpt.py``'s Gluon loop (phase 7) at 16 bits: ``gpt2_124m``
     (B = 8, T = 1024, Adam through ``FusedUpdater``) cast to bf16, then
-    cast to fp16 with ``multi_precision=True``.  For each: 3 fused steps
-    equal 3 ``fused=False`` steps bit for bit (losses, weights, states,
-    masters), ``TRAIN_STEPS`` timed steps in a launch-count window (K1,
-    K6, K7's 16-bit instances 12 times per step, K8's 16-bit or
-    multi_precision instance once), ms per step and tokens/s (CUDA
-    events, median), peak allocated bytes, finite losses, and the
-    masters' dtype.  Returns the windows' counts summed."""
+    cast to fp16 with ``multi_precision=True`` (``GLUON16_CASES``).  For
+    each: 3 fused steps equal 3 ``fused=False`` steps bit for bit (losses,
+    weights, states, masters), ``TRAIN_STEPS`` timed steps in a
+    launch-count window (K1, K6, K7's 16-bit instances 12 times per step,
+    K8's 16-bit or multi_precision instance once), ms per step and
+    tokens/s (CUDA events, median), peak allocated bytes, finite losses,
+    and the masters' dtype.  Returns the windows' counts summed."""
     import incubator_mxnet_tpu_torch as mx
-    from incubator_mxnet_tpu_torch import autograd as ag
-    from incubator_mxnet_tpu_torch.models import gpt
     V, B, T = GPT_VOCAB, GLUON_B, GLUON_T
-    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = gluon16_step_fn()
     total = {}
-    for tag, dtype, opts, inst in (
-            ("bf16", "bfloat16", {}, "bf16"),
-            ("fp16 multi_precision", "float16", {"multi_precision": True},
-             "master_fp16")):
-        def build():
-            mx.random.seed(SEED)
-            net = gpt.gpt2_124m(vocab_size=V, dropout=0.0)
-            net.initialize(init=mx.init.Normal(0.02))
-            net.cast(dtype)
-            net.hybridize()
-            return net
-        net, ref_net = build(), build()
+    for tag, dtype, opts, inst in GLUON16_CASES:
+        net, ref_net = gluon16_net(dtype), gluon16_net(dtype)
         opt = dict({"learning_rate": GLUON_LR}, **opts)
         trainer = mx.gluon.Trainer(net.collect_params(), "adam", opt)
         ref = mx.gluon.Trainer(ref_net.collect_params(), "adam", opt,
                                fused=False)
         rng = np.random.RandomState(SEED)
-
-        def step(n, tr, x, y):
-            with ag.record():
-                out = n(mx.nd.array(x, dtype="int32"))
-                L = loss_fn(out.reshape((-1, V)), mx.nd.array(
-                    y.reshape(-1).astype(np.float32))).mean()
-            L.backward()
-            tr.step(1)
-            return L
 
         losses, ref_losses = [], []
         for _ in range(TRAIN_CHECK):
@@ -5385,14 +5449,15 @@ def main():
         print(f"build: {name}: {r['seconds']:.1f} s", flush=True)
         for line in r["ptxas"]:
             print(f"build:   {line}", flush=True)
-    count_k1_hgmma(report)
+    count_hgmma(report)
     sys.stdout.flush()
 
     rng = np.random.RandomState(SEED)
     torch.manual_seed(SEED)
     if args.half:
-        for r in check_half_attention(fa, dev, rng) + \
-                check_half_updates(fa, dev):
+        rows = check_half_attention(fa, dev, rng)
+        half_bwd_sweep(fa, dev)
+        for r in rows + check_half_updates(fa, dev):
             print(json.dumps(r), flush=True)
         return                               # a phase, no result
     rows = [check_k1(fa, dev, rng)] + check_k2_k3(fa, dev, rng) \
@@ -5403,7 +5468,9 @@ def main():
     k8_row = check_k8(fa, dev)
     rows += [k8_row, check_all_finite(fa, dev), check_k9(fa, dev),
              check_k10(fa, dev)]
-    rows += check_half_attention(fa, dev, rng) + check_half_updates(fa, dev)
+    rows += check_half_attention(fa, dev, rng)
+    half_bwd_sweep(fa, dev)
+    rows += check_half_updates(fa, dev)
     for r in rows:
         eager = "" if r["eager_ms"] is None else \
             f" ({r['eager_ms']:.4f} ms per eager call, host included)"

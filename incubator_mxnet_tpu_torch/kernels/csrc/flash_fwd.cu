@@ -103,7 +103,7 @@ constexpr int kThreads = 32 * kWarps;
 // two stages of (K tile, V tile), rows padded by 16 bytes
 template <int D>
 constexpr int smem_bytes() {
-  return 4 * kBK * row_stride<D, float>() * static_cast<int>(sizeof(float));
+  return 4 * kBK * row_stride<D>() * static_cast<int>(sizeof(float));
 }
 
 template <int D, bool kLse>
@@ -112,7 +112,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int T,
                  int H, float scale, int causal) {
-  constexpr int LD = row_stride<D, float>();  // padded row stride
+  constexpr int LD = row_stride<D>();  // padded row stride
   constexpr int TILE = kBK * LD;     // elements of one K or V tile
   constexpr int KS = D / 8;          // k-steps of S = Q K^T
   constexpr int NO = D / 8;          // n-tiles of O

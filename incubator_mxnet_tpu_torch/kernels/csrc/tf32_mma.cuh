@@ -2,14 +2,10 @@
 // cp.async tile loads, shared by the attention kernels K1 flash_fwd, K6
 // flash_bwd_dq and K7 flash_bwd_dkv.
 //
-// The kernels' element type E (float, __nv_bfloat16, __half) is a template
-// parameter: tiles are copied to shared memory in E and converted to fp32
-// as a fragment is read, and the outputs round to E at the store, as the
-// JAX kernels cast to fp32 inside and write in the input's dtype.  A bf16
-// or fp16 value is exact in TF32 (8 or 11 significant bits against TF32's
-// 11), so an operand read from a 16-bit tile has no low part: its cross
-// term of the 3xTF32 product is zero and is not issued (mma_split), which
-// leaves the result as it was.
+// The products, FragA and load_tile serve the fp32 instances only; the
+// bf16 and fp16 instances run on wgmma with TMA tiles (hopper_16.cuh) and
+// share the rest: exp2_approx, the cp.async group calls, and store2,
+// which rounds an fp32 result to the output's type.
 //
 // Fragment layout of mma.sync.m16n8k8 (g = lane / 4, t = lane % 4):
 //   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
@@ -27,7 +23,6 @@
 #include <cuda_fp16.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -73,32 +68,19 @@ struct FragA {
   }
 };
 
-// d += a b in 3xTF32: the two small cross terms first, then hi * hi.  An
-// operand marked exact (read from a 16-bit tile) has lo == 0, so its cross
-// term is skipped: 2 products where one operand is exact, 1 where both are.
-template <bool kAExact = false, bool kBExact = false>
+// d += a b in 3xTF32: the two small cross terms first, then hi * hi
 __device__ __forceinline__ void mma_split(float (&d)[4], const FragA& a,
                                           const float (&b)[2]) {
   uint32_t bh[2], bl[2];
   split(b[0], bh[0], bl[0]);
   split(b[1], bh[1], bl[1]);
-  if (!kAExact) mma_tf32(d, a.lo, bh);
-  if (!kBExact) mma_tf32(d, a.hi, bl);
+  mma_tf32(d, a.lo, bh);
+  mma_tf32(d, a.hi, bl);
   mma_tf32(d, a.hi, bh);
 }
 
-// the element types: E to fp32 at a fragment read, fp32 to E (round to
-// nearest even) at a store; a 16-bit E is exact in TF32
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename E>
-constexpr bool kExact = !std::is_same<E, float>::value;
-
-// two adjacent outputs (8 bytes of fp32, 4 of a 16-bit type)
+// two adjacent outputs rounded to the output's type (to nearest even):
+// 8 bytes of fp32, 4 of a 16-bit type
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -109,12 +91,11 @@ __device__ __forceinline__ void store2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// a shared-memory tile row of D elements is padded by 16 bytes: D + 4
-// floats, D + 8 16-bit values; every fragment read below stays free of
-// bank conflicts either way
-template <int D, typename E>
+// a shared-memory tile row of D floats is padded by 16 bytes, to D + 4;
+// every fragment read below stays free of bank conflicts
+template <int D>
 __host__ __device__ constexpr int row_stride() {
-  return D + 16 / static_cast<int>(sizeof(E));
+  return D + 4;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -134,18 +115,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // rows [0, 64) of a (rows, D) tile starting at src into dst (row stride
-// row_stride<D, E>()); rows at or past ``rows`` are zero-filled
-template <int D, typename E>
-__device__ __forceinline__ void load_tile(E* dst, const E* src, int rows) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(E));  // per chunk
-  constexpr int kChunks = D / kPer;  // 16-byte chunks per row
-  constexpr int LD = row_stride<D, E>();
+// row_stride<D>()); rows at or past ``rows`` are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int rows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  constexpr int LD = row_stride<D>();
   static_assert(kTileRows * kChunks % kTileThreads == 0,
                 "whole chunks per thread");
 #pragma unroll
   for (int it = 0; it < kTileRows * kChunks / kTileThreads; ++it) {
     const int i = threadIdx.x + it * kTileThreads;
-    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
     const bool ok = r < rows;
     cp_async16(dst + r * LD + c,
                ok ? src + static_cast<size_t>(r) * D + c : src, ok);

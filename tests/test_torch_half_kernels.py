@@ -2,10 +2,12 @@
 kernels``): the plain versions of K1 (with lse, and with the key bias), K6
 flash_bwd_dq and K7 flash_bwd_dkv at bf16 and fp16 inputs, held to the JAX
 package's Pallas B1/B2/B3 in interpret mode on the same 16-bit inputs
-(made with numpy from a seed); and, on a card, each 16-bit CUDA instance
-against its plain version (``cuda`` marker, skipped without a GPU): K1,
-K6, K7 and all-finite per element type, and K8's and K9's body in its
-16-bit, promoting and multi_precision instances, bit for bit.
+(made with numpy from a seed); the 16-bit K1's, K6's and K7's
+arithmetic (two-part P and dS), modelled in torch, against the plain
+versions; and, on a card, each 16-bit CUDA instance against its plain
+version (``cuda`` marker, skipped without a GPU): K1, K6, K7 and
+all-finite per element type, and K8's and K9's body in its 16-bit,
+promoting and multi_precision instances, bit for bit.
 
 Tolerances.  o, dq, dk and dv are 16-bit and must be equal or 1 ulp of
 their dtype apart, the ulp taken at max(|x|, 2^-8 of the tensor's
@@ -268,6 +270,136 @@ def test_two_part_p_holds_the_16bit_k1_contract(dtype, T, causal, masked):
     assert float((one != want).float().mean()) > DIFF_SHARE[dt]
 
 
+def _parts(x, dt, parts, scaled):
+    """``x`` (BH, M, 64) fp32 as the list of its 16-bit parts in fp32: hi =
+    E(x), lo = E(x - hi) (``parts=1``: hi alone), each row first multiplied
+    by ``scaled`` (BH, M, 1), a power of two, or not at all (None)."""
+    if scaled is not None:
+        x = x * scaled
+    hi = x.to(dt).float()
+    return [hi, (x - hi).to(dt).float()] if parts == 2 else [hi]
+
+
+def _row_tiled(x, y, dt, parts, scaled="rows"):
+    """sum over the 64-wide tiles j of the contraction axis of x[..., j]
+    (BH, M, K) in 16-bit parts times y[j] (BH, K, N), summed in fp32 tile
+    by tile: K6's and K7's accumulating products (``flash_bwd_common.cuh``
+    ``acc_products16``).  In fp16, with ``scaled="rows"`` (dS), each row
+    goes in multiplied by 2^e, e the running least of 141 minus the
+    biased exponent of the tile row's largest |x| (from 126), and the
+    accumulator row is rescaled when e falls (``row_scale``); with a
+    number (P: 2^14) every row is multiplied by it; the result is divided
+    by the scale.  ``scaled=None`` leaves the rows as they are."""
+    BH, M, K = x.shape
+    fp16 = dt == torch.float16 and scaled is not None
+    acc = torch.zeros(BH, M, y.shape[2])
+    e = torch.full((BH, M, 1), 126.0 if scaled == "rows" else
+                   float(np.log2(scaled or 1.0)))
+    for j in range(0, K, 64):
+        xt = x[:, :, j:j + 64]
+        if fp16 and scaled == "rows":
+            m = xt.abs().amax(-1, keepdim=True)
+            _, ex = torch.frexp(m)          # m = f 2^ex, f in [1/2, 1)
+            et = torch.where(m > 0, (15 - ex).float().clamp(max=126.0), e)
+            en = torch.minimum(e, et)
+            acc = acc * torch.exp2(en - e)
+            e = en
+        for part in _parts(xt, dt, parts, torch.exp2(e) if fp16 else None):
+            acc = acc + part @ y[:, j:j + 64]
+    return acc * torch.exp2(-e) if fp16 else acc
+
+
+def _emulated_k6k7(q, k, v, bias, g, lse, dd, scale, causal, parts=2,
+                   scaled=True):
+    """The arithmetic of K6's and K7's 16-bit instances (``csrc/
+    flash_bwd_dq.cu`` ``flash_bwd_dq16_kernel``, ``csrc/flash_bwd_dkv.cu``
+    ``flash_bwd_dkv16_kernel``) in torch on the CPU, over (BH, T, D)
+    16-bit q, k, v, g, a (BH, 1, T) fp32 key bias or None, and lse, dd
+    (BH, T) fp32.  S and dP are products of the unscaled 16-bit values
+    (exact products, fp32 sums); P = exp2((fma(s, scale, b) - lse) *
+    log2(e)) in prob()'s order (one rounding for the FMA), 0 past the
+    diagonal; dS = P (dP - dd) in fp32; dQ = dS K, dK = dS^T Q and dV =
+    P^T dO with P and dS in two 16-bit parts (in fp16 dS's rows scaled by
+    powers of two, P by 2^14), summed in fp32 per 64-row tile
+    (``_row_tiled``).
+    ``parts=1`` rounds P and dS once instead (the control);
+    ``scaled=False`` leaves fp16's P and dS unscaled (the control at small
+    gradients).  Returns (dq, dk, dv in q's dtype, dbs (BH, T) fp32, the
+    column sums of dS)."""
+    dt = q.dtype
+    BH, T, _ = q.shape
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    log2e = float(np.float32(np.log2(np.e)))
+    s = qf @ kf.transpose(1, 2)
+    b = torch.zeros(BH, 1, T) if bias is None else bias
+    x = (s.double() * float(np.float32(scale)) + b.double()).float()
+    p = torch.exp2((x - lse[..., None]) * log2e)
+    if causal:
+        p = p.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(), 0.0)
+    ds = p * (gf @ vf.transpose(1, 2) - dd[..., None])
+    rows, fixed = ("rows", 2.0 ** 14) if scaled else (None, None)
+    dq = _row_tiled(ds, kf, dt, parts, rows)
+    dk = _row_tiled(ds.transpose(1, 2).contiguous(), qf, dt, parts, rows)
+    dv = _row_tiled(p.transpose(1, 2).contiguous(), gf, dt, parts, fixed)
+    c = float(np.float32(scale))
+    return (dq * c).to(dt), (dk * c).to(dt), dv.to(dt), ds.sum(1)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,causal,masked,tiny", [
+    (128, False, False, False), (128, False, True, False),
+    (256, True, False, False), (256, True, False, True),
+])
+def test_two_part_p_and_ds_hold_the_16bit_k6_k7_contract(dtype, T, causal,
+                                                         masked, tiny):
+    """The 16-bit K6's and K7's arithmetic (:func:`_emulated_k6k7`:
+    unscaled 16-bit score products, P and dS in two 16-bit parts, fp16
+    rows scaled by powers of two) against ``_plain_flash_bwd_dd`` at small
+    copies of chip_smoke.py's 16-bit backward shapes (B*H = 4, D = 64; T
+    = 128 dense, T = 128 with a key bias that masks one batch's every
+    key, T = 256 causal, and that with dO scaled by 2^-10, where fp16's
+    unscaled parts fall into its subnormals): dq, dk and dv within 1 ulp
+    with at most ``DIFF_SHARE`` of them different, dbs within 1e-6.  The
+    control, P and dS rounded once to the inputs' dtype, differs in more
+    than ``DIFF_SHARE`` of the elements of each: why both keep two parts.
+    At the small dO the fp16 control is the two parts without the row
+    scaling, and dq and dk then differ in more than ``DIFF_SHARE`` (dv =
+    P^T dO, whose P does not scale with dO, does not): why fp16 scales
+    its rows."""
+    dt = DTYPES[dtype]
+    Dh = 64
+    rng = np.random.RandomState(T + causal + 2 * masked + 4 * tiny)
+    q, k, v, g = (torch.from_numpy(rng.randn(4, T, Dh).astype(np.float32))
+                  .to(dt) for _ in range(4))
+    if tiny:
+        g = (g.float() * 2.0 ** -10).to(dt)
+    bias = None
+    if masked:
+        mask = (rng.rand(2, T) > 0.3).astype(np.float32)
+        mask[0, 0] = 1.0
+        mask[1] = 0.0                      # one batch row masked everywhere
+        bias = tfa._key_bias(torch.from_numpy(mask), 2, T, "cpu")
+    scale = 1.0 / np.sqrt(Dh)
+    out, lse = tfa._plain_attention_lse(q, k, v, scale, causal,
+                                        tfa._per_head(bias, H))
+    dd = tfa._bwd_dd(out, g)
+    want = tfa._plain_flash_bwd_dd(q, k, v, bias, g, lse, dd, scale, causal,
+                                   H)
+    got = _emulated_k6k7(q, k, v, tfa._per_head(bias, H), g, lse, dd, scale,
+                         causal)
+    unscaled = tiny and dt == torch.float16
+    one = _emulated_k6k7(q, k, v, tfa._per_head(bias, H), g, lse, dd, scale,
+                         causal, **({"scaled": False} if unscaled
+                                    else {"parts": 1}))
+    for name, a, c, w in zip(("dq", "dk", "dv"), got, one, want):
+        share = float((a != w).float().mean())
+        assert ulps(a, w) <= 1.0, name
+        assert share <= DIFF_SHARE[dt], (name, share)
+        if not (unscaled and name == "dv"):
+            assert float((c != w).float().mean()) > DIFF_SHARE[dt], name
+    _fp32_close(got[3].numpy(), want[3].numpy())
+
+
 UPDATE_RULES = [("sgd", {}), ("sgd", {"momentum": 0.9}), ("nag", {}),
                 ("adam", {"wd": 0.01}), ("adamw", {"wd": 0.01}),
                 ("rmsprop", {}), ("adagrad", {"wd": 0.01}),
@@ -395,9 +527,9 @@ def test_cuda_16bit_attention_matches_plain(dtype, B, T, Dh, causal,
                                             masked):
     """K1 (with lse), K6 and K7 at 16 bits against their plain versions on
     the same inputs (the backward on the kernel forward's out and lse):
-    within 1 ulp, K1's o with at most ``DIFF_SHARE`` of it different, lse
-    and the key-bias rows within 1e-4 (fp32, summation order and
-    3xTF32)."""
+    o, dq, dk and dv within 1 ulp with at most ``DIFF_SHARE`` of each
+    different, lse and the key-bias rows within 1e-4 (fp32, summation
+    order)."""
     _need_cuda()
     dt = DTYPES[dtype]
     q, k, v, g, bias, scale = (
@@ -424,6 +556,7 @@ def test_cuda_16bit_attention_matches_plain(dtype, B, T, Dh, causal,
     pairs = list(zip(got[:3], want[:3])) if T > 1 else [(got[2], want[2])]
     for a, b in pairs:
         assert a.dtype == dt and ulps(a.cpu(), b.cpu()) <= 1.0
+        assert float((a != b).float().mean()) <= DIFF_SHARE[dt]
     assert float((got[3] - want[3]).abs().max()) <= 1e-4 * max(
         1.0, float(want[3].abs().max()))
     inst = "bf16" if dt == torch.bfloat16 else "fp16"
@@ -454,6 +587,57 @@ def test_cuda_16bit_k1_takes_any_scale(dtype, scale):
         assert float((out != pout).float().mean()) <= DIFF_SHARE[dt]
         assert float((lse - plse).abs().max()) <= 1e-4 * max(
             1.0, float(plse.abs().max()))
+
+
+def _check_cuda_bwd(q, k, v, g, bias, scale, causal):
+    """K6 and K7 at 16 bits on the kernel forward's out and lse against
+    their plain versions: dq, dk, dv within 1 ulp with at most
+    ``DIFF_SHARE`` of each different, the key-bias rows within 1e-4."""
+    dt = q.dtype
+    out, lse = tfa._flash_fwd_cuda(q, k, v, bias, scale, causal, H,
+                                   with_lse=True)
+    dd = tfa._bwd_dd(out, g)
+    got = tfa._flash_bwd_cuda(q, k, v, bias, g, lse, dd, scale, causal, H)
+    want = tfa._plain_flash_bwd_dd(q, k, v, bias, g, lse, dd, scale, causal,
+                                   H)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == dt and ulps(a.cpu(), b.cpu()) <= 1.0
+        assert float((a != b).float().mean()) <= DIFF_SHARE[dt]
+    assert float((got[3] - want[3]).abs().max()) <= 1e-4 * max(
+        1.0, float(want[3].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_cuda_16bit_k6_k7_take_any_scale(dtype, scale):
+    """K6's and K7's 16-bit instances at a negative and a zero scale,
+    dense and causal, with and without the key bias, against the plain
+    versions: S is the unscaled product, and the scale comes after it."""
+    _need_cuda()
+    for causal, masked in ((False, False), (True, True)):
+        q, k, v, g, bias, _ = (
+            x.cuda() if isinstance(x, torch.Tensor) else x
+            for x in _inputs(7, 2, 130, dtype, masked, 64))
+        _check_cuda_bwd(q, k, v, g, bias, scale, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,causal", [(1024, True), (200, False)])
+def test_cuda_16bit_k6_k7_hold_small_gradients(dtype, T, causal):
+    """K6 and K7 at 16 bits with dO scaled by 2^-10: fp16's P and dS rows
+    are scaled by powers of two before their split, so their parts stay
+    out of fp16's subnormals and the contract holds as at unit gradients
+    (unscaled, dq and dk differ in ~25 % of the elements in the CPU
+    model)."""
+    _need_cuda()
+    q, k, v, g, _, scale = (
+        x.cuda() if isinstance(x, torch.Tensor) else x
+        for x in _inputs(11, 2, T, dtype, False, 64))
+    g = (g.float() * 2.0 ** -10).to(g.dtype)
+    _check_cuda_bwd(q, k, v, g, None, scale, causal)
 
 
 def _leaves(seed, shapes, dt, scale, positive=False, device="cuda"):
