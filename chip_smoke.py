@@ -75,11 +75,14 @@ Phases, each of which raises (exit code 1) on any failure:
    rows within ``KERNEL_TOL``), beside a control that rounds P and dS to
    the dtype before their products; K6's and K7's ulps and differing
    share at gluon16's B, H, D, causal, at T = 256 to 2048 and at small
-   dO, held to the same contract; K8's and K9's 16-bit, promoting (bf16;
-   the fp16 one refused by name) and ``multi_precision`` instances of
-   every rule they have, and the step after the promoting one, against
-   their plain loops bit for bit (gradient stages off and on), and the
-   all-finite kernel on 16-bit gradients; each timed beside its bound
+   dO, held to the same contract; the 16-bit update instances' packed
+   operations over all 2^32 cases each ("pairs:" lines); K8's and K9's
+   16-bit, promoting (bf16; the fp16 one refused by name) and
+   ``multi_precision`` instances of every rule they have, and the step
+   after the promoting one, against their plain loops bit for bit
+   (gradient stages off and on; the path's leaves and edge-value leaves),
+   and the all-finite kernel on 16-bit gradients; each timed beside its
+   bound
    (2 bytes per 16-bit element; the function's products at the inputs'
    989 TFLOP/s) and PyTorch's call at the same dtype (SDPA and its flash
    backward, the fused optimizers);
@@ -276,10 +279,11 @@ Phases, each of which raises (exit code 1) on any failure:
    and 2 equals the reference's; step 1's wall, ms per step, samples/s,
    one profiled step (at most 8 host launches);
 13. gluon16 ("gluon16:" lines): phase 7's loop cast to bf16, then to
-   fp16 with ``multi_precision=True``: 3 fused steps equal 3
-   ``fused=False`` steps bit for bit (losses, weights, states, masters),
-   5 timed steps in a window (K1, K6, K7's instances 12 a step, K8's
-   16-bit or master instance once), ms and tokens/s, peak bytes, the
+   fp16 with ``multi_precision=True``, then cast to bf16 under AdamW (wd
+   0.01): 3 fused steps equal 3 ``fused=False`` steps bit for bit
+   (losses, weights, states, masters), 5 timed steps in a window (K1, K6,
+   K7's instances 12 a step, the update's instance once: K8's 16-bit or
+   master one, or K9's bf16 ``adamw``), ms and tokens/s, peak bytes, the
    masters' dtype;
 14. oneshot16 ("oneshot16:" line): phase 8's encoder cast to bf16 behind
    ``InferenceEngine`` (bucket 32): a 32-row predict's wall and its
@@ -1673,6 +1677,61 @@ def half_library(rule, ws, gs, lr):
     return opt.step, "graph", "torch.optim.Adam(fused=True, capturable=True)"
 
 
+# the edge-value leaves of the 16-bit update check: lengths that are no
+# multiple of 8 (the ragged tails), one past a chunk, and the last leaf of
+# every array 8 bytes into its buffer (``misaligned``)
+EDGE_SHAPES = [(7,), (3, 5, 11), (16384 + 5,), (8 * 125 + 3,), (1003,)]
+
+
+def with_specials(xs, seed):
+    """``xs`` with every 37th element (from a seeded offset) and each last
+    one set to a special value of their dtype in turn: +-0, the least and
+    the largest subnormal, +-Inf, NaN and +-the largest finite."""
+    out = []
+    for i, x in enumerate(xs):
+        fi = torch.finfo(x.dtype)
+        sub = fi.smallest_normal * (1 - fi.eps)   # the largest subnormal
+        vals = torch.tensor([0.0, -0.0, fi.smallest_normal * fi.eps, -sub,
+                             sub, math.inf, -math.inf, math.nan, fi.max,
+                             -fi.max], dtype=torch.float64)
+        flat = x.clone().view(-1)
+        at = torch.arange((seed + i) % 37, flat.numel(), 37,
+                          device=x.device)
+        at = torch.cat([at, torch.tensor([flat.numel() - 1],
+                                         device=x.device)])
+        flat[at] = vals[torch.arange(len(at)) % len(vals)].to(
+            x.dtype).to(x.device)
+        out.append(flat.view(x.shape))
+    return out
+
+
+def misaligned(x):
+    """``x``'s values in a view 8 bytes into its own buffer: aligned to 8
+    bytes, not to 16 (the kernels' scalar path for the whole leaf)."""
+    k = 8 // x.element_size()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    view = buf[k:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def check_half_pairs():
+    """The packed operations of the 16-bit update instances, each held to
+    the scalar path over all 2^32 cases at bf16 and fp16
+    (``fused.half_pair_check``); prints the cases checked and the time."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    for tag, dt in HALF_DTYPES.items():
+        for op in fused.PAIR_OPS:
+            t0 = time.perf_counter()
+            n, first = fused.half_pair_check(op, dt)
+            torch.cuda.synchronize()
+            check(n == 0, f"packed {op} ({tag}): {n} of the 2^32 cases "
+                  f"differ from the scalar path, the first k = {first}")
+            print(f"pairs: packed {op} ({tag}) equals the scalar path over "
+                  f"all 2^32 cases ({time.perf_counter() - t0:.2f} s)",
+                  flush=True)
+
+
 def check_half_updates(fa, dev):
     """K8's and K9's 16-bit instances against their plain versions (the
     per-leaf ``cores`` loop with JAX's typing), bit for bit, stages off
@@ -1682,10 +1741,12 @@ def check_half_updates(fa, dev):
     399 (the train step's first step of a bf16 net) and the step after it
     (the fp32 instance over the bf16 moments read as fp32, the decay
     constants rounded to bf16), and the refusal of a promoting step over
-    fp16 leaves; then all-finite on 16-bit gradients (NaN, +Inf, -Inf).
-    Each instance timed at its path's leaves (adam; K9's rules at bf16)
-    beside its bound and PyTorch's call at the same dtype.  Returns the
-    rows."""
+    fp16 leaves, each also over ``EDGE_SHAPES`` holding special values
+    (``with_specials``; the last leaf of every array ``misaligned``);
+    then all-finite on 16-bit gradients (NaN, +Inf, -Inf).  Each
+    instance timed at its path's leaves (every rule at bf16 and fp16;
+    adam, sgd_mom and adamw in the other modes) beside its bound and
+    PyTorch's call at the same dtype.  Returns the rows."""
     from incubator_mxnet_tpu_torch.base import MXNetError
     from incubator_mxnet_tpu_torch.optimizer import fused
     from incubator_mxnet_tpu_torch.parallel import optim as fopt
@@ -1748,49 +1809,62 @@ def check_half_updates(fa, dev):
             continue
         if mode == "follow":       # fp32 values and gradients, bf16 state
             wdt, sdt = torch.float32, torch.float32
-        w0 = leaves(shapes, 0.02, torch.float32)
-        g = leaves(shapes, 1e-3, wdt if mode == "follow" else dt)
-        signed = leaves(shapes, 1e-4, dt if mode == "follow" else sdt)
-        squares = leaves(shapes, 1e-3, dt if mode == "follow" else sdt,
-                         positive=True)
-        squares = [x * x for x in squares]
-        if mode == "follow":      # bf16 moments, read as fp32
-            signed, squares = ([x.float() for x in xs]
-                               for xs in (signed, squares))
-        st0 = {"sgd": [], "adamw": [signed, squares],
-               "adam": [signed, squares], "rmsprop": [squares],
-               "adagrad": [squares]}.get(rule, [signed])
         inst = f"{mode}_{tag}" if mode != "plain" else tag
-        for stages in ((1.0, None, 0.0), (0.25, 0.004, 0.02)):
-            outs = []
-            for plain in (False, True):
-                w = [x.to(dt if mode == "master" else wdt, copy=True)
-                     for x in w0]
-                masters = [x.clone() for x in w0] if mode == "master" \
-                    else None
-                st = [[x.clone() for x in s] for s in st0]
-                new = call(rule, kernel, mode, w, [x.clone() for x in g], st,
-                           masters, stages, plain)
-                outs.append((new, st, masters))
-            torch.cuda.synchronize()
-            (nk, sk, mk), (np_, sp, mp) = outs
-            pairs = [("w", nk, np_)] + [(f"slot {j}", a, b) for j, (a, b)
-                                        in enumerate(zip(sk, sp))]
-            if mk is not None:
-                pairs.append(("master", mk, mp))
-            for what, a, b in pairs:
-                for i, (x, y) in enumerate(zip(a, b)):
-                    check(x.dtype == y.dtype, f"{kernel}.{inst} {rule} "
-                          f"{what} {i}: {x.dtype} != {y.dtype}")
-                    check(same_bits(x, y), f"{kernel}.{inst} {rule}: "
-                          f"{what} of leaf {i} {tuple(x.shape)} differs "
-                          f"from the plain version (stages {stages})")
-            if mode in ("promote", "follow"):
-                check(all(x.dtype == torch.float32 for x in nk),
-                      f"{kernel}.{inst}: the new weights are not fp32")
-            del outs, nk, sk, mk, np_, sp, mp, pairs
-        print(f"{kernel}.{inst} {rule} over {len(shapes)} leaves: bit for "
-              f"bit the plain version, stages off and on", flush=True)
+        # the edge-value leaves, then the path's (kept for the timing)
+        for edge in (True, False):
+            lv = EDGE_SHAPES if edge else shapes
+            w0 = leaves(lv, 0.02, torch.float32)
+            g = leaves(lv, 1e-3, wdt if mode == "follow" else dt)
+            signed = leaves(lv, 1e-4, dt if mode == "follow" else sdt)
+            squares = leaves(lv, 1e-3, dt if mode == "follow" else sdt,
+                             positive=True)
+            squares = [x * x for x in squares]
+            if edge:
+                w0, g, signed, squares = (with_specials(xs, k) for k, xs in
+                                          enumerate((w0, g, signed,
+                                                     squares)))
+            if mode == "follow":      # bf16 moments, read as fp32
+                signed, squares = ([x.float() for x in xs]
+                                   for xs in (signed, squares))
+            st0 = {"sgd": [], "adamw": [signed, squares],
+                   "adam": [signed, squares], "rmsprop": [squares],
+                   "adagrad": [squares]}.get(rule, [signed])
+            for stages in ((1.0, None, 0.0), (0.25, 0.004, 0.02)):
+                outs = []
+                for plain in (False, True):
+                    w = [x.to(dt if mode == "master" else wdt, copy=True)
+                         for x in w0]
+                    masters = [x.clone() for x in w0] \
+                        if mode == "master" else None
+                    st = [[x.clone() for x in s] for s in st0]
+                    gs = [x.clone() for x in g]
+                    for xs in ([w, gs] + st + ([masters] if masters else [])
+                               if edge else ()):
+                        xs[-1] = misaligned(xs[-1])
+                    new = call(rule, kernel, mode, w, gs, st, masters,
+                               stages, plain)
+                    outs.append((new, st, masters))
+                torch.cuda.synchronize()
+                (nk, sk, mk), (np_, sp, mp) = outs
+                pairs = [("w", nk, np_)] + [(f"slot {j}", a, b) for j, (a, b)
+                                            in enumerate(zip(sk, sp))]
+                if mk is not None:
+                    pairs.append(("master", mk, mp))
+                for what, a, b in pairs:
+                    for i, (x, y) in enumerate(zip(a, b)):
+                        check(x.dtype == y.dtype, f"{kernel}.{inst} {rule} "
+                              f"{what} {i}: {x.dtype} != {y.dtype}")
+                        check(same_bits(x, y), f"{kernel}.{inst} {rule}: "
+                              f"{what} of leaf {i} {tuple(x.shape)} "
+                              f"differs from the plain version (stages "
+                              f"{stages}{', edge values' if edge else ''})")
+                if mode in ("promote", "follow"):
+                    check(all(x.dtype == torch.float32 for x in nk),
+                          f"{kernel}.{inst}: the new weights are not fp32")
+                del outs, nk, sk, mk, np_, sp, mp, pairs
+        print(f"{kernel}.{inst} {rule} over {len(shapes)} leaves and "
+              f"{len(EDGE_SHAPES)} edge-value leaves: bit for bit the plain "
+              f"version, stages off and on", flush=True)
         if mode == "follow":      # the fp32 instance, timed in phase 3
             del w0, g, signed, squares, st0
             continue
@@ -1801,8 +1875,7 @@ def check_half_updates(fa, dev):
             if kernel == "multi_tensor_adam" else
             "incubator_mxnet_tpu/optimizer/fused.py:636",
             "max_abs_err": 0.0, "instances": {}})
-        timed = (rule == "adam" or (mode == "plain" and tag == "bf16")
-                 or rule in ("sgd_mom", "adamw"))
+        timed = mode == "plain" or rule in ("adam", "sgd_mom", "adamw")
         if timed:
             n = sum(math.prod(s) for s in shapes)
             w = [x.to(dt if mode == "master" else wdt, copy=True)
@@ -1875,12 +1948,14 @@ def check_half_updates(fa, dev):
             "shape": f"gpt2_124m, {len(shapes)} leaves, {n} parameters"}
         del g
     torch.cuda.empty_cache()
-    # the headline of each update row: adam where timed, else its first
+    # the headline of each update row: the rule its path launches
+    # (GLUON16_CASES), else adam where timed, else sgd_mom, else its first
+    path_rule = {inst: opt for _, _, opt, _, inst in GLUON16_CASES}
     for r in rows.values():
         if "instances" in r:
-            first = r["instances"].get("adam") or \
-                r["instances"].get("sgd_mom") or \
-                next(iter(r["instances"].values()))
+            ins = r["instances"]
+            first = ins.get(path_rule.get(r["name"])) or ins.get("adam") \
+                or ins.get("sgd_mom") or next(iter(ins.values()))
             r.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")})
             r["eager_ms"] = None
@@ -2961,6 +3036,33 @@ def trace_summary(path, thread_names=None):
                                       if e.get("cat") == "cpu_op"})}
 
 
+# the router's counters the fleet's capture prints the movement of
+ROUTER_COUNTERS = ("mxtpu_router_requests", "mxtpu_router_retries",
+                   "mxtpu_router_failovers", "mxtpu_router_ejections",
+                   "mxtpu_router_incidents")
+
+
+def router_counters(base):
+    return {name: metric_sum(base, name) for name in ROUTER_COUNTERS}
+
+
+def readiness_summary(probes, a, b):
+    """What the /readyz probes (t, target, status or None, ms) that
+    started between ``a`` and ``b`` saw, per target: answers, the
+    slowest, and the answers that were not 200."""
+    out = []
+    for name in sorted({n for _, n, _, _ in probes}):
+        seen = [(st, ms) for t, n, st, ms in probes if n == name
+                and a <= t <= b]
+        if not seen:
+            continue
+        bad = [st for st, _ in seen if st != 200]
+        out.append(f"{name} /readyz {len(seen)} answers, slowest "
+                   f"{max(ms for _, ms in seen):.0f} ms, not 200: "
+                   f"{len(bad)} {sorted(set(map(str, bad)))}")
+    return "; ".join(out)
+
+
 def fleet_launches(base):
     """The fleet-summed ``mxtpu_kernel_launches`` by kernel from the
     router's federated ``/metrics``, read after ``FEDERATE_WAIT``."""
@@ -3328,7 +3430,26 @@ def drive_fleet(card, ref_path):
                 n += 1
         streams = [threading.Thread(target=looping, args=(i,))
                    for i in range(len(prompts))]
-        for t in streams:
+        # every replica's /readyz (as the router's health poll reads it)
+        # and the router's own, each polled every 0.25 s by its own thread
+        # through the capture: how long each answer took, and its status
+        probes, router0 = [], router_counters(base)
+
+        def probing(name, url):
+            while not stop.is_set():
+                t = time.perf_counter()
+                try:
+                    status = http_json(url, "/readyz", timeout=60)[0]
+                except Exception:            # a reset, a timeout
+                    status = None
+                probes.append((t, name, status,
+                               (time.perf_counter() - t) * 1e3))
+                time.sleep(0.25)
+        probers = [threading.Thread(target=probing, args=(
+            name, url), daemon=True) for name, url in
+            [(ids[p], f"http://127.0.0.1:{p}") for p in sorted(ids)]
+            + [("router", base)]]
+        for t in streams + probers:
             t.start()
         time.sleep(2.0)
         probe_port = sorted(ids)[0]
@@ -3349,8 +3470,14 @@ def drive_fleet(card, ref_path):
         t_cap1 = time.perf_counter()
         time.sleep(2.0)
         stop.set()
-        for t in streams:
+        for t in streams + probers:
             t.join(timeout=600)
+        router1 = router_counters(base)
+        ready = readiness_summary(probes, t_cap0, t_cap1)
+        print(f"fleet: during the capture ({t_cap1 - t_cap0:.1f} s): "
+              f"{ready}; the router's counters moved by "
+              f"{ {k: router1[k] - router0[k] for k in router0} } "
+              f"[{card}]", flush=True)
         check(capture.returncode == 0, f"fleet: mxtpu-stats-torch --profile "
               f"exited {capture.returncode}: {cap_err[-2000:]}")
         check(busy[0] == 409 and int(busy[1]["Retry-After"]) >= 1,
@@ -3380,7 +3507,7 @@ def drive_fleet(card, ref_path):
                   for i, r in records if r.get("status") != 200
                   or r["events"][-1:] != ["done"]]
         check(records and not failed, f"fleet: {len(failed)} streams "
-              f"failed during the capture: {failed[:8]}")
+              f"failed during the capture: {failed[:8]}; {ready}")
         finished = {i for i, r in records if t_cap0 <= r["t_done"] <= t_cap1}
         check(finished == set(range(len(prompts))), f"fleet: only the "
               f"streams {sorted(finished)} finished a request inside the "
@@ -3512,12 +3639,14 @@ def drive_fleet(card, ref_path):
 
 def keep_fleet_files(tmp, root):
     """Copy a failed fleet phase's directory (the replica logs, the
-    router's incidents, the flight dumps and profiles) to
-    ``chiprun_out/<its name>`` under the checkout, where a run's outputs
-    are kept, and print where."""
+    router's incidents, the flight dumps and the profiles' capture.json;
+    not their traces, tens of MB each) to ``chiprun_out/<its name>``
+    under the checkout, where a run's outputs are kept, and print
+    where."""
     dest = root / "chiprun_out" / tmp.name
     try:
-        shutil.copytree(tmp, dest, dirs_exist_ok=True)
+        shutil.copytree(tmp, dest, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("trace.json"))
         print(f"fleet: the phase failed; its logs and incidents are kept in "
               f"{dest}", flush=True)
     except OSError as e:
@@ -5157,11 +5286,14 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
-# the 16-bit Gluon loops: (tag, the net's dtype, Trainer options, K8's
-# instance)
-GLUON16_CASES = (("bf16", "bfloat16", {}, "bf16"),
-                 ("fp16 multi_precision", "float16",
-                  {"multi_precision": True}, "master_fp16"))
+# the 16-bit Gluon loops: (tag, the net's dtype, the optimizer, its
+# options beside the learning rate, the update kernel's instance that
+# launches once a step)
+GLUON16_CASES = (("bf16", "bfloat16", "adam", {}, "multi_tensor_adam.bf16"),
+                 ("fp16 multi_precision", "float16", "adam",
+                  {"multi_precision": True}, "multi_tensor_adam.master_fp16"),
+                 ("bf16 adamw", "bfloat16", "adamw", {"wd": 0.01},
+                  "multi_tensor_update.bf16"))
 
 
 def gluon16_net(dtype):
@@ -5198,23 +5330,26 @@ def gluon16_step_fn():
 
 def drive_gluon16(fa, card):
     """``train_gpt.py``'s Gluon loop (phase 7) at 16 bits: ``gpt2_124m``
-    (B = 8, T = 1024, Adam through ``FusedUpdater``) cast to bf16, then
-    cast to fp16 with ``multi_precision=True`` (``GLUON16_CASES``).  For
-    each: 3 fused steps equal 3 ``fused=False`` steps bit for bit (losses,
-    weights, states, masters), ``TRAIN_STEPS`` timed steps in a
-    launch-count window (K1, K6, K7's 16-bit instances 12 times per step,
-    K8's 16-bit or multi_precision instance once), ms per step and
-    tokens/s (CUDA events, median), peak allocated bytes, finite losses,
-    and the masters' dtype.  Returns the windows' counts summed."""
+    (B = 8, T = 1024, through ``FusedUpdater``) cast to bf16 under Adam,
+    cast to fp16 with ``multi_precision=True`` under Adam, and cast to
+    bf16 under AdamW (``GLUON16_CASES``).  For each: 3 fused steps equal 3
+    ``fused=False`` steps bit for bit (losses, weights, states, masters),
+    ``TRAIN_STEPS`` timed steps in a launch-count window (K1, K6, K7's
+    16-bit instances 12 times per step, the case's update instance once:
+    K8's 16-bit or multi_precision one, K9's bf16 ``adamw``), ms per step
+    and tokens/s (CUDA events, median), peak allocated bytes, finite
+    losses, and the masters' dtype.  Returns the windows' counts
+    summed."""
     import incubator_mxnet_tpu_torch as mx
     V, B, T = GPT_VOCAB, GLUON_B, GLUON_T
     step = gluon16_step_fn()
     total = {}
-    for tag, dtype, opts, inst in GLUON16_CASES:
+    for tag, dtype, optimizer, opts, inst in GLUON16_CASES:
         net, ref_net = gluon16_net(dtype), gluon16_net(dtype)
         opt = dict({"learning_rate": GLUON_LR}, **opts)
-        trainer = mx.gluon.Trainer(net.collect_params(), "adam", opt)
-        ref = mx.gluon.Trainer(ref_net.collect_params(), "adam", opt,
+        mp = bool(opts.get("multi_precision"))
+        trainer = mx.gluon.Trainer(net.collect_params(), optimizer, opt)
+        ref = mx.gluon.Trainer(ref_net.collect_params(), optimizer, opt,
                                fused=False)
         rng = np.random.RandomState(SEED)
 
@@ -5238,11 +5373,11 @@ def drive_gluon16(fa, card):
                   f"gluon16 {tag}: optimizer state {i} differs from the "
                   f"loop's")
         st0 = next(iter(trainer._updaters.states.values()))
-        masters = str(st0[0]._data.dtype) if opts else "none"
+        masters = str(st0[0]._data.dtype) if mp else "none"
         w_dt = str(next(iter(params.values())).data()._data.dtype)
         print(f"gluon16 {tag}: {TRAIN_CHECK} fused steps equal {TRAIN_CHECK}"
               f" fused=False steps bit for bit (losses {losses}, every "
-              f"weight, state{' and master' if opts else ''}); weights "
+              f"weight, state{' and master' if mp else ''}); weights "
               f"{w_dt}, masters {masters}", flush=True)
         del ref, ref_net, ref_params
         torch.cuda.empty_cache()
@@ -5274,13 +5409,12 @@ def drive_gluon16(fa, card):
         half = "bf16" if dtype == "bfloat16" else "fp16"
         expect = {f"flash_fwd.{half}": GPT_LAYERS,
                   f"flash_bwd_dq.{half}": GPT_LAYERS,
-                  f"flash_bwd_dkv.{half}": GPT_LAYERS,
-                  f"multi_tensor_adam.{inst}": 1}
+                  f"flash_bwd_dkv.{half}": GPT_LAYERS, inst: 1}
         for name in set(counts) | set(expect):
             k, want = counts.get(name, 0), expect.get(name, 0) * TRAIN_STEPS
             check(k == want, f"gluon16 {tag}: kernel {name} launched {k} "
                   f"times, expected {want}")
-        check(masters == ("torch.float32" if opts else "none"),
+        check(masters == ("torch.float32" if mp else "none"),
               f"gluon16 {tag}: masters {masters}")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
@@ -5457,6 +5591,7 @@ def main():
     if args.half:
         rows = check_half_attention(fa, dev, rng)
         half_bwd_sweep(fa, dev)
+        check_half_pairs()
         for r in rows + check_half_updates(fa, dev):
             print(json.dumps(r), flush=True)
         return                               # a phase, no result
@@ -5470,6 +5605,7 @@ def main():
              check_k10(fa, dev)]
     rows += check_half_attention(fa, dev, rng)
     half_bwd_sweep(fa, dev)
+    check_half_pairs()
     rows += check_half_updates(fa, dev)
     for r in rows:
         eager = "" if r["eager_ms"] is None else \

@@ -25,6 +25,14 @@ autograd engine's device thread during a captured backward) are the
 graph's tally, not launches: pass it to
 :func:`.kernels.flash_attention.add_launches` at each replay.
 
+A capture registers the port's generator of its device (``random``,
+dropout's masks) with the graph, so each replay draws from the
+generator's state at that moment, as an eager run would, and advances
+it: a new mask every replay, the one the eager body would draw.  A draw
+under capture from any other generator, or where this torch cannot
+register one, raises :class:`MXNetError` (:func:`check_capture_draws`)
+rather than replaying one mask.
+
 :func:`counted` runs a program's body eagerly and counts its FLOPs from
 shapes, the MFU collector's numerator: ``torch.utils.flop_counter.
 FlopCounterMode`` for the aten ops, plus what the attention kernels report
@@ -37,12 +45,19 @@ import threading
 
 import torch
 
+from . import random as _random
+from .base import MXNetError
 from .kernels.flash_attention import captured_launches, counted_flops
 
 __all__ = ["CAPTURE_LOCK", "DISPATCH_GATE", "DispatchGate",
-           "on_side_stream", "capture", "counted", "HostCopy"]
+           "on_side_stream", "capture", "check_capture_draws", "counted",
+           "HostCopy"]
 
 CAPTURE_LOCK = threading.Lock()
+# the ids of the generators the open capture registered (None outside a
+# capture): process-wide, as a captured backward draws on the autograd
+# engine's device thread; captures are serialised (CAPTURE_LOCK)
+_open_gens = None
 
 
 class DispatchGate:
@@ -117,21 +132,60 @@ def capture(fn, device, pool):
     :data:`CAPTURE_LOCK`.  Nothing runs.  Returns (graph, ``fn``'s
     outputs, the kernel launches the graph holds, the bytes the capture
     added to the allocator's reserve)."""
+    global _open_gens
     collecting = gc.isenabled()
+    gen = None
     try:
         gc.disable()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
+        _open_gens = set()
+        register = getattr(graph, "register_generator_state", None)
+        if register is not None:          # torch >= 2.4
+            gen = _random.generator(device)
+            register(gen)
+            _open_gens.add(id(gen))
         with captured_launches() as tally:
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 out = fn()
         grown = torch.cuda.memory_reserved(device) - reserved
+    except BaseException:
+        if gen is not None:
+            _end_capture_of(gen)
+        raise
     finally:
+        _open_gens = None
         if collecting:
             gc.enable()
     return graph, out, dict(tally), grown
+
+
+def _end_capture_of(gen) -> None:
+    """Take ``gen`` out of capture mode after a failed capture: torch ends
+    a registered generator's capture only in a capture that ends well, and
+    until then every draw from it outside a capture raises.  An empty
+    capture that registers it ends it; the graphs registered before keep
+    drawing from it."""
+    empty = torch.cuda.CUDAGraph()
+    empty.register_generator_state(gen)
+    with torch.cuda.graph(empty, capture_error_mode="thread_local"):
+        pass
+
+
+def check_capture_draws(gen) -> None:
+    """Raise :class:`MXNetError` unless the open capture registered
+    ``gen`` (a draw from it under capture is then replayed with each
+    replay's own state)."""
+    gens = _open_gens
+    if gens is None or id(gen) not in gens:
+        raise MXNetError(
+            "a random draw (dropout) under CUDA graph capture from a "
+            "generator the capture did not register: every replay would "
+            "reuse one mask.  Capture through cuda_graphs.capture (it "
+            "registers the port's generator of its device; torch >= 2.4), "
+            "or set dropout to 0")
 
 
 def counted(fn):

@@ -203,7 +203,10 @@ class Dropout(HybridBlock):
     """Dropout at ``rate``.  Called through the Gluon surface (with
     NDArrays) it is active while ``autograd.is_training()``; called with
     tensors it follows the module's ``training`` flag, as the serving
-    engine and ``SPMDTrainer`` set it."""
+    engine and ``SPMDTrainer`` set it.  Its masks come from the port's
+    generator of the input's device (``ndarray.ops.dropout_tensor``), so
+    ``mx.random.seed`` fixes them and a checkpoint's ``rng`` carries
+    them, as the JAX layer's come from the framework's key stream."""
 
     def __init__(self, rate=0.0, axes=(), prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -216,12 +219,7 @@ class Dropout(HybridBlock):
             else self.training
         if not training or self._rate <= 0.0:
             return x
-        if not self._axes:
-            return F.dropout(x, self._rate, training=True)
-        shape = tuple(x.shape[i] if i in self._axes else 1
-                      for i in range(x.dim()))
-        keep = torch.rand(shape, device=x.device) >= self._rate
-        return torch.where(keep, x / (1.0 - self._rate), torch.zeros_like(x))
+        return _ops.dropout_tensor(x, self._rate, self._axes or None)
 
 
 class Flatten(HybridBlock):

@@ -21,8 +21,8 @@ from typing import Dict, List
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "ARGTYPES", "HEADERS", "build_all", "library",
-           "build_report"]
+__all__ = ["KERNELS", "ARGTYPES", "HEADERS", "COUNTED", "build_all",
+           "library", "build_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -63,13 +63,19 @@ ARGTYPES = {
     "all_finite": [_I, _P, _I, _P, _P, _P],
     "multi_tensor_update": [_I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _F, _F,
                             _F, _I, _P, _P, _P],
+    "half_pair_check": [_I, _I, _P, _P],
     "multi_tensor_lamb": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F,
                           _F, _F, _I, _P, _P, _P],
 }
-# the C entry points of each kernel's library: its own, and beside K8 the
-# skip_nonfinite guard's all-finite check over the same leaf table
+# the C entry points of each kernel's library: its own, beside K8 the
+# skip_nonfinite guard's all-finite check over the same leaf table, and
+# beside K9 the test of its 16-bit instances' packed operations
 ENTRIES = {name: (name,) for name in KERNELS}
 ENTRIES["multi_tensor_adam"] += ("all_finite",)
+ENTRIES["multi_tensor_update"] += ("half_pair_check",)
+# the entry points that launch kernels of the paths (the launch counts'
+# names): all but the test of the card's instructions
+COUNTED = tuple(name for name in ARGTYPES if name != "half_pair_check")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

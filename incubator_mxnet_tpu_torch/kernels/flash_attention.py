@@ -88,7 +88,7 @@ _FWD_TILE = 64          # query rows (K1, K6) or keys (K7) per block
 # kernel name -> launches since the last reset (kernel launches only; the
 # plain versions never count); a 16-bit instance's name is added at its
 # first launch and removed by a reset
-launch_counts = {name: 0 for name in _build.ARGTYPES}
+launch_counts = {name: 0 for name in _build.COUNTED}
 
 
 # the counters are shared by every thread (a server replays several
@@ -105,7 +105,7 @@ _open_tally = None
 def reset_launch_counts() -> None:
     with _counts_lock:
         for name in list(launch_counts):
-            if name in _build.ARGTYPES:
+            if name in _build.COUNTED:
                 launch_counts[name] = 0
             else:
                 del launch_counts[name]

@@ -12,12 +12,14 @@ scopes, so :func:`..convert.load_jax_params` carries a JAX BERT across by
 name."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import initializer as _init
+from .. import random as _random
 from ..base import MXNetError, getenv_bool
 from ..context import resolve_device
 from ..gluon.loss import SoftmaxCrossEntropyLoss
@@ -157,11 +159,29 @@ def maybe_remat_cell(cell, x, *rest):
     ``MXNET_BACKWARD_DO_MIRROR`` is set and a gradient is being recorded:
     the layer's activations are then recomputed in the backward instead of
     saved (the JAX package's ``jax.checkpoint``).  The recompute runs the
-    layer's forward, and so K1, a second time."""
+    layer's forward, and so K1, a second time, and draws its dropout masks
+    again from the port's generator of ``x``'s device, set back to its
+    state before the forward (torch's checkpoint keeps only its own
+    default generators' states), so they are the forward's."""
     if not getenv_bool("MXNET_BACKWARD_DO_MIRROR") \
             or not torch.is_grad_enabled():
         return cell(x, *rest)
-    return checkpoint(cell, x, *rest, use_reentrant=False)
+    gen = _random.generator(x.device)
+
+    def contexts():
+        before = gen.get_state()          # called before the forward runs
+
+        @contextlib.contextmanager
+        def recompute():
+            now = gen.get_state()
+            gen.set_state(before)
+            try:
+                yield
+            finally:
+                gen.set_state(now)
+        return contextlib.nullcontext(), recompute()
+    return checkpoint(cell, x, *rest, use_reentrant=False,
+                      context_fn=contexts)
 
 
 class BERTEncoder(HybridBlock):

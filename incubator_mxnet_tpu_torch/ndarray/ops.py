@@ -616,6 +616,28 @@ def add_n(*args):
 ElementWiseSum = add_n
 
 
+def dropout_tensor(x, p, axes=None, gen=None):
+    """Tensor ``x`` with each element kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``, else 0; with ``axes`` one draw per index of
+    those axes, shared along the others (the JAX package's mask shape).
+    The mask is drawn from ``gen``, by default the port's generator of
+    ``x``'s device (``..random``), so ``random.seed`` fixes it and
+    ``random.get_state`` carries it.  Under CUDA graph capture the
+    generator must be the one the capture registered
+    (``cuda_graphs.capture``): each replay then draws a new mask; any
+    other raises :class:`MXNetError`."""
+    from .. import cuda_graphs as _graphs
+    from .. import random as _random
+    if gen is None:
+        gen = _random.generator(x.device)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        _graphs.check_capture_draws(gen)
+    shape = x.shape if axes is None else tuple(
+        x.shape[i] if i in axes else 1 for i in range(x.dim()))
+    keep = torch.rand(shape, generator=gen, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 def dropout(data, p=0.5, mode="training", axes=None):
     """Dropout drawn from the context's generator (``..random``)."""
     from .. import random as _random
@@ -623,13 +645,8 @@ def dropout(data, p=0.5, mode="training", axes=None):
     if p <= 0 or mode != "training":
         return identity(d)
     gen = _random.generator(d.context)
-
-    def fn(x):
-        shape = x.shape if axes is None else tuple(
-            x.shape[i] if i in axes else 1 for i in range(x.dim()))
-        keep = torch.rand(shape, generator=gen, device=x.device) >= p
-        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
-    return _invoke(fn, [d], name="dropout")
+    return _invoke(lambda x: dropout_tensor(x, p, axes, gen), [d],
+                   name="dropout")
 
 
 Dropout = dropout

@@ -32,7 +32,8 @@ for ``multi_precision``; see ``_PREC``); K10 takes fp32.
 of K8's source's all-finite kernel over every gradient leaf on the card,
 which sets a device flag that a guarded update of any of the three reads
 before any write (no host sync); a per-leaf ``isfinite().all()`` loop on
-the CPU.
+the CPU.  :func:`half_pair_check` is a test, on the card, of the packed
+two-element arithmetic K8's and K9's 16-bit instances run on.
 
 :class:`FusedUpdater` is the Gluon ``Trainer``'s whole-tree update (the
 JAX package's, without ZeRO-1) for the seven rules the JAX package fuses,
@@ -60,6 +61,7 @@ from . import cores
 from .optimizer import (NAG, SGD, AdaGrad, Adam, AdamW, LAMB, RMSProp)
 
 __all__ = ["adam_update", "multi_tensor_update", "lamb_update",
+           "half_pair_check",
            "all_finite", "FusedUpdater", "functional_twin"]
 
 # the rules the whole-tree update takes, by exact type (NAG subclasses
@@ -466,6 +468,46 @@ def multi_tensor_update(rule: str, params: Sequence[torch.Tensor],
         return _multi_tensor_update_cuda(*args)
     raise MXNetError(f"multi_tensor_update: unsupported device "
                      f"{params[0].device}")
+
+
+# The packed operations of K8's and K9's 16-bit instances (two elements
+# per instruction, multi_tensor_common.cuh ``V2``), by their code in
+# ``mx_half_pair_check``: +, -, *, the packed rounding of two floats, and
+# / (``quot16``, two lanes in fp32 and one packed rounding)
+PAIR_OPS = {"add": 0, "sub": 1, "mul": 2, "pack": 3, "div": 4}
+
+
+def half_pair_check(op: str, dtype: torch.dtype,
+                    device="cuda:0") -> Tuple[int, Optional[int]]:
+    """Hold one packed operation of the 16-bit update instances to the
+    scalar path on the card, over every case: for ``add``, ``sub``,
+    ``mul`` and ``div`` every pair of ``dtype`` (bf16 or fp16) operands,
+    in each lane, against the fp32 operation (``__fdiv_rn`` for ``div``)
+    rounded to ``dtype``; for ``pack`` every fp32 value against its scalar
+    rounding.  Returns (cases that differ,
+    the smallest such 32-bit case or None): equal bits, or NaN on both
+    sides, agree.  A test of the card's instructions, with no plain
+    version: other devices raise."""
+    dev = torch.device(device)
+    if op not in PAIR_OPS:
+        raise MXNetError(f"half_pair_check: unknown op {op!r} (have "
+                         f"{sorted(PAIR_OPS)})")
+    if dtype not in cores.HALF:
+        raise MXNetError(f"half_pair_check: {dtype} is not a 16-bit type")
+    if dev.type != "cuda":
+        raise MXNetError(f"half_pair_check: checks the card's packed "
+                         f"instructions; no plain version on {dev}")
+    out = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+    lib = _build.library("multi_tensor_update")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mx_half_pair_check(_PREC[("plain", dtype)], PAIR_OPS[op],
+                                    out.data_ptr(), stream)
+    if rc:
+        raise MXNetError(f"half_pair_check: launch failed: "
+                         f"{lib.mx_error_string(rc).decode()}")
+    n, first = (int(v) for v in out.cpu())
+    return n, (first & 0xffffffff if n else None)
 
 
 # ---------------------------------------------------------------------------

@@ -168,10 +168,14 @@ def _zeros_like(weight: NDArray, dtype=None) -> NDArray:
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    """``x`` as a 0-d fp32 tensor on ``like``'s device: a divisor there.
-    (CUDA divides by a host scalar as a multiply by its reciprocal, which
-    is not the true division the reference and the kernels do.)"""
-    return torch.full((), x, dtype=torch.float32, device=like.device)
+    """The Python number ``x`` as a 0-d tensor on ``like``'s device: a
+    divisor there, typed as JAX types a weak constant beside ``like``
+    (fp32, or ``like``'s 16-bit dtype, rounded through fp32: no
+    promotion, as the fused update's ``_hp``).  (CUDA divides by a host
+    scalar as a multiply by its reciprocal, which is not the true
+    division the reference and the kernels do.)"""
+    t = torch.full((), x, dtype=torch.float32, device=like.device)
+    return t.to(like.dtype) if like.dtype in cores.HALF else t
 
 
 def _clip(g, clip_gradient):

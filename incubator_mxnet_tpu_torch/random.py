@@ -5,8 +5,15 @@ seeded from the last :func:`seed` (``MXNET_SEED`` at import, else 0).
 ``seed(s)`` reseeds every device; ``seed(s, ctx)`` one.  Host randomness
 (weight initializers) draws from the CPU generator through
 :func:`numpy_rng`, so a seed gives the same weights on the CPU and on the
-card.  JAX's threefry stream is not reproduced: a seed gives other
-numbers here than in the JAX package.
+card; dropout masks (``nd.dropout``, ``gluon.nn.Dropout``) draw from the
+generator of their input's device.  JAX's threefry stream is not
+reproduced: a seed gives other numbers here than in the JAX package.
+
+A device's generator stays the same object for the life of the process:
+:func:`seed` and :func:`set_state` change its state in place.  A CUDA
+graph registers the generator of its device when it is captured
+(``cuda_graphs.capture``), and each replay then draws from its state at
+that moment, as an eager run would, and advances it.
 
 :func:`get_state`/:func:`set_state` snapshot and restore every device's
 generator, the seed new generators take, and numpy's global generator
@@ -31,17 +38,26 @@ _gens: dict = {}            # torch.device -> torch.Generator
 
 
 def seed(seed_state: int, ctx="all") -> None:
-    """Reseed every device's generator (``ctx='all'``) or one device's."""
+    """Reseed every device's generator (``ctx='all'``; the generators made
+    later take this seed too) or one device's."""
     global _seed
     with _lock:
         if ctx == "all":
             _seed = int(seed_state)
-            _gens.clear()
+            for g in _gens.values():
+                g.manual_seed(_seed)
         else:
-            dev = as_context(ctx).device
-            g = torch.Generator(device=dev)
-            g.manual_seed(int(seed_state))
-            _gens[dev] = g
+            _get(as_context(ctx).device).manual_seed(int(seed_state))
+
+
+def _get(dev: torch.device) -> torch.Generator:
+    """``dev``'s generator, made and seeded now if it is the first use;
+    the caller holds ``_lock``."""
+    g = _gens.get(dev)
+    if g is None:
+        g = _gens[dev] = torch.Generator(device=dev)
+        g.manual_seed(_seed)
+    return g
 
 
 def generator(ctx=None) -> torch.Generator:
@@ -49,11 +65,7 @@ def generator(ctx=None) -> torch.Generator:
     context)."""
     dev = as_context(ctx).device
     with _lock:
-        g = _gens.get(dev)
-        if g is None:
-            g = _gens[dev] = torch.Generator(device=dev)
-            g.manual_seed(_seed)
-        return g
+        return _get(dev)
 
 
 def numpy_rng() -> _np.random.RandomState:
@@ -85,9 +97,11 @@ def get_state() -> dict:
 
 
 def set_state(state: dict) -> None:
-    """Restore a :func:`get_state` snapshot: generators absent from it are
-    dropped (the captured picture comes back exactly).  A snapshot of the
-    JAX package's key streams is refused by name."""
+    """Restore a :func:`get_state` snapshot, in place: each generator of
+    the snapshot takes its state, and one absent from it the snapshot's
+    seed, as if it were made after it (the captured picture comes back
+    exactly).  A snapshot of the JAX package's key streams is refused by
+    name."""
     from .base import MXNetError
     if not isinstance(state, dict) or state.get("format") != "torch":
         raise MXNetError(
@@ -100,10 +114,8 @@ def set_state(state: dict) -> None:
         kind, _, idx = name.partition(":")
         dev = torch.device(kind, int(idx or 0)) if kind == "cuda" \
             else torch.device("cpu")
-        g = torch.Generator(device=dev)
-        g.set_state(torch.frombuffer(bytearray(base64.b64decode(data)),
-                                     dtype=torch.uint8))
-        gens[dev] = g
+        gens[dev] = torch.frombuffer(bytearray(base64.b64decode(data)),
+                                     dtype=torch.uint8)
     np_state = state["numpy"]
     _np.random.set_state((np_state["kind"],
                           _np.array(np_state["keys"], dtype=_np.uint32),
@@ -111,5 +123,9 @@ def set_state(state: dict) -> None:
                           np_state["cached_gaussian"]))
     with _lock:
         _seed = int(state["seed"])
-        _gens.clear()
-        _gens.update(gens)
+        for dev in set(_gens) | set(gens):
+            g = _get(dev)
+            if dev in gens:
+                g.set_state(gens[dev])
+            else:
+                g.manual_seed(_seed)

@@ -478,6 +478,16 @@ class Router:
         self._eligible()            # refresh the eligible-count gauge
 
     def _poll_timeout(self) -> float:
+        """How long a health poll waits for ``/readyz`` and ``/slo``: a
+        few health intervals, at most 2 s; while this router's own
+        profile fan-out runs, as long as a proxied attempt
+        (:meth:`_attempt_timeout`).  A captured replica answers nothing
+        while its profiler stops and exports (12.6-16.4 s on an H100 with
+        two gpt2_124m replicas): a poll that gave up sooner marked every
+        captured replica unready and ejected it, and requests arriving
+        then met the router's 503 (no eligible replica)."""
+        if self._captures:
+            return self._attempt_timeout()
         return min(2.0, max(0.25, self.health_interval * 4.0))
 
     def _poll(self, rep: Replica) -> None:

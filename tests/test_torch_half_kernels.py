@@ -22,6 +22,8 @@ largest value.  The backward of both sides reads the same out and lse
 The JAX functions called here are pure: no JAX-package global is read or
 written."""
 import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from incubator_mxnet_tpu_torch.base import MXNetError
 tfa = importlib.import_module(
     "incubator_mxnet_tpu_torch.kernels.flash_attention")
 
+ROOT = Path(__file__).resolve().parents[1]
 H, D = 2, 16
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 ULP_FLOOR = 2.0 ** -8
@@ -663,8 +666,15 @@ def test_cuda_16bit_updates_match_plain_bit_for_bit(mode, dtype, rule):
     with the gradient stages on; NaN where both are NaN.  "follow" is the
     step after a promoting one (fp32 values, bf16 moments read as fp32,
     the decay constants rounded to bf16: the fp32 instance); a promoting
-    step over fp16 leaves raises by name on both."""
+    step over fp16 leaves raises by name on both.  The leaves are
+    ``SHAPES`` and ``chip_smoke.EDGE_SHAPES`` (most lengths not multiples
+    of 8: the ragged tails), every one holding special values
+    (``chip_smoke.with_specials``: +-0, subnormals, +-Inf, NaN), and the
+    last leaf of every array starts 8 bytes into its buffer
+    (``chip_smoke.misaligned``)."""
     _need_cuda()
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import EDGE_SHAPES, misaligned, with_specials
     from incubator_mxnet_tpu_torch.optimizer import fused
     from incubator_mxnet_tpu_torch.parallel import optim as fopt
     if mode in ("promote", "follow") and rule not in fused.PROMOTING:
@@ -672,15 +682,20 @@ def test_cuda_16bit_updates_match_plain_bit_for_bit(mode, dtype, rule):
                     "in the train step")
     dt = DTYPES[dtype]
     sdt = torch.float32 if mode == "master" else dt
-    w0 = _leaves(1, SHAPES, torch.float32, 0.02)
-    g = _leaves(2, SHAPES, dt, 1e-3)
-    st0 = {"sgd": [], "adam": [_leaves(3, SHAPES, sdt, 1e-4),
-                               _leaves(4, SHAPES, sdt, 1e-3, True)],
-           "adamw": [_leaves(3, SHAPES, sdt, 1e-4),
-                     _leaves(4, SHAPES, sdt, 1e-3, True)],
-           "rmsprop": [_leaves(4, SHAPES, sdt, 1e-3, True)],
-           "adagrad": [_leaves(4, SHAPES, sdt, 1e-3, True)]}.get(
-               rule, [_leaves(3, SHAPES, sdt, 1e-4)])
+    shapes = SHAPES + [s for s in EDGE_SHAPES if s not in SHAPES]
+
+    def edge_leaves(seed, of, scale, positive=False):
+        return with_specials(_leaves(seed, shapes, of, scale, positive),
+                             seed)
+    w0 = edge_leaves(1, torch.float32, 0.02)
+    g = edge_leaves(2, dt, 1e-3)
+    st0 = {"sgd": [], "adam": [edge_leaves(3, sdt, 1e-4),
+                               edge_leaves(4, sdt, 1e-3, True)],
+           "adamw": [edge_leaves(3, sdt, 1e-4),
+                     edge_leaves(4, sdt, 1e-3, True)],
+           "rmsprop": [edge_leaves(4, sdt, 1e-3, True)],
+           "adagrad": [edge_leaves(4, sdt, 1e-3, True)]}.get(
+               rule, [edge_leaves(3, sdt, 1e-4)])
     hp = torch.tensor([1e-3, 0.271, 0.00299], device="cuda")
     lr_t = fopt.bias_corrected_lr(1e-4, 0.9, 0.999, torch.tensor(
         3, dtype=torch.int32, device="cuda"))
@@ -695,6 +710,8 @@ def test_cuda_16bit_updates_match_plain_bit_for_bit(mode, dtype, rule):
             w, gs = [x.float() for x in w], [x.float() for x in gs]
             st = [[x.float() for x in s] for s in st]
             kw["moments_dtype"] = dt
+        for xs in [w, gs] + st + ([masters] if masters else []):
+            xs[-1] = misaligned(xs[-1])
         if rule == "adam":
             f = fused._plain_adam_update if plain else fused.adam_update
             args = (w, gs, st[0], st[1], lr_t, 0.9, 0.999, 1e-8, 0.25,

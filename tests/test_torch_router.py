@@ -1164,6 +1164,104 @@ def test_attempts_wait_out_the_routers_own_capture(monkeypatch):
         rep.srv.shutdown()
 
 
+class _FrozenReplica:
+    """A stdlib replica whose whole process stops answering while its
+    profile capture ends (``/debug/profile`` takes ``capture`` seconds,
+    the last ``freeze`` of them frozen): ``/readyz`` and ``:generate``
+    wait until it thaws, as a card replica's HTTP threads wait while the
+    profiler's stop and export hold the interpreter."""
+
+    def __init__(self, capture, freeze):
+        rep = self
+        self.frozen = threading.Event()
+
+        class H(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _json(self, code, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _thawed(self):
+                while rep.frozen.is_set():
+                    time.sleep(0.01)
+
+            def do_GET(self):
+                self._thawed()
+                self._json(200, {"status": "ready", "draining": False}
+                           if self.path == "/readyz" else {"models": {}})
+
+            def do_POST(self):
+                self.rfile.read(int(self.headers.get("Content-Length")
+                                    or 0))
+                if self.path.startswith("/debug/profile"):
+                    time.sleep(capture - freeze)
+                    rep.frozen.set()
+                    time.sleep(freeze)
+                    rep.frozen.clear()
+                    self._json(200, {"profile": "p"})
+                else:
+                    self._thawed()
+                    self._json(200, {"tokens": [5], "count": 1})
+
+        class Srv(ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                pass            # the router hung up on a frozen answer
+
+        self.srv = Srv(("127.0.0.1", 0), H)
+        self.port = self.srv.server_address[1]
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+
+def test_health_polls_wait_out_the_routers_own_capture(monkeypatch):
+    """The fleet smoke's 503 (chip_smoke.py phase 5): a captured replica
+    answers nothing while its profiler stops and exports (12.6-16.4 s
+    for ``/readyz`` on an H100, two gpt2_124m replicas, beside a 2 s poll
+    timeout).  While the router's own fan-out runs, a health poll waits
+    as long as an attempt does (``Router._poll_timeout``), so the frozen
+    replica stays ready and unejected, and a request that arrives during
+    the freeze waits and is served instead of meeting the router's 503
+    (no eligible replica)."""
+    from incubator_mxnet_tpu_torch.serving import router as router_mod
+    monkeypatch.setattr(router_mod, "CAPTURE_STALL_SECONDS", 3.0)
+    rep = _FrozenReplica(capture=2.5, freeze=2.0)
+    router = router_mod.Router(
+        [f"127.0.0.1:{rep.port}"], port=0, host="127.0.0.1",
+        health_interval=0.05, upstream_timeout=0.5, retries=0)
+    router.start()
+    body = {"tokens": [1, 2], "max_new_tokens": 1}
+    try:
+        deadline = time.monotonic() + 10
+        while router._eligible() == [] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        ejections = router._replicas[0].breaker.state
+        cap = threading.Thread(target=lambda: _post(
+            router.port, "/debug/profile?seconds=0.1", {}, timeout=60)[1]
+            .read())
+        cap.start()
+        assert rep.frozen.wait(5)
+        time.sleep(0.8)                 # > 3 polls' base timeout (0.25 s)
+        assert router._eligible() != [], "the frozen replica was dropped"
+        conn, resp = _post(router.port, "/v1/models/g:generate", body)
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        assert out == (200, {"tokens": [5], "count": 1}), out
+        cap.join(timeout=60)
+        assert not cap.is_alive() and router._captures == []
+        assert router._replicas[0].breaker.state == ejections
+        assert router._poll_timeout() == 0.25   # after it, the base again
+    finally:
+        router.stop()
+        rep.srv.shutdown()
+
+
 def test_port_router_fans_out_the_fleet_views(fleet, tmp_path, monkeypatch):
     router, servers = fleet
     ids = {f"127.0.0.1:{s.port}" for s in servers}

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from incubator_mxnet_tpu_torch import initializer as tinit
+from incubator_mxnet_tpu_torch import random as trandom
 from incubator_mxnet_tpu_torch import telemetry, telemetry_device
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import load_jax_params
@@ -701,7 +702,7 @@ def test_cuda_remat_with_dropout_recomputes_the_forward_masks(monkeypatch):
                             num_layers=2, num_heads=2, max_length=128,
                             dropout=0.1, device="cuda"), vocab_size=V)
         tr = _trainer(net.initialize(tinit.Normal(0.02), seed=0), "cuda")
-        torch.cuda.manual_seed(11)
+        trandom.seed(11)                  # the port's generators: dropout
         losses = [float(tr.step(*batch)) for _ in range(3)]
         runs.append((losses, list(tr.params.values())))
     assert runs[0][0] == runs[1][0]

@@ -65,10 +65,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    _, dtype, opts, _ = next(c for c in GLUON16_CASES
-                             if c[0].startswith(args.dtype))
+    _, dtype, optimizer, opts, _ = next(c for c in GLUON16_CASES
+                                        if c[0].startswith(args.dtype))
     net = gluon16_net(dtype)
-    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+    trainer = mx.gluon.Trainer(net.collect_params(), optimizer,
                                dict({"learning_rate": GLUON_LR}, **opts))
     step = gluon16_step_fn()
     rng = np.random.RandomState(SEED)
