@@ -15,6 +15,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --resume   # the Gluon loop's checkpoint/resume only
     python3 chip_smoke.py --half     # the 16-bit kernel instances only
     python3 chip_smoke.py --half-paths  # the 16-bit paths only
+    python3 chip_smoke.py --serve16  # serving a cast GPT only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -288,7 +289,21 @@ Phases, each of which raises (exit code 1) on any failure:
 14. oneshot16 ("oneshot16:" line): phase 8's encoder cast to bf16 behind
    ``InferenceEngine`` (bucket 32): a 32-row predict's wall and its
    answers against an fp32 engine over the same weights within
-   ``ONESHOT16_TOL``; K1's bf16 instance 24 times.
+   ``ONESHOT16_TOL``; K1's bf16 instance 24 times;
+15. serve16 ("serve16:" lines, in a child process): K2-K5's bf16 and
+   fp16 query instances against their plain versions at phase 3's
+   decode and verify shapes and edge cases (1 ulp, K2 == K3 and K4 == K5
+   and every K4 row == K2 bit for bit) and timed; K1's 16-bit causal
+   instance at B = 1 and two prefill buckets; ``gpt2_124m`` at fp32 and
+   cast to bf16 and fp16 over the same weights behind the default paged
+   engine: each one's decode and burst windows, the cast decode logits
+   against fp32's within ``ONESHOT16_TOL``, the 8 requests through each
+   (tokens/s, first token, gap; fp16 at shorter budgets); bf16 in one
+   launch-count window with the dense engine (K3), the 6-layer draft
+   cast alike (K4) and a dense spec engine (K5), then batched == solo,
+   dense == paged, spec == plain or a near-tie split (``NEAR_TIE16``),
+   16 scripted graph steps == the eager bodies, one SSE ``:generate``;
+   each window launches the 16-bit instances only.
 
 The line before the last is ``{"kernels": [...]}`` (16-bit instances as
 "<kernel>.<instance>" rows); the last line is ``{"ok": true, "device":
@@ -2009,12 +2024,13 @@ def served_requests(vocab, seed=SEED):
     return prompts, rng.randint(32, 65, len(prompts)).tolist()
 
 
-def same_or_near_tie(net, prompt, want, got, what):
+def same_or_near_tie(net, prompt, want, got, what, margin=None):
     """Check that ``got`` equals ``want`` (both continuations of
     ``prompt``) or first differs at a token where ``want``'s top-2 logit
-    gap, from a full-prefix forward, is below ``LOGIT_GAP_TOL``: a greedy
-    near-tie that two attention paths may split.  Returns the index of
-    the first difference, or None."""
+    gap, from a full-prefix forward, is below ``LOGIT_GAP_TOL`` (with
+    ``margin``: below ``margin`` x max(1, |top logit|), a 16-bit net's few
+    ulps): a greedy near-tie that two paths may split.  Returns the index
+    of the first difference, or None."""
     check(len(got) == len(want), f"{what}: {len(got)} tokens, expected "
           f"{len(want)}")
     for i, (a, b) in enumerate(zip(want, got)):
@@ -2023,11 +2039,13 @@ def same_or_near_tie(net, prompt, want, got, what):
         with torch.no_grad():
             lg = net(torch.tensor([list(prompt) + list(want[:i])],
                                   device=net.device))
-        top2 = torch.topk(lg[0, -1], 2).values
+        top2 = torch.topk(lg[0, -1].float(), 2).values
         gap = float(top2[0] - top2[1])
+        tol = LOGIT_GAP_TOL if margin is None \
+            else margin * max(1.0, abs(float(top2[0])))
         print(f"{what}: differs at token {i}: top-2 logit gap {gap:.3e} "
-              f"(tol {LOGIT_GAP_TOL})", flush=True)
-        check(gap < LOGIT_GAP_TOL, f"{what}: {got} != {want}")
+              f"(tol {tol:.3e})", flush=True)
+        check(gap < tol, f"{what}: {got} != {want}")
         return i
     return None
 
@@ -2135,16 +2153,8 @@ def drive_path(fa):
     check(all(len(o) == b for o, b in zip(outs, budgets)),
           "a request emitted other than its budget")
 
-    # each request alone, in admission order from a fresh cache, so the
-    # prefix hits fall as they did in the batch
-    admitted = [info[2] for _, info in log["prefill"]]
-    order = sorted(range(len(prompts)),
-                   key=lambda i: admitted.index(tuple(prompts[i])))
-    eng.reset()
-    for i in order:
-        solo = eng.generate(prompts[i], budgets[i])
-        check(solo == outs[i], f"request {i}: batched {outs[i]} != solo "
-              f"{solo}")
+    solo_equals_batched(eng, prompts, budgets, outs,
+                        [info[2] for _, info in log["prefill"]])
     print("path: every batched request equals its solo run", flush=True)
     check(dense_out == outs[0], f"dense engine {dense_out} != paged "
           f"{outs[0]}")
@@ -2456,11 +2466,32 @@ def profile_window(setup, window, repeats=3):
             "idle_share": 1.0 - dev_us / 1e3 / wall}, prof
 
 
+def decode_windows(eng, prompts, measure):
+    """The windows of ``eng``'s own programs, each through ``measure(name,
+    setup, window)``: ``burst`` (one ``decode_burst`` of
+    ``eng.scan_steps`` steps over 8 live slots holding ``prompts``) and
+    ``decode`` (one ``decode`` over them).  Returns {name: measure's
+    result}."""
+    S = eng.max_slots
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    state = {}
+
+    def setup():
+        eng.reset()
+        last = np.zeros(S, np.int32)
+        for s, p in enumerate(prompts):
+            last[s] = eng.prefill(p, s, reserve_tokens=len(p) + 64)
+        state["last"] = last
+    return {"burst": measure("burst", setup, lambda: eng.decode_burst(
+        state["last"], lengths, np.full(S, 64), np.full(S, -1),
+        np.ones(S, bool))),
+        "decode": measure("decode", setup, lambda: eng.decode(
+            state["last"], lengths))}
+
+
 def serving_windows(eng, spec, prompts, measure):
     """The serving windows, each through ``measure(name, setup, window)``:
-    ``burst`` (one ``decode_burst`` of ``eng.scan_steps`` steps over 8
-    live slots holding ``prompts``), ``decode`` (one ``decode`` over
-    them), ``prefill-1024`` and ``prefill-64`` (one prefix-miss prefill
+    ``burst`` and ``decode`` (:func:`decode_windows`), ``prefill-1024`` and ``prefill-64`` (one prefix-miss prefill
     of 1000 and 60 tokens), and on ``spec`` (a target with its draft):
     ``spec-step`` (one ``spec_step`` over 8 live slots), ``spec-draft``
     (the draft's burst of ``spec_k`` steps) and ``verify`` (the target's
@@ -2489,12 +2520,7 @@ def serving_windows(eng, spec, prompts, measure):
         p = rng.randint(0, V, n)
         return eng.reset, lambda: eng.prefill(p, 0, reserve_tokens=n + 1)
 
-    out = {}
-    out["burst"] = measure("burst", fill(eng), lambda: eng.decode_burst(
-        state["last"], state["pos"], np.full(S, 64), np.full(S, -1),
-        np.ones(S, bool)))
-    out["decode"] = measure("decode", fill(eng), lambda: eng.decode(
-        state["last"], state["pos"]))
+    out = decode_windows(eng, prompts, measure)
     out["prefill-1024"] = measure("prefill-1024", *prefill(1000))
     out["prefill-64"] = measure("prefill-64", *prefill(60))
     sk = spec.spec_k
@@ -2970,8 +2996,9 @@ FEDERATE_WAIT = 2.6     # > the router's federation interval (2 s) plus a
 #                         health-loop tick: a /metrics read after this
 #                         wait holds snapshots taken after earlier traffic
 #: K2 (paged_decode) as a profiler trace names it: the split kernel of
-#: decode_common.cuh over a paged cache, at gpt2_124m's head dim 64
-K2_TRACE_NAME = "split_kernel<64, mxdec::PagedKV>"
+#: decode_common.cuh over a paged cache, at gpt2_124m's head dim 64, its
+#: fp32 query instance
+K2_TRACE_NAME = "split_kernel<64, mxdec::PagedKV, float>"
 
 
 def compute_apps():
@@ -5488,6 +5515,448 @@ def drive_oneshot16(fa, card):
     return counts
 
 
+# ------------------------------------------------------------ phase 15
+# serving a cast GPT: gpt2_124m cast to bf16 (then fp16, a shorter run)
+# behind the default paged engine, beside an fp32 engine over the same
+# weights; K2-K5's 16-bit-query instances (kernels/csrc/decode_common.cuh)
+SERVE16_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+SERVE16_FP16_BUDGET = 16   # the fp16 run's budget per request
+# a greedy split between two paths of one 16-bit net (the spec path, the
+# near-ties of a cast net) is allowed only where the top-2 logit gap is
+# below this share of max(1, |top logit|): a few ulps of the dtype, the
+# CPU tests' margin against the JAX engine
+NEAR_TIE16 = {torch.bfloat16: 2.0 ** -5, torch.float16: 2.0 ** -8}
+# the decode kernels' 16-bit instances: kernel -> (source, the Pallas
+# def's line, the public entry, the query rows timed: a decode's one, the
+# verify of spec_k 4)
+DECODE16 = {"paged_decode": ("paged_decode.cu", "689",
+                             "paged_decode_attention", 1),
+            "decode": ("decode.cu", "552", "decode_attention", 1),
+            "paged_verify": ("paged_verify.cu", "962",
+                             "paged_verify_decode_attention", 5),
+            "verify": ("verify.cu", "841", "verify_decode_attention", 5)}
+
+
+def check_half_decode(fa, dev, rng):
+    """K2-K5's bf16 and fp16 query instances against their plain versions
+    on the same 16-bit q over fp32 caches, at the serving shapes and edge
+    cases of :func:`check_k2_k3` and :func:`check_k4_k5`: o in q's dtype
+    within ``ULP_TOL`` ulps (``check_ulps``), K2 == K3 and K4 == K5 bit
+    for bit, every K4 row j == K2 at ``positions + j`` bit for bit.  Each
+    instance timed (a replayed graph, Q = 5 for K4/K5) beside its bound
+    (the live fp32 K/V bytes, q and o at 2 bytes), its plain version and,
+    for K3 and K5, SDPA at fp32 on q upcast beforehand with a bool mask
+    (the same function but o's last rounding).  Returns one row per
+    instance ("<kernel>.<dtype>")."""
+    sets, tables, pos, pos_h, _ = decode_inputs(dev, rng, 12, rows=9)
+    S, MB = tables.shape
+    _, H, bs, D = sets[0][1].shape
+    T = MB * bs
+    scale = 1.0 / math.sqrt(D)
+    straddle = decode_inputs(dev, np.random.RandomState(SEED + 1), 1, rows=5,
+                             positions=STRADDLE_POSITIONS)
+    rows = []
+    for tag, dt in SERVE16_DTYPES.items():
+        err = {k: [0.0, 0.0, 0.0] for k in DECODE16}   # ulps, share, abs
+
+        def hold(kernel, got, want):
+            e, share = check_ulps(f"{kernel}.{tag}", got, want)
+            r = err[kernel]
+            r[0], r[1] = max(r[0], e), max(r[1], share)
+            r[2] = max(r[2], max_err(got, want))
+
+        q, kp, vp = sets[0]
+        q = q.to(dt)
+        kd, vd = dense_view(kp, tables), dense_view(vp, tables)
+        got2 = fa.paged_decode_attention(q, kp, vp, tables, pos, scale=scale)
+        got3 = fa.decode_attention(q, kd, vd, pos, scale=scale)
+        hold("paged_decode", got2, fa._plain_paged_decode_attention(
+            q, kp, vp, tables, pos, scale))
+        hold("decode", got3, fa._plain_decode_attention(q, kd, vd, pos,
+                                                        scale))
+        check(same_bits(got2, got3), f"K2.{tag} and K3.{tag} disagree")
+        cases = [(Q, kp, vp, tables, pos) for Q in (1, 5, 9)]
+        cases.append((5, *straddle[0][0][1:], *straddle[1:3]))
+        equal = []
+        for Q, kp_c, vp_c, tab_c, pos_c in cases:
+            kd, vd = dense_view(kp_c, tab_c), dense_view(vp_c, tab_c)
+            q = torch.randn(S, H, Q, D, device=dev).to(dt)
+            got4 = fa.paged_verify_decode_attention(q, kp_c, vp_c, tab_c,
+                                                    pos_c, scale=scale)
+            got5 = fa.verify_decode_attention(q, kd, vd, pos_c, scale=scale)
+            hold("paged_verify", got4,
+                 fa._plain_paged_verify_decode_attention(
+                     q, kp_c, vp_c, tab_c, pos_c, scale))
+            hold("verify", got5, fa._plain_verify_decode_attention(
+                q, kd, vd, pos_c, scale))
+            check(same_bits(got4, got5),
+                  f"K4.{tag} and K5.{tag} disagree at Q={Q}")
+            for j in range(Q):
+                k2 = fa.paged_decode_attention(q[:, :, j].contiguous(), kp_c,
+                                               vp_c, tab_c, pos_c + j,
+                                               scale=scale)
+                equal.append(same_bits(got4[:, :, j], k2))
+        check(all(equal), f"K4.{tag}: a row differs from K2 at its position")
+        print(f"serve16: K2-K5.{tag} at S={S} H={H} D={D} bs={bs} MB={MB} "
+              f"positions {pos_h.tolist()} (K4/K5 at Q = 1, 5, 9 and Q = 5 "
+              f"at {list(STRADDLE_POSITIONS)}): " + "; ".join(
+                  f"{k} {e[0]:.2f} ulps, {e[1]:.4%} differs"
+                  for k, e in err.items())
+              + f" (tolerance {ULP_TOL} ulp at the {ULP_FLOOR} floor); K2 == "
+              f"K3, K4 == K5 and {len(equal)} K4 rows == K2 bit for bit "
+              f"[{CARD}]", flush=True)
+
+        # timing, as check_k2_k3 and check_k4_k5 time the fp32 instances:
+        # bytes the live fp32 K/V once, q in and o out at 2 bytes, the
+        # positions and the live table entries
+        for kernel, (src, line, entry, Q) in DECODE16.items():
+            paged = kernel.startswith("paged")
+            heads = np.minimum(pos_h.astype(np.int64)[:, None]
+                               + np.arange(Q), T - 1)
+            live = heads[:, -1] + 1
+            nb = (2 * H * int(live.sum()) * D * 4 + 2 * S * H * Q * D * 2
+                  + S * 4 + int(-(-live // bs).sum()) * 4)
+            bnd, by = bound_ms(nb, 4 * H * int((heads + 1).sum()) * D)
+            shape = (S, H, D) if Q == 1 else (S, H, Q, D)
+            arg_sets = [(torch.randn(*shape, device=dev).to(dt), kp, vp)
+                        if paged else (torch.randn(*shape, device=dev).to(dt),
+                                       dense_view(kp, tables),
+                                       dense_view(vp, tables))
+                        for _, kp, vp in sets]
+            fn, plain = getattr(fa, entry), getattr(fa, "_plain_" + entry)
+            extra = (tables,) if paged else ()
+
+            def call(q, k, v, fn=fn, extra=extra):
+                return fn(q, k, v, *extra, pos, scale=scale)
+            ms, eager = device_ms(call, arg_sets, 50), time_ms(call, arg_sets,
+                                                              50)
+            plain_ms = time_ms(lambda q, k, v, plain=plain, extra=extra:
+                               plain(q, k, v, *extra, pos, scale),
+                               arg_sets, 5)
+            lib = None
+            if not paged:      # SDPA at fp32 on q upcast beforehand
+                keep = torch.arange(T, device=dev)[None, None, :] <= (
+                    pos.long()[:, None] + torch.arange(Q, device=dev)
+                )[:, :, None]
+                up = [(q.float().reshape(S, H, Q, D), k, v)
+                      for q, k, v in arg_sets]
+                lib = device_ms(lambda q, k, v, keep=keep[:, None]:
+                                F.scaled_dot_product_attention(
+                                    q, k, v, attn_mask=keep, scale=scale),
+                                up, 50)
+            e = err[kernel]
+            rows.append({
+                "name": f"{kernel}.{tag}", "source": SOURCES + src,
+                "replaces": TPU_KERNELS + line, "max_abs_err": e[2],
+                "ulps": e[0], "diff_share": e[1], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib, "eager_ms": eager,
+                "shape": f"S={S} H={H} Q={Q} D={D} positions "
+                         f"{pos_h.tolist()}" + (f" bs={bs} MB={MB}" if paged
+                                                else f" T={T}")})
+            print(f"time: {kernel}.{tag} (Q={Q}): {ms:.4f} ms on the card "
+                  f"({eager:.4f} ms per eager call, host included), bound "
+                  f"{bnd:.4f} ms by {by}, plain {plain_ms:.4f} ms, SDPA "
+                  f"(fp32, q upcast beforehand) {lib} ms [{CARD}]",
+                  flush=True)
+    return rows
+
+
+def check_k1_prefill16(fa, dev, rng, buckets=(128, 1024)):
+    """K1's 16-bit causal instance at the serving prefill's shape (B = 1,
+    12 heads of 64) at two of the engine's buckets, within ``ULP_TOL``
+    ulps of its plain version."""
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    for tag, dt in SERVE16_DTYPES.items():
+        for T in buckets:
+            q, k, v = (torch.from_numpy(rng.randn(
+                1, HEADS, T, HEAD_DIM).astype(np.float32)).to(dev).to(dt)
+                for _ in range(3))
+            got = fa.flash_attention(q, k, v, scale=scale, causal=True)
+            want = fa._plain_flash_attention(q, k, v, scale, True)
+            e, share = check_ulps(f"K1.{tag} prefill T={T}", got, want)
+            print(f"serve16: K1.{tag} causal B=1 H={HEADS} T={T} "
+                  f"D={HEAD_DIM}: {e:.2f} ulps, {share:.4%} differs "
+                  f"[{CARD}]", flush=True)
+
+
+def step_logits(eng, prompts, last):
+    """The logits (S, V) fp32 of one decode step of ``eng`` after the
+    prefill of ``prompts`` into its slots, fed the tokens ``last``: the
+    decode body's forward (K1 then K2 at the net's dtype) without its
+    sampling."""
+    eng.reset()
+    for s, p in enumerate(prompts):
+        eng.prefill(p, s, reserve_tokens=len(p) + 8)
+    pos = torch.tensor([len(p) for p in prompts], device=eng.device)
+    lt = torch.as_tensor(np.asarray(last, np.int64), device=eng.device)
+    with torch.no_grad():
+        lg = eng._step_logits(lt, pos, eng._block_of(pos),
+                              pos % eng.block_size).float()
+    eng.reset()
+    return lg
+
+
+def serve_batch(eng, prompts, budgets):
+    """The requests through a ``ContinuousBatcher`` on ``eng``, staggered
+    by 30 ms.  Returns the outputs in admission order's terms: (outputs,
+    the prompts in the order their prefills ran, figures)."""
+    from incubator_mxnet_tpu_torch import telemetry
+    from incubator_mxnet_tpu_torch.serving import ContinuousBatcher
+    admitted = []
+    real = eng.prefill
+
+    def prefill(tokens, *a, **kw):
+        admitted.append(tuple(int(t) for t in tokens))
+        return real(tokens, *a, **kw)
+    eng.prefill = prefill
+    telemetry.reset()
+    t0 = time.perf_counter()
+    bat = ContinuousBatcher(eng)
+    try:
+        reqs = []
+        for p, b in zip(prompts, budgets):
+            reqs.append(bat.submit_async(p, max_new_tokens=b))
+            time.sleep(0.03)
+        outs = [r.result(timeout=300) for r in reqs]
+        wall = time.perf_counter() - t0
+        stats = bat.stats()
+    finally:
+        bat.close()
+        del eng.prefill
+    torch.cuda.synchronize()
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
+    gap = telemetry.registry.get("mxtpu_generate_token_seconds").stats()
+    n_tok = sum(len(o) for o in outs)
+    check(all(len(o) == b for o, b in zip(outs, budgets)),
+          f"{eng.name}: a request emitted other than its budget")
+    return outs, admitted, {
+        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+        "gap_p50_ms": gap["p50"] * 1e3, "gap_p99_ms": gap["p99"] * 1e3,
+        "bursts": stats["decode_burst_dispatches"]}
+
+
+def solo_equals_batched(eng, prompts, budgets, outs, admitted):
+    """Each request alone on ``eng``, in admission order from a fresh
+    cache (so the prefix hits fall as in the batch), equals its batched
+    output."""
+    eng.reset()
+    order = sorted(range(len(prompts)),
+                   key=lambda i: admitted.index(tuple(prompts[i])))
+    for i in order:
+        solo = eng.generate(prompts[i], budgets[i])
+        check(solo == outs[i], f"{eng.name}: request {i}: batched {outs[i]} "
+              f"!= solo {solo}")
+
+
+def sse_equals(eng, prompt, budget, want):
+    """One streaming ``:generate`` on an in-process ``ModelServer``
+    holding ``eng`` gives ``want``."""
+    from incubator_mxnet_tpu_torch.serving import ModelServer
+    srv = ModelServer(port=0, host="127.0.0.1")
+    try:
+        srv.add_model("gpt16", eng)
+        srv.start()
+        out = {}
+        sse_client(f"http://127.0.0.1:{srv.port}", "gpt16", prompt, budget,
+                   out)
+    finally:
+        srv.stop(drain=False)
+    check(out.get("status") == 200 and out["tokens"] == want,
+          f"serve16: SSE {out.get('tokens')} != the batcher's {want}")
+
+
+def cast_engines(net32, dt, full):
+    """``gpt2_124m`` with ``net32``'s weights cast to ``dt``, and its
+    engines, warmed: the default paged engine (``plain``), a dense one
+    (``dense``, with ``full``), a paged target with the 6-layer draft cast
+    alike (``spec``, with ``full``; else the net itself as the draft) and
+    a dense target with the net itself as the dense draft
+    (``dense_spec``)."""
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_124m
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    name = {torch.bfloat16: "bfloat16", torch.float16: "float16"}[dt]
+    net = gpt2_124m(dropout=0.0)
+    net.load_state_dict(net32.state_dict())
+    net.cast(name)
+    engs = {"plain": GenerationEngine(net, name=f"gpt_{name}")}
+    if full:
+        engs["dense"] = GenerationEngine(net, name="dense", paged=False)
+    spec = GenerationEngine(net, name="spec")
+    spec.attach_draft(GenerationEngine(
+        build_draft(net).cast(name) if full else net, name="draft"))
+    engs["spec"] = spec
+    dense_spec = GenerationEngine(net, name="dense_spec", paged=False)
+    dense_spec.attach_draft(GenerationEngine(net, name="dense_draft",
+                                             paged=False))
+    engs["dense_spec"] = dense_spec
+    t0 = time.perf_counter()
+    for e in engs.values():
+        e.warmup()
+        check(all(c.dtype == torch.float32 for c in e._cache),
+              f"{e.name}: the KV caches are not fp32")
+    torch.cuda.synchronize()
+    print(f"serve16: {name}: gpt2_124m cast from the fp32 net's weights; "
+          f"engines {sorted(engs)} warmed in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    return net, engs
+
+
+def drive_serve16(fa, card):
+    """Phase 15, the cast GPT served on the card.  K1's, K2-K5's 16-bit
+    instances held to their plain versions (``check_k1_prefill16``,
+    ``check_half_decode``); then ``gpt2_124m`` at fp32 (Normal(0.02) from
+    ``SEED``) and cast to bf16 and fp16, each behind the default paged
+    engine: each cast engine's decode and burst windows and its decode
+    logits against the fp32 engine's; the 8 served requests through each
+    (fp16: budgets of ``SERVE16_FP16_BUDGET``), the fp32 tokens beside.
+    bf16, in one launch-count window: the batch, the dense engine (K3) on
+    request 0, the batch through the spec target with the 6-layer draft
+    cast alike (K4), and the dense spec engine on request 0 (K5); then
+    batched == solo, dense == paged, spec == plain or a near-tie split
+    (``NEAR_TIE16``), 16 scripted graph steps == the eager bodies, one SSE
+    ``:generate``.  fp16, in its window: the batch, batched == solo, the
+    spec target (the net as its own draft) and the dense spec engine on
+    request 0.  Every window launches K2 (and the full bf16 window K3, K4
+    and K5) at its dtype and no fp32 K2-K5.  Prints one ``serve16:``
+    JSON line last: the instance rows and each window's counts."""
+    from incubator_mxnet_tpu_torch import initializer as init
+    from incubator_mxnet_tpu_torch.models.gpt import gpt2_124m
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    net32 = gpt2_124m(dropout=0.0)
+    net32.initialize(init.Normal(0.02), seed=SEED)
+    rng = np.random.RandomState(SEED + 19)
+    rows = check_half_decode(fa, net32.device, rng)
+    check_k1_prefill16(fa, net32.device, rng)
+    prompts, budgets = served_requests(net32._vocab_size)
+    budgets16 = {torch.bfloat16: budgets,
+                 torch.float16: [SERVE16_FP16_BUDGET] * len(prompts)}
+    eng32 = GenerationEngine(net32, name="gpt_float32")
+    eng32.warmup()
+    cast = {dt: cast_engines(net32, dt, dt == torch.bfloat16)
+            for dt in SERVE16_DTYPES.values()}
+    # the windows first: no batcher thread has run in this process yet
+    def measure(name, setup, window):
+        return profile_window(setup, window)[0]
+    windows = {"fp32": decode_windows(eng32, prompts, measure)}
+    for tag, dt in SERVE16_DTYPES.items():
+        windows[tag] = decode_windows(cast[dt][1]["plain"], prompts, measure)
+    last = np.array([eng32.prefill(p, s) for s, p in enumerate(prompts)])
+    eng32.reset()
+    lg32 = step_logits(eng32, prompts, last)
+    figures = {}
+    outs32, _, figures["fp32"] = serve_batch(eng32, prompts, budgets)
+    counts = {}
+    for tag, dt in SERVE16_DTYPES.items():
+        net, engs = cast[dt]
+        eng, full = engs["plain"], dt == torch.bfloat16
+        lg = step_logits(eng, prompts, last)
+        rel = float((lg - lg32).norm() / lg32.norm())
+        agree = float((lg.argmax(-1) == lg32.argmax(-1)).float().mean())
+        bud = budgets16[dt]
+        fa.reset_launch_counts()             # --- the cast serving path
+        outs, admitted, figures[tag] = serve_batch(eng, prompts, bud)
+        if full:
+            dense_out = engs["dense"].generate(prompts[0], bud[0])
+            spec_outs, _, figures[tag + " spec"] = serve_batch(
+                engs["spec"], prompts, bud)
+        else:
+            spec_outs = [engs["spec"].generate(prompts[0], bud[0])]
+        dense_spec_out = engs["dense_spec"].generate(prompts[0], bud[0])
+        torch.cuda.synchronize()
+        counts[tag] = {k: v for k, v in fa.launch_counts.items() if v}
+        # --- end of the cast serving path
+        print(f"serve16: {tag}: launches {counts[tag]}", flush=True)
+        want = {f"flash_fwd.{tag}", f"paged_decode.{tag}",
+                f"paged_verify.{tag}", f"decode.{tag}", f"verify.{tag}"}
+        check(want <= set(counts[tag]), f"serve16: {tag}: launches "
+              f"{counts[tag]} lack {want - set(counts[tag])}")
+        check(not any(k in counts[tag] for k in DECODE16)
+              and "flash_fwd" not in counts[tag],
+              f"serve16: {tag}: an fp32 attention kernel launched: "
+              f"{counts[tag]}")
+        # greedy tokens of the cast engine against the fp32 engine's
+        n32 = [o[:len(b)] for o, b in zip(outs32, outs)]
+        same = sum(next((i for i, (a, b) in enumerate(zip(o, w)) if a != b),
+                        len(o)) for o, w in zip(outs, n32))
+        total = sum(len(o) for o in outs)
+        print(f"serve16: {tag} against fp32 over the same weights: decode "
+              f"logits ||{tag} - fp32|| / ||fp32|| = {rel:.3e} (tol "
+              f"{ONESHOT16_TOL}), greedy argmax agrees in {agree:.3f} of the "
+              f"8 slots; served tokens before each request's first split "
+              f"from fp32: {same} of {total} ({same / total:.3f})",
+              flush=True)
+        check(rel <= ONESHOT16_TOL, f"serve16: {tag} logits {rel} > "
+              f"{ONESHOT16_TOL}")
+        solo_equals_batched(eng, prompts, bud, outs, admitted)
+        print(f"serve16: {tag}: every batched request equals its solo run",
+              flush=True)
+        margin = NEAR_TIE16[dt]
+        split = 0
+        if full:
+            check(dense_out == outs[0], f"serve16: dense {dense_out} != "
+                  f"paged {outs[0]}")
+            print("serve16: bf16: the dense engine (K3) gives the paged "
+                  "engine's tokens", flush=True)
+        for i, got in enumerate(spec_outs):
+            split += same_or_near_tie(net, prompts[i], outs[i], got,
+                                      f"serve16: {tag} spec request {i}",
+                                      margin) is not None
+        split += same_or_near_tie(net, prompts[0], outs[0], dense_spec_out,
+                                  f"serve16: {tag} dense spec request 0",
+                                  margin) is not None
+        n = len(spec_outs) + 1
+        print(f"serve16: {tag}: {n - split} of {n} speculative runs equal "
+              f"the plain tokens; {split} first differ at a near-tie "
+              f"(margin {margin} x max(1, |top logit|))", flush=True)
+        if full:
+            graph_check(f"{tag} paged", eng, prompts)
+            sse_equals(eng, prompts[0], bud[0], outs[0])
+            print(f"serve16: {tag}: one SSE :generate gives the batcher's "
+                  f"tokens", flush=True)
+    for tag in figures:
+        f = figures[tag]
+        print(f"serve16: {tag}: {f['tokens']} tokens in {f['wall_s']:.3f} s "
+              f"= {f['tokens_per_s']:.1f} tokens/s; first token p50 "
+              f"{f['ttft_p50_ms']:.2f} ms, p99 {f['ttft_p99_ms']:.2f} ms; "
+              f"gap p50 {f['gap_p50_ms']:.3f} ms, p99 {f['gap_p99_ms']:.3f} "
+              f"ms; {f['bursts']} bursts [{card}]", flush=True)
+    for tag, w in windows.items():
+        for name, r in w.items():
+            print(f"serve16: {tag} {name} window: wall {r['wall_ms']:.3f} "
+                  f"ms, device {r['device_ms']:.3f} ms in {r['device_ops']} "
+                  f"kernels and copies, idle share {r['idle_share']:.3f} "
+                  f"[{card}]", flush=True)
+            check(r["device_ops"] > 0, f"serve16: {tag} {name}: nothing ran")
+    print("serve16: " + json.dumps({"rows": rows, "counts": counts}),
+          flush=True)
+    return rows, counts
+
+
+def serve16_in_child():
+    """Run :func:`drive_serve16` in a child interpreter (``--serve16``),
+    so its profiler windows run where no batcher thread has run, and
+    print the child's ``serve16:`` and ``time:`` lines.  Returns the
+    child's instance rows and counts; fails unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--serve16"], capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("serve16: ", "time: ", "graphs: "))]
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("serve16: {"),
+          f"serve16: the child exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1][len("serve16: "):])
+    print(f"serve16: run in a child process in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res["rows"], res["counts"]
+
+
 def batcher_counts():
     """(batches, requests) the one-shot batchers counted so far."""
     from incubator_mxnet_tpu_torch.serving import metrics as smetrics
@@ -5529,6 +5998,9 @@ def main():
     ap.add_argument("--half-paths", action="store_true",
                     help="only run the 16-bit paths: bench16, gluon16 and "
                          "oneshot16 (phases 12-14)")
+    ap.add_argument("--serve16", action="store_true",
+                    help="only serve the cast GPT (phase 15; the full run "
+                         "does this in a child process)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -5575,6 +6047,9 @@ def main():
         drive_gluon16(fa, card)
         drive_oneshot16(fa, card)
         return                               # phases, no result
+    if args.serve16:
+        drive_serve16(fa, card)
+        return                               # a phase, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -5649,6 +6124,15 @@ def main():
                     by_path.setdefault(k, {})[path] = n
         half = {k: next((n for n in c.values() if n), 0)
                 for k, c in by_path.items()}
+        # the 16-bit query instances of K2-K5 on the cast serving path
+        # (phase 15, in a child); K1's 16-bit rows keep bench16's count
+        serve_rows, serve_counts = serve16_in_child()
+        rows += serve_rows
+        for tag, c in serve_counts.items():
+            for k, n in c.items():
+                if k.split(".")[0] in DECODE16:
+                    by_path.setdefault(k, {})[f"serve16 {tag}"] = n
+                    half[k] = n
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],

@@ -44,16 +44,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel's C entry point ``mx_<name>``: its arguments in order, the
 # last being the stream (K2-K5's and the whole-tree updates' last but one:
 # an int the entry point adds its launches to); K1, K6 and K7 take their
-# element type last but one (flash_attention.DTYPE_CODES), the
-# whole-tree updates their instance first (after K9's rule)
+# element type last but one (flash_attention.DTYPE_CODES), K2-K5 theirs
+# just before the launches, the whole-tree updates their instance first
+# (after K9's rule)
 ARGTYPES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                     _P, _P],
-    "decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+                     _I, _P, _P],
+    "decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P],
     "paged_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _P, _P],
-    "verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+                     _F, _I, _P, _P],
+    "verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                      _I, _P],
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -53,7 +53,18 @@
 // * Why no TMA or cp.async: a 64-key chunk is 32 KB of K and V at D = 64,
 //   read once and kept in registers; staging it in shared memory would add
 //   a round trip and no reuse.
+// * Element types: q and o are fp32, bf16 or fp16 (E), as the Pallas
+//   kernels take q in any float dtype and write o in q's; K/V and the
+//   scratch are fp32 whatever E, as the JAX engine keeps its caches.  The
+//   split converts q's values exactly to fp32 and otherwise runs the fp32
+//   code; merge16_kernel rounds num / den once more into o.  The fp32
+//   instances compile to the SASS they had before E existed.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -109,11 +120,40 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
 }
 
-// q: (S, H, Q, D); part: (S, H, Q, gridDim.z, D + 2) fp32, one (acc[D],
-// m, l) per (row, chunk) whose keys reach the row's head
-template <int D, class KV>
+// A lane's 4 consecutive query values as fp32: one float4, or 8 bytes of
+// 16-bit values converted exactly.
+__device__ __forceinline__ void load_q(const float* p, float (&x)[4]) {
+  load4(p, x);
+}
+__device__ __forceinline__ void load_q(const __nv_bfloat16* p,
+                                       float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void load_q(const __half* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+
+// An fp32 output value as a 16-bit one, rounded to nearest even.
+__device__ __forceinline__ void store_o(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_o(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
+// q: (S, H, Q, D) of E; part: (S, H, Q, gridDim.z, D + 2) fp32, one
+// (acc[D], m, l) per (row, chunk) whose keys reach the row's head
+template <int D, class KV, class E>
 __global__ void __launch_bounds__(kSplitThreads)
-split_kernel(const float* __restrict__ q, KV kv,
+split_kernel(const E* __restrict__ q, KV kv,
              const int* __restrict__ positions, float* __restrict__ part,
              int H, int Q, float scale) {
   constexpr int LPK = D / 4;          // lanes per key row, one float4 each
@@ -159,7 +199,7 @@ split_kernel(const float* __restrict__ q, KV kv,
       const int j = r0 + jj;
       const int tj = min(t1, base + j);  // the row's last key here
       float qv[4];
-      load4(q + (row0 + j) * D + col, qv);
+      load_q(q + (row0 + j) * D + col, qv);
       float sc[NL], mx = -CUDART_INF_F;
 #pragma unroll
       for (int i = 0; i < NL; ++i) {
@@ -259,31 +299,57 @@ merge_kernel(const float* __restrict__ part,
   o[row * D + d] = den > 0.f ? num / den : 0.f;
 }
 
-template <int D, class KV>
-int launch_d(const float* q, KV kv, const int* positions, float* part,
-             float* o, int S, int H, int L, int Q, float scale,
-             cudaStream_t stream, int* launches) {
+// merge_kernel with o of the 16-bit type E, the fp32 value rounded once.
+// A copy, not one template over E: the template's fp32 instance compiled
+// to other SASS than merge_kernel (the same operations, other registers
+// and order), and the fp32 instance keeps its code.
+template <int D, class E>
+__global__ void __launch_bounds__(D)
+merge16_kernel(const float* __restrict__ part,
+               const int* __restrict__ positions, E* __restrict__ o,
+               int H, int L, int Q, int n_split) {
+  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z, d = threadIdx.x;
+  const int head = min(positions[s] + j, L - 1);
+  const int n_live = head < 0 ? 0 : head / kChunkKeys + 1;
+  const size_t row = (static_cast<size_t>(s) * H + h) * Q + j;
+  const float* p = part + row * n_split * (D + 2);
+  float big = -CUDART_INF_F;
+  for (int c = 0; c < n_live; ++c) big = fmaxf(big, p[c * (D + 2) + D]);
+  float num = 0.f, den = 0.f;
+  for (int c = 0; c < n_live; ++c) {
+    const float* pc = p + c * (D + 2);
+    const float wt = expf(pc[D] - big);
+    num = fmaf(pc[d], wt, num);
+    den = fmaf(pc[D + 1], wt, den);
+  }
+  store_o(&o[row * D + d], den > 0.f ? num / den : 0.f);
+}
+
+template <int D, class KV, class E>
+int launch_d(const E* q, KV kv, const int* positions, float* part, E* o,
+             int S, int H, int L, int Q, float scale, cudaStream_t stream,
+             int* launches) {
   const int n_split = (L + kChunkKeys - 1) / kChunkKeys;
-  split_kernel<D, KV><<<dim3(H, S, n_split), kSplitThreads, 0, stream>>>(
+  split_kernel<D, KV, E><<<dim3(H, S, n_split), kSplitThreads, 0, stream>>>(
       q, kv, positions, part, H, Q, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launches;
-  merge_kernel<D><<<dim3(H, S, Q), D, 0, stream>>>(part, positions, o, H, L,
-                                                   Q, n_split);
+  if constexpr (std::is_same<E, float>::value)
+    merge_kernel<D><<<dim3(H, S, Q), D, 0, stream>>>(part, positions, o, H,
+                                                     L, Q, n_split);
+  else
+    merge16_kernel<D, E><<<dim3(H, S, Q), D, 0, stream>>>(
+        part, positions, o, H, L, Q, n_split);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*launches;
   return static_cast<int>(err);
 }
 
-// Q query rows per slot (K4, K5).  part: the (S, H, Q, ceil(L /
-// kChunkKeys), D + 2) fp32 scratch, L the cache's length in keys (MB * bs
-// paged, T dense).  The launches made (the split, then the merge) are
-// added to *launches.
-template <class KV>
-int launch(const float* q, KV kv, const int* positions, float* part,
-           float* o, int S, int H, int L, int Q, int D, float scale,
-           cudaStream_t stream, int* launches) {
+template <class KV, class E>
+int launch_e(const E* q, KV kv, const int* positions, float* part, E* o,
+             int S, int H, int L, int Q, int D, float scale,
+             cudaStream_t stream, int* launches) {
   switch (D) {
     case 16: return launch_d<16>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
     case 32: return launch_d<32>(q, kv, positions, part, o, S, H, L, Q, scale, stream, launches);
@@ -293,14 +359,30 @@ int launch(const float* q, KV kv, const int* positions, float* part,
   }
 }
 
-// One query row per slot (K2, K3): q (S, H, D), part (S, H, ceil(L /
-// kChunkKeys), D + 2).
+// Q query rows per slot (K4, K5; K2, K3 with Q = 1).  q (S, H, Q, D) and o
+// of the element type `dtype` (0 fp32, 1 bf16, 2 fp16); part: the (S, H,
+// Q, ceil(L / kChunkKeys), D + 2) fp32 scratch, L the cache's length in
+// keys (MB * bs paged, T dense).  The launches made (the split, then the
+// merge) are added to *launches.
 template <class KV>
-int launch(const float* q, KV kv, const int* positions, float* part,
-           float* o, int S, int H, int L, int D, float scale,
+int launch(const void* q, KV kv, const int* positions, float* part, void* o,
+           int S, int H, int L, int Q, int D, float scale, int dtype,
            cudaStream_t stream, int* launches) {
-  return launch(q, kv, positions, part, o, S, H, L, 1, D, scale, stream,
-                launches);
+  switch (dtype) {
+    case 0:
+      return launch_e(static_cast<const float*>(q), kv, positions, part,
+                      static_cast<float*>(o), S, H, L, Q, D, scale, stream,
+                      launches);
+    case 1:
+      return launch_e(static_cast<const __nv_bfloat16*>(q), kv, positions,
+                      part, static_cast<__nv_bfloat16*>(o), S, H, L, Q, D,
+                      scale, stream, launches);
+    case 2:
+      return launch_e(static_cast<const __half*>(q), kv, positions, part,
+                      static_cast<__half*>(o), S, H, L, Q, D, scale, stream,
+                      launches);
+    default: return MX_ERR_UNSUPPORTED_DTYPE;
+  }
 }
 
 }  // namespace mxdec

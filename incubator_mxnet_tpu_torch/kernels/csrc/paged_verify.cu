@@ -13,13 +13,14 @@
 // and design: see decode_common.cuh.
 #include "decode_common.cuh"
 
-extern "C" int mx_paged_verify(const float* q, const float* k_pages,
+// q and o of the element type `dtype` (0 fp32, 1 bf16, 2 fp16); pages fp32.
+extern "C" int mx_paged_verify(const void* q, const float* k_pages,
                                const float* v_pages, const int* tables,
-                               const int* positions, float* part, float* o,
+                               const int* positions, float* part, void* o,
                                int S, int H, int NB, int bs, int MB, int Q,
-                               int D, float scale, int* launches,
+                               int D, float scale, int dtype, int* launches,
                                void* stream) {
   const mxdec::PagedKV kv{k_pages, v_pages, tables, H, NB, bs, MB};
   return mxdec::launch(q, kv, positions, part, o, S, H, MB * bs, Q, D, scale,
-                       static_cast<cudaStream_t>(stream), launches);
+                       dtype, static_cast<cudaStream_t>(stream), launches);
 }

@@ -13,11 +13,12 @@
 // fp32 scratch of the split.  Bound and design: see decode_common.cuh.
 #include "decode_common.cuh"
 
-extern "C" int mx_verify(const float* q, const float* k, const float* v,
-                         const int* positions, float* part, float* o, int S,
-                         int H, int T, int Q, int D, float scale,
+// q and o of the element type `dtype` (0 fp32, 1 bf16, 2 fp16); k, v fp32.
+extern "C" int mx_verify(const void* q, const float* k, const float* v,
+                         const int* positions, float* part, void* o, int S,
+                         int H, int T, int Q, int D, float scale, int dtype,
                          int* launches, void* stream) {
   const mxdec::DenseKV kv{k, v, H, T};
   return mxdec::launch(q, kv, positions, part, o, S, H, T, Q, D, scale,
-                       static_cast<cudaStream_t>(stream), launches);
+                       dtype, static_cast<cudaStream_t>(stream), launches);
 }

@@ -51,9 +51,11 @@ Element types: K1, K6 and K7 take q, k, v (and dO) of one dtype, fp32,
 bf16 or fp16, compute in fp32 and write o, dq, dk and dv in that dtype,
 as the Pallas kernels cast to fp32 inside and write in the input's dtype;
 the key bias, lse, dd and the key-bias rows stay fp32, as the JAX package
-keeps them.  The plain versions compute in fp32 and cast back.  K2-K5
-take fp32 only on the card: a 16-bit query (``GenerationEngine`` over a
-cast net) raises by name (ROADMAP)."""
+keeps them.  K2-K5 take q in any of the three and write o in q's dtype
+over fp32 caches (a ``GenerationEngine`` over a cast net keeps its caches
+fp32, as the JAX engine does); their 16-bit instances count their
+launches under ``"<kernel>.bf16"`` and ``"<kernel>.fp16"``.  The plain
+versions compute in fp32 and cast back."""
 from __future__ import annotations
 
 import contextlib
@@ -75,9 +77,10 @@ __all__ = ["flash_attention", "flash_attention_lse", "decode_attention",
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
-# the element types K1, K6, K7 and the whole-tree updates take, the code
-# their entry points read (csrc: 0 fp32, 1 bf16, 2 fp16), and their names:
-# a 16-bit instance counts its launches under "<kernel>.<name>"
+# the element types K1-K7 (K2-K5: of q and o) and the whole-tree updates
+# take, the code their entry points read (csrc: 0 fp32, 1 bf16, 2 fp16),
+# and their names: a 16-bit instance counts its launches under
+# "<kernel>.<name>"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
                torch.float16: "fp16"}
@@ -571,16 +574,18 @@ def _split_scratch(name, q, shape):
     return torch.empty(shape, device=q.device, dtype=torch.float32)
 
 
-# K2-K5 take fp32 only: a 16-bit query (a cast net's GenerationEngine)
-# raises by name; its instances are ROADMAP work
-_FP32_ONLY = (": the decode kernels (K2-K5) take fp32 only, and a "
-              "GenerationEngine over a cast net is not ported yet (ROADMAP: "
-              "K2-K5 with a 16-bit q)")
+def _query_checks(name, q, positions):
+    """K2-K5's q of a dtype in :data:`DTYPE_CODES` (o is written in it)
+    and int32 positions, on one CUDA device."""
+    if q.dtype not in DTYPE_CODES:
+        raise MXNetError(f"{name}: q is {q.dtype}; the kernel takes "
+                         f"{sorted(str(d) for d in DTYPE_CODES)}")
+    _check(name, q.device, q=(q, q.dtype),
+           positions=(positions, torch.int32))
 
 
 def _decode_checks(name, q, positions, S, H, D):
-    _check(name, q.device, _FP32_ONLY, q=(q, torch.float32),
-           positions=(positions, torch.int32))
+    _query_checks(name, q, positions)
     if tuple(q.shape) != (S, H, D) or tuple(positions.shape) != (S,):
         raise MXNetError(f"{name}: q {tuple(q.shape)} / positions "
                          f"{tuple(positions.shape)} do not match ({S}, {H}, "
@@ -591,9 +596,10 @@ def _decode_checks(name, q, positions, S, H, D):
 
 
 def _decode_cuda(q, k, v, positions, scale):
-    """K3 on CUDA tensors: q (S, H, D), k/v (S, H, T, D) fp32, positions
-    (S,) int32 read by the kernel on the device.  Two launches, the split
-    over 64-key chunks and the merge, both counted."""
+    """K3 on CUDA tensors: q (S, H, D) fp32, bf16 or fp16, k/v (S, H, T,
+    D) fp32, positions (S,) int32 read by the kernel on the device; o in
+    q's dtype.  Two launches, the split over 64-key chunks and the merge,
+    both counted."""
     S, H, T, D = k.shape
     _decode_checks("decode", q, positions, S, H, D)
     _check("decode", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -603,15 +609,16 @@ def _decode_cuda(q, k, v, positions, scale):
     if S == 0 or T == 0:
         return o.zero_()
     part = _split_scratch("decode", q, _decode_scratch_shape(S, H, T, D))
-    _launch("decode", q, k, v, positions, part, o, S, H, T, D, float(scale))
+    _launch("decode", q, k, v, positions, part, o, S, H, T, D, float(scale),
+            DTYPE_CODES[q.dtype], instance=instance_of(q.dtype))
     return o
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
-    """K2 on CUDA tensors: q (S, H, D), pages (NB, H, bs, D) fp32, tables
-    (S, MB) and positions (S,) int32, both read by the kernel on the
-    device.  Two launches, the split over 64-key chunks and the merge,
-    both counted."""
+    """K2 on CUDA tensors: q (S, H, D) fp32, bf16 or fp16, pages (NB, H,
+    bs, D) fp32, tables (S, MB) and positions (S,) int32, both read by the
+    kernel on the device; o in q's dtype.  Two launches, the split over
+    64-key chunks and the merge, both counted."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _decode_checks("paged_decode", q, positions, S, H, D)
@@ -625,13 +632,13 @@ def _paged_decode_cuda(q, k_pages, v_pages, tables, positions, scale):
     part = _split_scratch("paged_decode", q,
                           _decode_scratch_shape(S, H, MB * bs, D))
     _launch("paged_decode", q, k_pages, v_pages, tables, positions, part, o,
-            S, H, NB, bs, MB, D, float(scale))
+            S, H, NB, bs, MB, D, float(scale), DTYPE_CODES[q.dtype],
+            instance=instance_of(q.dtype))
     return o
 
 
 def _verify_checks(name, q, positions, S, H, D):
-    _check(name, q.device, _FP32_ONLY, q=(q, torch.float32),
-           positions=(positions, torch.int32))
+    _query_checks(name, q, positions)
     if q.dim() != 4 or tuple(q.shape[:2]) != (S, H) or q.shape[3] != D \
             or tuple(positions.shape) != (S,):
         raise MXNetError(f"{name}: q {tuple(q.shape)} / positions "
@@ -644,9 +651,10 @@ def _verify_checks(name, q, positions, S, H, D):
 
 
 def _verify_cuda(q, k, v, positions, scale):
-    """K5 on CUDA tensors: q (S, H, Q, D), k/v (S, H, T, D) fp32, positions
-    (S,) int32 read by the kernel on the device.  Two launches, the split
-    over 64-key chunks and the merge, both counted."""
+    """K5 on CUDA tensors: q (S, H, Q, D) fp32, bf16 or fp16, k/v (S, H,
+    T, D) fp32, positions (S,) int32 read by the kernel on the device; o
+    in q's dtype.  Two launches, the split over 64-key chunks and the
+    merge, both counted."""
     S, H, T, D = k.shape
     _verify_checks("verify", q, positions, S, H, D)
     _check("verify", q.device, k=(k, torch.float32), v=(v, torch.float32))
@@ -658,15 +666,15 @@ def _verify_cuda(q, k, v, positions, scale):
     Q = q.shape[2]
     part = _split_scratch("verify", q, _verify_scratch_shape(S, H, Q, T, D))
     _launch("verify", q, k, v, positions, part, o, S, H, T, Q, D,
-            float(scale))
+            float(scale), DTYPE_CODES[q.dtype], instance=instance_of(q.dtype))
     return o
 
 
 def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
-    """K4 on CUDA tensors: q (S, H, Q, D), pages (NB, H, bs, D) fp32,
-    tables (S, MB) and positions (S,) int32, both read by the kernel on
-    the device.  Two launches, the split over 64-key chunks and the merge,
-    both counted."""
+    """K4 on CUDA tensors: q (S, H, Q, D) fp32, bf16 or fp16, pages (NB,
+    H, bs, D) fp32, tables (S, MB) and positions (S,) int32, both read by
+    the kernel on the device; o in q's dtype.  Two launches, the split
+    over 64-key chunks and the merge, both counted."""
     NB, H, bs, D = k_pages.shape
     S, MB = tables.shape
     _verify_checks("paged_verify", q, positions, S, H, D)
@@ -681,7 +689,8 @@ def _paged_verify_cuda(q, k_pages, v_pages, tables, positions, scale):
     part = _split_scratch("paged_verify", q,
                           _verify_scratch_shape(S, H, Q, MB * bs, D))
     _launch("paged_verify", q, k_pages, v_pages, tables, positions, part, o,
-            S, H, NB, bs, MB, Q, D, float(scale))
+            S, H, NB, bs, MB, Q, D, float(scale), DTYPE_CODES[q.dtype],
+            instance=instance_of(q.dtype))
     return o
 
 

@@ -30,7 +30,9 @@ The kernels are the port's own: prefill self-attention goes through
 :func:`verify_decode_attention` (K5).  A replay adds each program's
 kernel launches, tallied at capture, to ``launch_counts``.
 
-Layouts (fp32, as in the JAX engine):
+Layouts (fp32, as in the JAX engine, whatever the net's dtype: a cast
+net's K/V is cast to fp32 as it is written, and its query reaches K2-K5
+in the net's dtype, their output coming back in it):
 
 * **paged** (default): per layer a block pool ``(num_blocks, H,
   block_size, D)`` managed by :class:`~.kvcache.BlockPool`; each slot
@@ -1162,13 +1164,14 @@ class GenerationEngine:
     def _write_positions(self, pool, kv, table, pos) -> None:
         """Write ``kv`` (W, H, D) — the K or V of logical positions ``pos``
         (W,) int64 of a slot — into the blocks its ``table`` (MB,) names,
-        in place.  A position past the table goes to the null block 0
-        (JAX clamps such writes into a harmless sink)."""
+        in place, cast to the pool's dtype as JAX casts every write.  A
+        position past the table goes to the null block 0 (JAX clamps such
+        writes into a harmless sink)."""
         MB = self.max_blocks_per_slot
         col = pos // self.block_size
         blk = torch.where(col < MB, table[col.clamp(max=MB - 1)].long(),
                           torch.zeros_like(col))
-        pool[blk, :, pos % self.block_size] = kv
+        pool[blk, :, pos % self.block_size] = kv.to(pool.dtype)
 
     def _prefill_miss_body(self, a, bucket: int):
         """The prefix-miss prefill of one bucket: the prompt ``tokens``
@@ -1187,9 +1190,10 @@ class GenerationEngine:
         else:
             # JAX donates the cache to a dynamic_update_slice at (slot,
             # 0, 0, 0); here the slot's rows are overwritten in place
+            dt = self._cache[0].dtype
             for l in range(L):
-                self._cache[l][slot, :, :bucket] = ks[l][None]
-                self._cache[L + l][slot, :, :bucket] = vs[l][None]
+                self._cache[l][slot, :, :bucket] = ks[l][None].to(dt)
+                self._cache[L + l][slot, :, :bucket] = vs[l][None].to(dt)
         return self._sample(last, a["n"], slot)
 
     def _prefill_hit_body(self, a, Tb: int):
@@ -1198,7 +1202,11 @@ class GenerationEngine:
         the suffix ``tokens`` (1, Tb) (valid length ``n``), append its K/V
         at positions ``[ctx, ctx + Tb)`` and attend through the slot's
         block table.  The attention here is plain torch, as the JAX
-        engine's einsum (it is outside any Pallas kernel there)."""
+        engine's einsum (it is outside any Pallas kernel there).  The
+        caches are fp32 whatever the net's dtype: JAX promotes a 16-bit
+        query against them, so the scores, p and the PV product are fp32
+        here too, and the output is rounded once to the activations'
+        dtype, where JAX rounds it."""
         L, H, D = self.num_layers, self.num_heads, self.head_dim
         T = self.max_blocks_per_slot * self.block_size
         C = H * D
@@ -1218,7 +1226,7 @@ class GenerationEngine:
             at = cell.attention
             hn = cell.ln1(h)
             q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
-            qh = q.reshape(Tb, H, D).transpose(0, 1)[None]
+            qh = q.reshape(Tb, H, D).transpose(0, 1)[None].float()
             ck, cv = self._cache[l], self._cache[L + l]
             self._write_positions(ck, kn.reshape(Tb, H, D), table, q_pos)
             self._write_positions(cv, vn.reshape(Tb, H, D), table, q_pos)
@@ -1230,7 +1238,7 @@ class GenerationEngine:
             attn = torch.einsum("bhqk,bhkd->bhqd",
                                 p / p.sum(dim=-1, keepdim=True), vf)
             h = h + at.dropout(at.proj(
-                attn.transpose(1, 2).reshape(1, Tb, C)))
+                attn.transpose(1, 2).reshape(1, Tb, C).to(h.dtype)))
             h = h + cell.ffn(cell.ln2(h))
         last = self.block._project(self.block.ln_f(
             h[0].index_select(0, sn - 1)))
@@ -1347,15 +1355,17 @@ class GenerationEngine:
         the logits (S, Q, V)."""
         H, D = self.num_heads, self.head_dim
         S, Q = lt.shape
+        kv_dtype = self._cache[0].dtype
         h = self.block.drop(self.block.embed(lt)
                             + self.block.pos_embed(emb_pos))
         for l, cell in enumerate(self._cells):
             at = cell.attention
             hn = cell.ln1(h)
             q, kn, vn = at.query(hn), at.key(hn), at.value(hn)
-            # the JAX program scatters into a donated copy of the cache;
-            # the port writes the pool tensors in place
-            write(l, kn.reshape(S, Q, H, D), vn.reshape(S, Q, H, D))
+            # the JAX program scatters into a donated copy of the cache,
+            # cast to its dtype; the port writes the pool tensors in place
+            write(l, kn.reshape(S, Q, H, D).to(kv_dtype),
+                  vn.reshape(S, Q, H, D).to(kv_dtype))
             attn = attend(l, q.reshape(S, Q, H, D))
             h = h + at.dropout(at.proj(attn.reshape(S, Q, H * D)))
             h = h + cell.ffn(cell.ln2(h))

@@ -165,14 +165,20 @@ def test_16bit_autograd_route_keeps_the_dtype(dtype):
 
 
 def test_decode_kernels_refuse_a_16bit_query_by_name():
-    """K2-K5 take fp32 only: a 16-bit query reaching a wrapper's checks
-    raises by name (ROADMAP), before any launch."""
-    q = torch.zeros(1, 2, 16, dtype=torch.bfloat16)
+    """K2-K5 take a query of fp32, bf16 or fp16: a 16-bit one passes a
+    wrapper's dtype checks (it fails only at the device check, since the
+    tensor lies on the CPU), while an fp64 or int32 query is refused by
+    name, naming the dtypes the kernels take, before any launch."""
     pos = torch.zeros(1, dtype=torch.int32)
     for fn in (tfa._decode_checks, tfa._verify_checks):
-        with pytest.raises(MXNetError, match="K2-K5"):
-            fn("decode", q if fn is tfa._decode_checks else q[:, :, None],
-               pos, 1, 2, 16)
+        shape = (1, 2, 16) if fn is tfa._decode_checks else (1, 2, 1, 16)
+        for dt in (torch.bfloat16, torch.float16):
+            with pytest.raises(MXNetError, match="needs CUDA tensors"):
+                fn("decode", torch.zeros(shape, dtype=dt), pos, 1, 2, 16)
+        for dt in (torch.float64, torch.int32):
+            with pytest.raises(MXNetError,
+                               match=f"q is {dt}; the kernel takes"):
+                fn("decode", torch.zeros(shape, dtype=dt), pos, 1, 2, 16)
 
 
 def test_16bit_instances_count_under_their_own_names():

@@ -268,8 +268,9 @@ def test_failed_capture_answers_500(server, tmp_path, monkeypatch):
 
 # ---------------------------------------------------- on the card (cuda)
 #: the paged-decode kernel (K2) as the trace names it: the split kernel of
-#: decode_common.cuh over a paged cache (gpt_tiny: head dim 32)
-K2_TRACE_NAME = "split_kernel<32, mxdec::PagedKV>"
+#: decode_common.cuh over a paged cache (gpt_tiny: head dim 32), its fp32
+#: query instance
+K2_TRACE_NAME = "split_kernel<32, mxdec::PagedKV, float>"
 
 
 def kernel_names(trace):

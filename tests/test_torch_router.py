@@ -382,9 +382,14 @@ def _scenarios(pkg, tmp):
 
     @scenario
     def failover_keeps_request_id():
+        # no health poll inside the scenario: a 50 ms poll could mark the
+        # forced-ready dead replica dead again before route() reads it,
+        # and the count of failovers then varied from run to run in both
+        # packages (start() polls once; the next poll is 30 s away)
         live = FakeReplica().start()
         dead_id = f"127.0.0.1:{_dead_port()}"
-        r = router([dead_id, live], retries=3, affinity=False)
+        r = router([dead_id, live], retries=3, affinity=False,
+                   health_interval=30)
         try:
             dead = r.replica(dead_id)
             fo0 = m.ROUTER_FAILOVERS.value

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The SASS of the whole-tree updates (K8's and K9's libraries) of one
-source tree, function by function, and whether two trees' is the same.
+"""The SASS of the whole-tree updates (K8's and K9's libraries) and of
+the decode kernels (K2-K5's libraries) of one source tree, function by
+function, and whether two trees' is the same.
 
     python3 tools/torch_update_sass.py TREE > A.json   # nvcc, cuobjdump
     python3 tools/torch_update_sass.py A.json B.json   # compare two
@@ -8,8 +9,9 @@ source tree, function by function, and whether two trees' is the same.
 With one argument it builds the kernels of the source tree TREE (its own
 ``kernels/_build.py``: its flags, into its ``build/kernels``, reusing a
 library already there) and prints one JSON object: for each kernel
-function of ``multi_tensor_adam`` and ``multi_tensor_update``
-(demangled) its instruction count; its conversions between fp32 and 16
+function of ``LIBS`` (demangled; K2-K5's fp32 ``float`` element-type
+argument dropped, so a tree from before their 16-bit instances names its
+fp32 functions alike) its instruction count; its conversions between fp32 and 16
 bits (``cvt``: F2F, F2FP, HADD2.F32), MUFU, FCHK and packed 16-bit
 arithmetic (``packed``: HADD2, HMUL2, HFMA2); the same counts inside its
 vector loop (first vector load to last vector store) per element one
@@ -27,10 +29,23 @@ import subprocess
 import sys
 from pathlib import Path
 
-LIBS = ("multi_tensor_adam", "multi_tensor_update")
-# the 16-bit instances' template arguments in a demangled kernel name
+LIBS = ("multi_tensor_adam", "multi_tensor_update", "paged_decode",
+        "decode", "paged_verify", "verify")
+# the 16-bit instances' template arguments in a demangled kernel name:
+# K8's and K9's Half16 precision, K2-K5's element type
 HALF16 = tuple(f"Prec<{e}, {e}, {e}, {e}, {e}, void>"
-               for e in ("__nv_bfloat16", "__half"))
+               for e in ("__nv_bfloat16", "__half")) \
+    + tuple(f", {e}>" for e in ("__nv_bfloat16", "__half"))
+
+
+def base_name(name):
+    """A K2-K5 kernel ``name`` as its template and its arguments, without
+    the parameter list and the fp32 element-type argument (the parent of
+    the 16-bit instances had neither an element type nor ``T3`` in its
+    parameters); any other name as it is."""
+    m = re.match(r"(.*mxdec::(?:split|merge)_kernel<.*?)(, float)?>\(",
+                 name)
+    return name if m is None else m.group(1) + ">"
 
 
 def sass_functions(lib):
@@ -48,7 +63,7 @@ def sass_functions(lib):
             if filt:
                 name = subprocess.run([filt, name], capture_output=True,
                                       text=True).stdout.strip() or name
-            cur = out.setdefault(name, [])
+            cur = out.setdefault(base_name(name), [])
             continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", ln)
         if m and cur is not None:
@@ -113,6 +128,8 @@ def compare(a_path, b_path):
     is the same in both."""
     a, b = (json.loads(Path(p).read_text().strip().splitlines()[-1])
             for p in (a_path, b_path))
+    a["sass"], b["sass"] = ({base_name(k): v for k, v in x["sass"].items()}
+                            for x in (a, b))
     keys = sorted(set(a["sass"]) | set(b["sass"]))
     same = 0
     for key in keys:
