@@ -16,6 +16,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --half     # the 16-bit kernel instances only
     python3 chip_smoke.py --half-paths  # the 16-bit paths only
     python3 chip_smoke.py --serve16  # serving a cast GPT only
+    python3 chip_smoke.py --hybrid   # hybridize() as graph replay only
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -191,12 +192,16 @@ Phases, each of which raises (exit code 1) on any failure:
    ``SoftmaxCrossEntropyLoss``, ``gluon.Trainer(net.collect_params(),
    "adam", {"learning_rate": 1e-4})``; per batch of B = 8 x T = 1024 of
    ``train_gpt.py``'s sequences, one ``autograd.record()`` forward,
-   ``L.backward()`` and ``trainer.step(1)``.  3 steps of the fused
+   ``L.backward()`` and ``trainer.step(1)``: the net's call replays its
+   captured forward graph and the backward its backward graph from the
+   second step on (K1, K6 and K7 counted from the graphs' tallies), the
+   loss and the update eager.  3 steps of the fused
    Trainer (K8) equal 3 steps of a ``fused=False`` Trainer over a second
    net of the same seed, bit for bit in every loss and parameter; then 5
    timed steps (CUDA events, median) in their own launch-count window,
    which must launch K1, K6 and K7 exactly 12 times per step, K8 once per
-   step and nothing else; one profiled step (host launches, idle share);
+   step and nothing else; one profiled step (host launches, at most
+   ``HYBRID_HOST_LAUNCHES``, idle share);
    peak allocated bytes; every loss finite and the last below the first.
    Then a ``skip_nonfinite=True`` Trainer takes a clean step, a step
    poisoned by a ``trainer.grad:nonfinite`` fault (every parameter and
@@ -279,7 +284,8 @@ Phases, each of which raises (exit code 1) on any failure:
    once; steps 2 on the fp32 kernels); the dtype census after steps 1
    and 2 equals the reference's; step 1's wall, ms per step, samples/s,
    one profiled step (at most 8 host launches);
-13. gluon16 ("gluon16:" lines): phase 7's loop cast to bf16, then to
+13. gluon16 ("gluon16:" lines): phase 7's loop (hybridized: graph
+   replays) cast to bf16, then to
    fp16 with ``multi_precision=True``, then cast to bf16 under AdamW (wd
    0.01): 3 fused steps equal 3 ``fused=False`` steps bit for bit
    (losses, weights, states, masters), 5 timed steps in a window (K1, K6,
@@ -303,7 +309,21 @@ Phases, each of which raises (exit code 1) on any failure:
    cast alike (K4) and a dense spec engine (K5), then batched == solo,
    dense == paged, spec == plain or a near-tie split (``NEAR_TIE16``),
    16 scripted graph steps == the eager bodies, one SSE ``:generate``;
-   each window launches the 16-bit instances only.
+   each window launches the 16-bit instances only;
+16. hybrid ("hybrid:" lines): ``hybridize()`` as CUDA-graph replay on
+   phase 7's loop at dropout 0.1, fp32 and cast to bf16: the hybridized
+   loop and a ``hybridize(False)`` loop from the same seeds, 3 steps
+   equal bit for bit (losses, weights, Adam states: each replay draws
+   the eager masks); each loop's 5 timed steps in a launch-count window
+   (K1, K6, K7 12 a step, the update once), ms per step by CUDA events
+   and by host wall (median, spread), one profiled step (host launches,
+   idle share), peak allocated bytes and the graph pool's bytes; a
+   hybridized step makes at most half the eager step's host launches.
+   Then a deferred-shape ``HybridSequential`` (``Dense(in_units=0)``,
+   ``BatchNorm``, ``GroupNorm``, ``InstanceNorm``, a
+   ``HybridConcatenate``) at widths of a few thousand, hybridized ==
+   eager over 3 Adam steps and 2 predict calls, running statistics
+   included.
 
 The line before the last is ``{"kernels": [...]}`` (16-bit instances as
 "<kernel>.<instance>" rows); the last line is ``{"ok": true, "device":
@@ -338,6 +358,11 @@ GRAPH_STEPS = 16        # scripted steps of the graph-against-eager check
 TRAIN_B, TRAIN_T = 32, 128
 TRAIN_CHECK, TRAIN_STEPS = 3, 5   # graph-vs-eager steps, timed steps
 GLUON_B, GLUON_T, GLUON_LR = 8, 1024, 1e-4   # the Gluon loop's batch, lr
+# the most host launches a hybridized train_gpt.py step may make: the
+# batch's copies, two replays, the loss's eager ops and their backward,
+# the logits' gradient copy, the write-back and the update (~30 on an
+# H100; the eager step makes ~1030)
+HYBRID_HOST_LAUNCHES = 64
 GPT_LAYERS, GPT_VOCAB = 12, 50257
 BERT_HEADS, BERT_LAYERS, BERT_VOCAB = 16, 24, 30522
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) peak and
@@ -4105,6 +4130,9 @@ def drive_gluon(fa, card):
           f"({peak / 2 ** 30:.2f} GiB) [{card}]", flush=True)
     print(f"gluon: launches in the {TRAIN_STEPS}-step window {counts}",
           flush=True)
+    check(prof["host_launches"] <= HYBRID_HOST_LAUNCHES,
+          f"gluon: a hybridized step made {prof['host_launches']} host "
+          f"launches, more than {HYBRID_HOST_LAUNCHES}")
     per_step = {"flash_fwd": GPT_LAYERS, "flash_bwd_dq": GPT_LAYERS,
                 "flash_bwd_dkv": GPT_LAYERS, "multi_tensor_adam": 1}
     for name, n in counts.items():
@@ -5957,6 +5985,237 @@ def serve16_in_child():
     return res["rows"], res["counts"]
 
 
+# ------------------------------------------------------------ phase 16
+HYBRID_DROPOUT = 0.1    # the hybrid phase's dropout: replays draw masks
+HYBRID_CASES = (("fp32", None), ("bf16", "bfloat16"))
+# the norm net: (N, C, L) inputs, Dense over L, BatchNorm / GroupNorm /
+# InstanceNorm over C, a HybridConcatenate of two Dense halves
+NORM_N, NORM_C, NORM_L, NORM_GROUPS = 16, 64, 2048, 8
+
+
+def hybrid_gpt(dtype, hybrid):
+    """``gpt2_124m`` at dropout ``HYBRID_DROPOUT``, ``Normal(0.02)`` from
+    ``SEED``, cast to ``dtype`` (None: fp32), hybridized or not."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import gpt
+    mx.random.seed(SEED)
+    net = gpt.gpt2_124m(vocab_size=GPT_VOCAB, dropout=HYBRID_DROPOUT)
+    net.initialize(init=mx.init.Normal(0.02))
+    if dtype is not None:
+        net.cast(dtype)
+    net.hybridize(hybrid)
+    return net
+
+
+def loop_run(step, net, trainer, batches, seed):
+    """``step`` over ``batches`` from the port's seed ``seed`` (the
+    dropout masks): the losses."""
+    import incubator_mxnet_tpu_torch as mx
+    mx.random.seed(seed)
+    return [float(step(net, trainer, x, y).asnumpy()) for x, y in batches]
+
+
+def same_state(tag, a, b, ta, tb):
+    """Every parameter and optimizer state of two loops bit for bit."""
+    from incubator_mxnet_tpu_torch.optimizer import fused as fmod
+    pa, pb = a.collect_params(), b.collect_params()
+    for (name, p), q in zip(pa.items(), pb.values()):
+        check(same_bits(p.data()._data, q.data()._data),
+              f"{tag}: parameter {name} of the hybridized loop differs from "
+              f"the eager loop's")
+    for i, st in ta._updaters.states.items():
+        check(all(same_bits(x._data, y._data) for x, y in zip(
+            fmod._state_list(st), fmod._state_list(tb._updaters.states[i]))),
+            f"{tag}: optimizer state {i} differs from the eager loop's")
+    return len(pa)
+
+
+def step_times(step, net, trainer, batches):
+    """Per step: CUDA-event ms and host wall ms (each step ends
+    synchronised)."""
+    ev, wall = [], []
+    for x, y in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a.record()
+        step(net, trainer, x, y)
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        ev.append(a.elapsed_time(b))
+    return ev, wall
+
+
+def spread(values):
+    """(max - min) / median."""
+    med = float(np.median(values))
+    return (max(values) - min(values)) / med
+
+
+def drive_hybrid(fa, card):
+    """``hybridize()`` as CUDA-graph replay on ``train_gpt.py``'s loop:
+    ``gpt2_124m`` (B = 8, T = 1024, dropout ``HYBRID_DROPOUT``, Adam) in
+    fp32 and cast to bf16, hybridized and ``hybridize(False)`` from one
+    seed: ``TRAIN_CHECK`` steps equal bit for bit (losses, weights, Adam
+    states); then each loop's ``TRAIN_STEPS`` timed steps in a
+    launch-count window (K1, K6, K7 12 a step, the update once; the
+    hybridized loop's from its graphs' tallies), ms per step by CUDA
+    events and by host wall (median, spread), one profiled step (host
+    launches, idle share), peak allocated bytes and the cached graph's
+    pool bytes; the hybridized step's host launches at most half the
+    eager step's.  Then the deferred-shape norm net hybridized ==
+    eager over ``TRAIN_CHECK`` Adam steps, running statistics included.
+    Returns {case: the hybridized window's counts}."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import telemetry
+    V, B, T = GPT_VOCAB, GLUON_B, GLUON_T
+    step = gluon16_step_fn()
+    windows = {}
+    for tag, dtype in HYBRID_CASES:
+        t0 = time.perf_counter()
+        nets = {h: hybrid_gpt(dtype, h) for h in (True, False)}
+        trainers = {h: mx.gluon.Trainer(n.collect_params(), "adam",
+                                        {"learning_rate": GLUON_LR})
+                    for h, n in nets.items()}
+        rng = np.random.RandomState(SEED)
+        batches = [gpt_batch(rng, B, T, V) for _ in range(TRAIN_CHECK)]
+        losses = {h: loop_run(step, nets[h], trainers[h], batches,
+                              SEED + 1) for h in (True, False)}
+        check(same_list(losses[True], losses[False]),
+              f"hybrid {tag}: hybridized losses {losses[True]} != eager "
+              f"losses {losses[False]}")
+        n = same_state(f"hybrid {tag}", nets[True], nets[False],
+                       trainers[True], trainers[False])
+        cg = nets[True]._cached_graph
+        print(f"hybrid {tag}: gpt2_124m dropout {HYBRID_DROPOUT}, "
+              f"{TRAIN_CHECK} steps hybridized == {TRAIN_CHECK} steps of "
+              f"hybridize(False) bit for bit (losses {losses[True]}, all "
+              f"{n} parameters and Adam states); {cg.captures} capture(s), "
+              f"{cg.replays} replay(s), {len(cg.keys())} key(s); "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        half = "" if dtype is None else ".bf16"
+        expect = {f"flash_fwd{half}": GPT_LAYERS,
+                  f"flash_bwd_dq{half}": GPT_LAYERS,
+                  f"flash_bwd_dkv{half}": GPT_LAYERS,
+                  f"multi_tensor_adam{half}": 1}
+        figures = {}
+        for h in (True, False):
+            what = "hybridized" if h else "eager"
+            net, trainer = nets[h], trainers[h]
+            timed = [gpt_batch(rng, B, T, V) for _ in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()         # --- the timed window
+            ev, wall = step_times(step, net, trainer, timed)
+            counts = nonzero(dict(fa.launch_counts))  # --- its end
+            peak = torch.cuda.max_memory_allocated()
+            for name in set(counts) | set(expect):
+                k, want = counts.get(name, 0), \
+                    expect.get(name, 0) * TRAIN_STEPS
+                check(k == want, f"hybrid {tag} {what}: kernel {name} "
+                      f"launched {k} times, expected {want}")
+            if h:
+                windows[tag] = counts
+            x, y = gpt_batch(rng, B, T, V)
+            prof, _ = profile_window(lambda: None,
+                                     lambda: step(net, trainer, x, y))
+            pool = net._cached_graph.pool_bytes if h else 0
+            figures[h] = prof
+            print(f"hybrid {tag} {what}: {np.median(ev):.2f} ms per step "
+                  f"(CUDA events, median of {TRAIN_STEPS}; {ev}; spread "
+                  f"{spread(ev):.4f}), host wall {np.median(wall):.2f} ms "
+                  f"({wall}; spread {spread(wall):.4f}), "
+                  f"{B * T * 1e3 / np.median(ev):.1f} tokens/s; one "
+                  f"profiled step: wall {prof['wall_ms']:.2f} ms, device "
+                  f"{prof['device_ms']:.2f} ms in {prof['device_ops']} "
+                  f"kernels and copies, {prof['host_launches']} host "
+                  f"launches, idle share {prof['idle_share']:.3f}; peak "
+                  f"{peak} bytes allocated, graph pool {pool} bytes; "
+                  f"launches {counts} [{card}]", flush=True)
+        check(figures[True]["host_launches"] * 2
+              <= figures[False]["host_launches"],
+              f"hybrid {tag}: a hybridized step makes "
+              f"{figures[True]['host_launches']} host launches, more than "
+              f"half the eager step's {figures[False]['host_launches']}")
+        del nets, trainers
+        torch.cuda.empty_cache()
+    led = telemetry.dispatch_ledger().get("cached_op", {})
+    print(f"hybrid: dispatch ledger cached_op: {led.get('dispatches')} "
+          f"dispatches, {led.get('compiles')} captures in "
+          f"{led.get('compile_seconds')} s", flush=True)
+    hybrid_norm_net(card)
+    return windows
+
+
+def norm_net():
+    """A deferred-shape ``HybridSequential``: ``Dense(NORM_L,
+    flatten=False)`` with ``in_units=0``, ``BatchNorm``,
+    ``GroupNorm(NORM_GROUPS)``, ``InstanceNorm`` and a
+    ``HybridConcatenate`` of two ``Dense(NORM_L // 2)``, every width from
+    the first input."""
+    from incubator_mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(NORM_L, flatten=False), nn.BatchNorm(),
+                nn.GroupNorm(NORM_GROUPS), nn.InstanceNorm())
+        cat = nn.HybridConcatenate(axis=-1)
+        with cat.name_scope():
+            cat.add(nn.Dense(NORM_L // 2, flatten=False),
+                    nn.Dense(NORM_L // 2, flatten=False))
+        net.add(cat)
+    return net
+
+
+def hybrid_norm_net(card):
+    """The norm net hybridized against ``hybridize(False)``: the same
+    seed, ``TRAIN_CHECK`` recorded steps of an L2 loss and Adam; losses,
+    every parameter (the running statistics among them) and Adam state
+    bit for bit; then two predict-mode calls of each (the running
+    statistics in use) bit for bit."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd as ag
+    rng = np.random.RandomState(SEED + 22)
+    xs = [rng.randn(NORM_N, NORM_C, NORM_L).astype(np.float32) * 2 + 1
+          for _ in range(TRAIN_CHECK + 1)]
+    ys = [rng.randn(NORM_N, NORM_C, NORM_L).astype(np.float32)
+          for _ in range(TRAIN_CHECK)]
+    loss_fn = mx.gluon.loss.L2Loss()
+    nets, trainers, losses, outs = {}, {}, {}, {}
+    for h in (True, False):
+        mx.random.seed(SEED)
+        net = nets[h] = norm_net()
+        net.initialize(init=mx.init.Normal(0.02))
+        net.hybridize(h)
+        trainers[h] = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": 1e-3})
+        losses[h] = []
+        for x, y in zip(xs, ys):
+            with ag.record():
+                L = loss_fn(net(mx.nd.array(x)), mx.nd.array(y)).mean()
+            L.backward()
+            trainers[h].step(1)
+            losses[h].append(float(L.asnumpy()))
+        outs[h] = [net(mx.nd.array(xs[-1])).asnumpy() for _ in range(2)]
+    check(losses[True] == losses[False], f"hybrid norm net: losses "
+          f"{losses[True]} != eager {losses[False]}")
+    n = same_state("hybrid norm net", nets[True], nets[False],
+                   trainers[True], trainers[False])
+    check(all(np.array_equal(a, b) for a, b in zip(outs[True], outs[False])),
+          "hybrid norm net: a predict-mode output differs from eager's")
+    params = nets[True].collect_params()
+    shapes = {k.split("_", 1)[1]: v.shape for k, v in params.items()}
+    cg = nets[True]._cached_graph
+    print(f"hybrid norm net: deferred shapes {shapes}; {TRAIN_CHECK} "
+          f"recorded steps and a predict call hybridized == eager bit for "
+          f"bit (losses {losses[True]}, all {n} parameters with the running "
+          f"statistics, Adam states, outputs); {cg.captures} captures, "
+          f"{cg.replays} replays [{card}]", flush=True)
+    del nets, trainers
+    torch.cuda.empty_cache()
+
+
 def batcher_counts():
     """(batches, requests) the one-shot batchers counted so far."""
     from incubator_mxnet_tpu_torch.serving import metrics as smetrics
@@ -6001,6 +6260,9 @@ def main():
     ap.add_argument("--serve16", action="store_true",
                     help="only serve the cast GPT (phase 15; the full run "
                          "does this in a child process)")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="only run hybridize() as graph replay on the "
+                         "Gluon loop and the norm net (phase 16)")
     args = ap.parse_args()
     faulthandler.enable()       # a crash in native code prints the stack
     if not torch.cuda.is_available():
@@ -6050,6 +6312,9 @@ def main():
     if args.serve16:
         drive_serve16(fa, card)
         return                               # a phase, no result
+    if args.hybrid:
+        drive_hybrid(fa, card)
+        return                               # a phase, no result
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -6097,6 +6362,7 @@ def main():
     # path (the compiled loop)
     launches = {r["name"]: 0 for r in rows}
     by_path = {}
+    hybrid = {}
     if not args.kernels:
         counts, dense_counts, net, eng, prompts, budgets, plain = \
             drive_path(fa)
@@ -6133,6 +6399,10 @@ def main():
                 if k.split(".")[0] in DECODE16:
                     by_path.setdefault(k, {})[f"serve16 {tag}"] = n
                     half[k] = n
+        # the hybridized Gluon loop's timed windows (phase 16): its
+        # kernels' launches from the graphs, beside each row's path count
+        for c in drive_hybrid(fa, card).values():
+            hybrid.update(c)
         launches = {"flash_fwd": counts["flash_fwd"],
                     "paged_decode": counts["paged_decode"],
                     "decode": dense_counts["decode"],
@@ -6155,6 +6425,8 @@ def main():
                                   if n), None),
                     "launches_by_path": by_path[r["name"]]}
                    if r["name"] in by_path else {}),
+                **({"launches_hybrid": hybrid[r["name"]]}
+                   if r["name"] in hybrid else {}),
                 **{k: r[k] for k in ("instances", "shapes", "ulps",
                                      "diff_share") if k in r}}
                for r in rows]

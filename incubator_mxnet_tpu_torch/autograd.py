@@ -15,7 +15,16 @@ variable's own gradient buffer per its ``grad_req`` — 'write' overwrites,
 'add' accumulates, 'null' has none — instead of letting torch accumulate
 into ``.grad``.  A buffer is allocated at its variable's first backward
 and keeps its address from then on, as a whole-tree optimizer kernel's
-leaf table and a captured CUDA graph need."""
+leaf table and a captured CUDA graph need.  The writes of one backward
+are one ``torch._foreach_copy_`` and one ``torch._foreach_add_`` (a few
+launches for any number of variables).
+
+A hybridized block's call on the card is one tape node,
+:class:`GraphedCall`: its forward replays the block's captured forward
+graph and its backward the captured backward graph
+(``gluon.block._CachedGraph``), whose gradients then reach the buffers
+as any other.  Those gradients live in the graph's pool and the next
+replay overwrites them, so :func:`grad` hands out copies of them."""
 from __future__ import annotations
 
 import threading
@@ -29,11 +38,14 @@ from . import telemetry as _telemetry
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad", "mark_variables", "get_symbol", "Function"]
+           "grad", "mark_variables", "get_symbol", "Function",
+           "GraphedCall"]
 
 _state = threading.local()
 # every live variable (NDArray with a grad_req other than 'null'), by id
 _variables: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+# the gradient buffers of captured backward graphs, by storage pointer
+_graph_grads: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 def _st():
@@ -172,9 +184,10 @@ def _backward(heads, head_grads, retain_graph, create_graph, variables):
     except RuntimeError as e:
         raise MXNetError(f"backward: {e}") from e
     if variables is not None:
-        return [NDArray(g) if g is not None else
+        return [NDArray(_own(g)) if g is not None else
                 NDArray(torch.zeros_like(v._data.detach()))
                 for v, g in zip(leaves, gs)]
+    writes, adds = ([], []), ([], [])
     with torch.no_grad():
         for v, g in zip(leaves, gs):
             if g is None:
@@ -182,11 +195,22 @@ def _backward(heads, head_grads, retain_graph, create_graph, variables):
             buf = v._grad
             if buf is None:
                 v._grad = NDArray(g.detach().clone())
-            elif v._grad_req == "add":
-                buf._data.add_(g)
             else:
-                buf._data.copy_(g)
+                to = adds if v._grad_req == "add" else writes
+                to[0].append(buf._data)
+                to[1].append(g)
+        if writes[0]:
+            torch._foreach_copy_(*writes)
+        if adds[0]:
+            torch._foreach_add_(*adds)
     return None
+
+
+def _own(g):
+    """``g``, or a copy of it where it is a captured graph's buffer."""
+    if _graph_grads.get(g.untyped_storage().data_ptr()) is not None:
+        return g.clone()
+    return g
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -268,3 +292,38 @@ class Function:
             return NDArray(out)
         with pause():
             return self.forward(*inputs)
+
+
+class GraphedCall(torch.autograd.Function):
+    """One replay of a hybridized block's captured forward as one tape
+    node.  ``apply(prog, *tensors)``: ``prog`` is the captured program
+    (``gluon.block._Program``), ``tensors`` the live tensors its backward
+    differentiates (the block's trainable parameters, then the inputs
+    that require a gradient), which link the node into the caller's
+    graph.  The forward replays the forward graph and returns its
+    outputs; the backward replays the backward graph and returns its
+    gradient buffers."""
+
+    @staticmethod
+    def forward(ctx, prog, *tensors):
+        outs = prog.replay_forward()
+        ctx.prog = prog
+        ctx.generation = prog.generation
+        # the node holds the program's saved activations until it is
+        # differentiated or dropped
+        ctx.token = prog.hold()
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, prog.diff)
+                                      if not d])
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        return (None,) + ctx.prog.replay_backward(ctx.generation, grads)
+
+
+def register_graph_grads(tensors) -> None:
+    """Record ``tensors``, a captured backward graph's gradient buffers,
+    so that :func:`grad` copies them out."""
+    for t in tensors:
+        _graph_grads[t.untyped_storage().data_ptr()] = t

@@ -8,7 +8,11 @@ heads are ``dense0_weight`` ... and its encoder ``bertmodel0_...`` (JAX
 builds the encoder outside the heads' name scope, so only the heads carry
 the ``bertforpretrain0_`` prefix to strip).  The port's modules carry
 the same names (:func:`.gluon.nn.mx_named_parameters`), so after
-:func:`load_jax_params` both packages compute the same function."""
+:func:`load_jax_params` both packages compute the same function.  Every
+``nn.Parameter`` of the model is carried, the normalisation layers'
+``gamma``, ``beta``, ``running_mean`` and ``running_var`` among them; a
+block with deferred shapes (``Dense(in_units=0)``) takes its arrays once
+its first forward has settled them."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -42,6 +46,10 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, object]):
     arrays = {}
     for name, p in named.items():
         a = _np.asarray(params[name], dtype=_np.float32)
+        if getattr(p, "mx_deferred", False) and 0 in tuple(p.shape):
+            raise MXNetError(
+                f"load_jax_params: {name}'s shape waits for the model's "
+                f"first forward ({tuple(p.shape)}); run one, then load")
         if tuple(a.shape) != tuple(p.shape):
             raise MXNetError(f"load_jax_params: {name} has shape "
                              f"{tuple(a.shape)}, the model expects "

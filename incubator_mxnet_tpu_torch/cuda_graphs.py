@@ -1,5 +1,7 @@
 """CUDA graph capture as the port's programs use it: the serving engine's
-closed program set and the train step.
+closed program set, the train step and a hybridized Gluon block's forward
+and backward (two captures into one pool, the pattern of
+``torch.cuda.make_graphed_callables``).
 
 A capture follows four rules:
 
@@ -50,8 +52,7 @@ from .base import MXNetError
 from .kernels.flash_attention import captured_launches, counted_flops
 
 __all__ = ["CAPTURE_LOCK", "DISPATCH_GATE", "DispatchGate",
-           "on_side_stream", "capture", "check_capture_draws", "counted",
-           "HostCopy"]
+           "on_side_stream", "capture", "check_capture_draws", "counted", "HostCopy"]
 
 CAPTURE_LOCK = threading.Lock()
 # the ids of the generators the open capture registered (None outside a

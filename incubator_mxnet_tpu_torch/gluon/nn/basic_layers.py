@@ -1,14 +1,21 @@
 """Basic layers with MXNet's parameter shapes and names (counterpart of
 ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
-``HybridSequential``, ``Dense``, ``LayerNorm``, ``Embedding``,
-``Dropout``, ``Flatten``, ``Identity``, ``Lambda``, ``HybridLambda``.
+``HybridSequential``, ``Dense``, ``LayerNorm``, ``BatchNorm``,
+``InstanceNorm``, ``GroupNorm``, ``Embedding``, ``Dropout``,
+``Flatten``, ``Identity``, ``Lambda``, ``HybridLambda``,
+``HybridConcatenate``, ``Concatenate``.
 
 Each layer is a :class:`..block.HybridBlock` whose ``forward`` is torch
 code over tensors, and each creates its parameters on ``device``
 (default: the current context, ``cuda:0`` outside ``with mx.cpu():``).
-A layer's input width is given at construction (``in_units``,
-``in_channels``): deferred shape inference is not ported."""
+An input width of 0 (``in_units``, ``in_channels``, the default) is
+deferred to the first forward, which sets it from the input
+(``infer_shape``), as in the reference.  ``BatchNorm`` writes its
+running statistics through ``block.update_aux`` while
+``autograd.is_training()`` (inside a hybridized call's graph too)."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -22,20 +29,35 @@ from .. import block as _block
 from ..block import Block, HybridBlock, mx_named_parameters
 
 __all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
-           "Dense", "LayerNorm", "Embedding", "Dropout", "Flatten",
-           "Identity", "Lambda", "HybridLambda", "gelu",
+           "Dense", "LayerNorm", "BatchNorm", "InstanceNorm", "GroupNorm",
+           "Embedding", "Dropout", "Flatten", "Identity", "Lambda",
+           "HybridLambda", "HybridConcatenate", "Concatenate", "gelu",
            "mx_named_parameters"]
 
 
-def _param(shape, device, init=None, dtype="float32"):
+def _param(shape, device, init=None, dtype="float32", grad_req="write",
+           differentiable=True):
     """A zero ``nn.Parameter`` of ``shape`` and ``dtype`` on ``device``
-    carrying its own initializer (``mx_init``) when ``init`` is given."""
+    carrying its own initializer (``mx_init``) when ``init`` is given, and
+    the Gluon parameter's ``grad_req`` and ``differentiable``.  A 0 in
+    ``shape`` defers that dimension to the first forward (``mx_deferred``:
+    the tensor is a zero-size placeholder until then)."""
     p = nn.Parameter(torch.zeros(*shape, device=resolve_device(device),
                                  dtype=torch_dtype(dtype)))
     if init is not None:
         from ... import initializer as _init
         p.mx_init = _init.create(init)
+    p.mx_grad_req = grad_req
+    p.mx_differentiable = differentiable
+    p.mx_deferred = 0 in tuple(shape)
     return p
+
+
+def _training(block) -> bool:
+    """Train mode as Dropout reads it: ``autograd.is_training()`` through
+    the Gluon surface, the module's ``training`` flag for tensor calls."""
+    from ... import autograd as _ag
+    return _ag.is_training() if _block.in_gluon_call() else block.training
 
 
 class _SequentialMixin:
@@ -96,17 +118,18 @@ class Dense(HybridBlock):
             raise MXNetError(f"Dense activation {activation!r} is not "
                              f"ported; have {sorted(_ops.ACTIVATIONS)} or "
                              "None")
-        if int(in_units) <= 0:
-            raise MXNetError("Dense needs in_units: deferred shape "
-                             "inference is not ported")
         self._units = int(units)
         self._flatten = bool(flatten)
         self._act_type = activation
         self._act = _ops.ACTIVATIONS.get(activation)
-        self.weight = _param((units, in_units), device, weight_initializer,
-                             dtype)
+        self.weight = _param((units, max(int(in_units), 0)), device,
+                             weight_initializer, dtype)
         self.bias = _param((units,), device, bias_initializer, dtype) \
             if use_bias else None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._reg_params["weight"].shape = (self._units, in_units)
 
     def forward(self, x):
         if self._flatten:
@@ -121,15 +144,20 @@ class Dense(HybridBlock):
 
 class LayerNorm(HybridBlock):
     """Normalises ``axis`` (default the last); ``gamma``/``beta`` of
-    ``in_channels`` and ``epsilon=1e-5`` as in MXNet."""
+    ``in_channels`` (0: from the first input) and ``epsilon=1e-5`` as in
+    MXNet."""
 
-    def __init__(self, in_channels, epsilon=1e-5, axis=-1, device=None,
+    def __init__(self, in_channels=0, epsilon=1e-5, axis=-1, device=None,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._eps = float(epsilon)
         self._axis = int(axis)
         self.gamma = _param((in_channels,), device)
         self.beta = _param((in_channels,), device)
+
+    def infer_shape(self, x, *args):
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (x.shape[self._axis],)
 
     def forward(self, x):
         if self._axis not in (-1, x.dim() - 1):
@@ -214,12 +242,134 @@ class Dropout(HybridBlock):
         self._axes = tuple(axes)
 
     def forward(self, x):
-        from ... import autograd as _ag
-        training = _ag.is_training() if _block.in_gluon_call() \
-            else self.training
-        if not training or self._rate <= 0.0:
+        if not _training(self) or self._rate <= 0.0:
             return x
         return _ops.dropout_tensor(x, self._rate, self._axes or None)
+
+
+class _Norm(HybridBlock):
+    """``gamma`` and ``beta`` of ``in_channels`` (0: the input's channel
+    axis at the first forward), as the reference's norm layers make them:
+    their own initializers, ``grad_req='null'`` for gamma without
+    ``scale`` and for beta without ``center``."""
+
+    def __init__(self, in_channels, center, scale, beta_initializer,
+                 gamma_initializer, device, prefix, params, axis=1):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = int(axis)
+        self.gamma = _param((in_channels,), device, gamma_initializer,
+                            grad_req="write" if scale else "null")
+        self.beta = _param((in_channels,), device, beta_initializer,
+                           grad_req="write" if center else "null")
+
+    def infer_shape(self, x, *args):
+        for p in self._reg_params.values():
+            p.shape = (x.shape[self._axis],)
+
+
+class BatchNorm(_Norm):
+    """Batch normalisation over ``axis`` (the channel axis, default 1).
+    While ``autograd.is_training()`` (the module's ``training`` for a
+    tensor call) and not ``use_global_stats`` it normalises with the
+    batch's statistics and moves the running ones, ``running =
+    running * momentum + batch * (1 - momentum)`` with the biased batch
+    variance, through :func:`..block.update_aux`; otherwise it normalises
+    with the running statistics.  ``scale=False`` fixes gamma at one
+    (the op's ``fix_gamma``)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 device=None, prefix=None, params=None):
+        super().__init__(in_channels, center, scale, beta_initializer,
+                         gamma_initializer, device, prefix, params, axis)
+        self._momentum = float(momentum)
+        self._epsilon = float(epsilon)
+        self._scale = bool(scale)
+        self._use_global_stats = bool(use_global_stats)
+        self.in_channels = in_channels
+        self.running_mean = _param((in_channels,), device,
+                                   running_mean_initializer,
+                                   grad_req="null", differentiable=False)
+        self.running_var = _param((in_channels,), device,
+                                  running_variance_initializer,
+                                  grad_req="null", differentiable=False)
+
+    def forward(self, x):
+        from ...ndarray.nn import batch_norm
+        if _training(self) and not self._use_global_stats:
+            out, mean, var = batch_norm(
+                x, self.gamma, self.beta, eps=self._epsilon,
+                fix_gamma=not self._scale, axis=self._axis)
+            m = self._momentum
+            with torch.no_grad():
+                new_mean = self.running_mean * m + mean * (1 - m)
+                new_var = self.running_var * m + var * (1 - m)
+            _block.update_aux(self._reg_params["running_mean"], new_mean)
+            _block.update_aux(self._reg_params["running_var"], new_var)
+            return out
+        return batch_norm(x, self.gamma, self.beta, self.running_mean,
+                          self.running_var, eps=self._epsilon,
+                          fix_gamma=not self._scale, use_global_stats=True,
+                          axis=self._axis)[0]
+
+
+class InstanceNorm(_Norm):
+    """Normalises each sample's channel over the axes after the channel
+    axis (1); by default gamma is fixed (``scale=False``), as in the
+    reference."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, prefix=None, params=None):
+        super().__init__(in_channels, center, scale, beta_initializer,
+                         gamma_initializer, device, prefix, params)
+        self._epsilon = float(epsilon)
+
+    def forward(self, x):
+        from ...ndarray.nn import instance_norm
+        return instance_norm(x, self.gamma, self.beta, self._epsilon)
+
+
+class GroupNorm(_Norm):
+    """Normalises each of ``num_groups`` groups of channels (axis 1) of
+    each sample."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, prefix=None, params=None):
+        super().__init__(in_channels, center, scale, beta_initializer,
+                         gamma_initializer, device, prefix, params)
+        self._num_groups = int(num_groups)
+        self._epsilon = float(epsilon)
+
+    def forward(self, x):
+        from ...ndarray.nn import group_norm
+        return group_norm(x, self.gamma, self.beta, self._num_groups,
+                          self._epsilon)
+
+
+class _ConcatMixin:
+    add = _SequentialMixin.add
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self.axis)
+
+
+class HybridConcatenate(_ConcatMixin, HybridBlock):
+    """Runs each child on the input and concatenates their outputs along
+    ``axis``."""
+
+
+class Concatenate(_ConcatMixin, Block):
+    """:class:`HybridConcatenate` as a plain block."""
 
 
 class Flatten(HybridBlock):

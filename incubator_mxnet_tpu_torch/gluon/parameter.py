@@ -10,8 +10,16 @@ backward, written per ``grad_req``, kept at one address.
 
 The module attribute (``dense.weight``) stays the ``nn.Parameter``, as
 PyTorch code expects; the Gluon object is reached through
-``collect_params()``, ``block.params`` or ``block._reg_params``.  Shapes
-are known at construction: deferred shape inference is not ported."""
+``collect_params()``, ``block.params`` or ``block._reg_params``.
+
+A shape with a 0 (``Dense(4)``'s weight ``(4, 0)``) is unknown until the
+block's first forward, as in the reference: the module's tensor is then
+a zero-size placeholder, ``initialize`` defers (``allow_deferred_init``)
+and ``data()`` raises :class:`DeferredInitializationError`; the first
+forward sets the shape (``HybridBlock.infer_shape``) and
+``_finish_deferred_init`` gives the same ``nn.Parameter`` object its
+full tensor and fills it, so the module, the Gluon parameter and its
+NDArray still share one tensor."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -27,7 +35,8 @@ __all__ = ["Parameter", "Constant", "ParameterDict",
 
 
 class DeferredInitializationError(MXNetError):
-    """Kept for the reference's API; the port never defers a shape."""
+    """A parameter read before the first forward settled its deferred
+    shape."""
 
 
 class Parameter:
@@ -46,17 +55,22 @@ class Parameter:
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
+        self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
+        # (init, default_init, rng) from initialize() while the shape waits
+        # for the first forward
+        self._deferred_init = None
         if var is None:
-            if shape is None or any(int(s) <= 0 for s in shape):
-                raise MXNetError(
-                    f"Parameter {name}: shape {shape} is not known; "
-                    "deferred shape inference is not ported")
             from ..context import resolve_device
-            var = nn.Parameter(torch.zeros(tuple(shape),
-                                           dtype=torch_dtype(dtype),
-                                           device=resolve_device(None)))
+            self._shape = tuple(int(s) for s in shape) \
+                if shape is not None else None
+            var = nn.Parameter(torch.zeros(
+                tuple(max(s, 0) for s in self._shape or (0,)),
+                dtype=torch_dtype(dtype), device=resolve_device(None)))
+        else:
+            self._shape = tuple(var.shape)
+        self._allocated = self._shape_known()
         var.requires_grad_(self._grad_req != "null")
         self._var = var
         # a variable from the start, as the reference's attach at init:
@@ -75,7 +89,24 @@ class Parameter:
     # -- properties -----------------------------------------------------
     @property
     def shape(self):
-        return tuple(self._var.shape)
+        """The shape; a 0 (or None for all of it) is not known yet."""
+        return tuple(self._var.shape) if self._allocated else self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        """Set the shape, merged as the reference merges: a known dimension
+        may not change, a 0 takes the new value."""
+        new_shape = tuple(int(s) for s in new_shape)
+        old = self.shape
+        if old is not None and (len(old) != len(new_shape) or any(
+                s != 0 and s != n for s, n in zip(old, new_shape))):
+            raise MXNetError(f"inconsistent shape for Parameter "
+                             f"{self.name}: {old} vs {new_shape}")
+        if not self._allocated:
+            self._shape = new_shape
+
+    def _shape_known(self) -> bool:
+        return self._shape is not None and all(s > 0 for s in self._shape)
 
     @property
     def dtype(self):
@@ -106,10 +137,47 @@ class Parameter:
         self._var = var
         self._nd._data = var
         self._nd._grad = None
+        self._shape = tuple(var.shape)
+        self._allocated = self._shape_known()
+
+    def _materialize(self):
+        """Give the module's tensor its full (now known) shape, in place:
+        the same ``nn.Parameter`` object, zeros until filled."""
+        with torch.no_grad():
+            self._var.data = torch.zeros(self._shape, dtype=self._var.dtype,
+                                         device=self._var.device)
+        self._nd._grad = None
+        self._allocated = True
+
+    def _finish_deferred_init(self):
+        """Allocate and fill a deferred parameter once its shape is known
+        (the block's first forward); nothing when none is pending."""
+        if self._deferred_init is None:
+            return
+        if not self._shape_known():
+            raise DeferredInitializationError(
+                f"Parameter {self.name} has unknown shape {self.shape}")
+        init, default_init, rng = self._deferred_init
+        self._deferred_init = None
+        self._materialize()
+        self._fill(init, default_init, rng)
+
+    def _check_initialized(self):
+        if self._allocated:
+            return
+        if self._deferred_init is not None:
+            raise DeferredInitializationError(
+                f"Parameter {self.name} was not initialized yet: its shape "
+                "is deferred to the first forward. Run a forward pass first")
+        raise MXNetError(
+            f"Parameter {self.name} has not been initialized: its shape "
+            f"{self.shape} is not known. Call .initialize() on the Block "
+            "and run a forward pass")
 
     # -- access ---------------------------------------------------------
     def data(self, ctx=None) -> NDArray:
         """The parameter as an NDArray over the module's tensor."""
+        self._check_initialized()
         return self._nd
 
     def list_data(self):
@@ -136,6 +204,10 @@ class Parameter:
             src = data.detach()
         else:
             src = torch.from_numpy(_np.ascontiguousarray(_np.asarray(data)))
+        if not self._allocated:
+            self.shape = tuple(src.shape)
+            self._deferred_init = None
+            self._materialize()
         if tuple(src.shape) != self.shape:
             raise MXNetError(f"Parameter {self.name}: shape "
                              f"{tuple(src.shape)} does not match "
@@ -170,17 +242,28 @@ class Parameter:
         first, then ``init``, then ``default_init`` (``Uniform()``), drawn
         from ``rng`` (a numpy ``RandomState``; default: one seeded from
         :func:`..random.numpy_rng`)."""
-        from .. import initializer as _init
         from .. import random as _random
         if self._initialized and not force_reinit:
             return
         if ctx is not None:
             self.reset_ctx(ctx)
+        rng = rng if rng is not None else _random.numpy_rng()
+        if not self._shape_known():
+            if not self.allow_deferred_init:
+                raise MXNetError(
+                    f"cannot initialize Parameter {self.name}: shape "
+                    f"{self.shape} unknown; set allow_deferred_init=True "
+                    "or provide in_units/in_channels")
+            self._deferred_init = (init, default_init, rng)
+            return
+        self._fill(init, default_init, rng)
+
+    def _fill(self, init, default_init, rng):
+        from .. import initializer as _init
         initer = _init.create(self.init if self.init is not None
                               else init if init is not None
                               else default_init if default_init is not None
                               else _init.Uniform())
-        rng = rng if rng is not None else _random.numpy_rng()
         self.set_data(initer(self.name, self.shape, rng))
 
     def __repr__(self):

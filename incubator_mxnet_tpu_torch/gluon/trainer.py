@@ -20,6 +20,12 @@ update also computes the health plane's per-leaf stats (gradient norms,
 update ratios, the first non-finite leaf), folded asynchronously
 (:meth:`sync_health` waits for them).
 
+The Trainer may be built before the first forward has settled a
+deferred shape (``Dense(in_units=0)``): it reads its parameters' tensors
+and gradients at each step, and ``FusedUpdater`` builds its leaf table
+there.  Parameters with ``grad_req='null'`` (BatchNorm's running
+statistics) are never updated.
+
 On one device there is nothing to aggregate: kvstore ``"device"``,
 ``"local"`` and None are accepted and ``allreduce_grads`` does nothing.
 A distributed store, ``update_on_kvstore``, gradient compression and

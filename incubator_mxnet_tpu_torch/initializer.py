@@ -5,7 +5,8 @@ Values are drawn on the host from a numpy ``RandomState(seed)`` passed in
 explicitly, in MXNet ``collect_params()`` order, and copied to the
 parameters' device — so one seed gives the same weights on the CPU and on
 the card.  Dispatch by name suffix follows MXNet: ``*bias`` and ``*beta``
-are zeros, ``*gamma`` ones, everything else goes to ``_init_weight``.  A
+are zeros, ``*gamma`` ones, running means zeros and running variances
+ones; everything else goes to ``_init_weight``.  A
 parameter with its own initializer (an ``mx_init`` attribute, MXNet's
 ``Parameter.init``) takes that one instead of the one passed in."""
 from __future__ import annotations
@@ -27,6 +28,10 @@ class Initializer:
         if name.endswith("bias") or name.endswith("beta"):
             return _np.zeros(shape, _np.float32)
         if name.endswith("gamma"):
+            return _np.ones(shape, _np.float32)
+        if name.endswith(("running_mean", "moving_mean")):
+            return _np.zeros(shape, _np.float32)
+        if name.endswith(("running_var", "moving_var", "moving_avg")):
             return _np.ones(shape, _np.float32)
         return _np.asarray(self._init_weight(shape, rng), _np.float32)
 

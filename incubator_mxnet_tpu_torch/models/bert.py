@@ -3,8 +3,8 @@
 non-sequence-parallel branch, ``MultiHeadAttention``, ``PositionwiseFFN``,
 ``cached_step_attn``, ``TransformerEncoderCell``, ``maybe_remat_cell``,
 ``BERTEncoder``, ``BERTModel``, ``BERTForPretrain``, ``MLMPretrainLoss``,
-``BERTPretrainLoss`` and the ``bert_tiny``/``bert_base``/``bert_large``
-configurations).
+``BERTPretrainLoss``, ``BERTMLMOnly`` and the ``bert_tiny``/``bert_base``/
+``bert_large`` configurations).
 
 Self-attention runs :func:`..kernels.flash_attention`: on the card K1
 forward and, in training, K6/K7 backward.  Parameter names follow MXNet's
@@ -30,7 +30,8 @@ from ..kernels.flash_attention import NEG, flash_attention
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "cached_step_attn",
            "TransformerEncoderCell", "maybe_remat_cell", "BERTEncoder",
            "BERTModel", "BERTForPretrain", "MLMPretrainLoss",
-           "BERTPretrainLoss", "bert_tiny", "bert_base", "bert_large"]
+           "BERTPretrainLoss", "BERTMLMOnly", "bert_tiny", "bert_base",
+           "bert_large"]
 
 
 def _sdpa(q, k, v, num_heads, mask=None, causal=False):
@@ -314,6 +315,22 @@ class BERTPretrainLoss(HybridBlock):
                       labels[:, :-1].reshape(-1))
         nsp = self.ce(nsp_scores, labels[:, -1])
         return mlm.mean() + nsp.mean()
+
+
+class BERTMLMOnly(HybridBlock):
+    """A :class:`BERTForPretrain` with only its MLM scores as output (a
+    one-output step for ``SPMDTrainer``); no prefix of its own, so its
+    parameters keep the inner model's names."""
+
+    def __init__(self, inner, **kwargs):
+        kwargs.setdefault("prefix", "")
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.inner = inner
+
+    def forward(self, input_ids, token_types):
+        mlm_scores, _nsp_scores = self.inner(input_ids, token_types)
+        return mlm_scores
 
 
 def bert_tiny(vocab_size=1024, max_length=128, **kw):

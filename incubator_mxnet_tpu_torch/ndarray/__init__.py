@@ -7,6 +7,7 @@ from .ndarray import (NDArray, arange, array, concatenate, empty, eye, full,
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
 from . import ops as op  # noqa: F401
+from .nn import BatchNorm, GroupNorm, InstanceNorm
 from .optimizer_ops import *  # noqa: F401,F403
 from .optimizer_ops import __all__ as _opt_all
 from . import random, utils  # noqa: F401
@@ -14,5 +15,6 @@ from .utils import load, load_frombuffer, save
 
 __all__ = (["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
             "eye", "linspace", "concatenate", "waitall", "random", "op",
-            "utils", "save", "load", "load_frombuffer"] + list(_ops_all)
+            "utils", "save", "load", "load_frombuffer", "BatchNorm",
+            "InstanceNorm", "GroupNorm"] + list(_ops_all)
            + list(_opt_all))

@@ -319,9 +319,16 @@ def test_dense_takes_every_activation_and_flattens():
     want = x.asnumpy().reshape(2, 12) @ w.T + bias
     np.testing.assert_allclose(got, want / (1 + np.abs(want)), rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(MXNetError, match="in_units"):
-        with mx.cpu():
-            nn.Dense(5)
+    # in_units=0 waits for the first input (deferred shape), which a
+    # forward before initialize() cannot settle
+    with mx.cpu():
+        d5 = nn.Dense(5, activation="softsign")
+        with pytest.raises(MXNetError, match="not been initialized"):
+            d5(x)
+        d5.initialize(init=mx.init.Normal(0.3), seed=0)
+        assert d5.weight.shape == (5, 0)
+        np.testing.assert_array_equal(d5(x).asnumpy(), got)
+        assert d5.weight.shape == (5, 12)
 
 
 def test_prelu_learns_its_alpha():
